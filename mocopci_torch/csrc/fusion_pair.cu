@@ -1,0 +1,118 @@
+// Fusion head, one thread per (query, neighbour) pair p = j*N + n (k-major):
+//   resi   = points2[idx[n, j]] - points1[n]
+//   dist   = sqrt(|resi|^2 + 1e-20)
+//   planes[:, p] = [resi, dist]                      (G, 4, P), for the blend
+//   logits[p]    = max_c relu(relu(relu(x W1 + b1) W2 + b2) W3 + b3)[c]
+// with BatchNorm already folded into W/b on the host (fold_bn_dense).
+//
+// Replaces three TPU kernels: mocopci_tpu/ops/pallas/gather_planes.py
+// bucket_gather_pair_planes (:87, pallas_call :113), the build_pair_planes
+// forward of fusion_planes.py (:148, pallas_call :154) and fusion_head.py
+// fusion_head_pallas (:66, pallas_call :92).  The TPU needed a radix one-hot
+// gather on the MXU and lane-dense planes; on Hopper a thread gathers its row
+// directly.
+//
+// Bound on the H100: operations, 2*(4*64 + 64*64 + 64*128) = 25k flops per
+// pair (40 GFLOP at 3 x 8192 x 64 pairs) against ~24 bytes of HBM traffic per
+// pair.  Design: the 12.8k weight floats sit in shared memory and every
+// thread of a warp reads the same weight (broadcast); each thread keeps its
+// two 64-wide hidden vectors in registers and reduces the 128 outputs to
+// their max on the fly, so no (G, C, P) activation exists anywhere.  Plain
+// FMAs: a tensor-core version (pairs as the M dimension of an mma) is a later
+// step.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kC1 = 64;
+constexpr int kC2 = 128;
+
+__global__ void __launch_bounds__(kThreads) fusion_pair_kernel(
+    const float* __restrict__ p2, const int* __restrict__ idx, const float* __restrict__ p1,
+    const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ w3, const float* __restrict__ b3,
+    float* __restrict__ planes, float* __restrict__ logits, int N, int N2, int K2) {
+  extern __shared__ float sm[];
+  float* s_w1 = sm;                 // [4][C1]
+  float* s_b1 = s_w1 + 4 * kC1;
+  float* s_w2 = s_b1 + kC1;         // [C1][C1]
+  float* s_b2 = s_w2 + kC1 * kC1;
+  float* s_w3 = s_b2 + kC1;         // [C1][C2]
+  float* s_b3 = s_w3 + kC1 * kC2;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < 4 * kC1; e += kThreads) s_w1[e] = w1[e];
+  for (int e = tid; e < kC1 * kC1; e += kThreads) s_w2[e] = w2[e];
+  for (int e = tid; e < kC1 * kC2; e += kThreads) s_w3[e] = w3[e];
+  for (int e = tid; e < kC1; e += kThreads) {
+    s_b1[e] = b1[e];
+    s_b2[e] = b2[e];
+  }
+  for (int e = tid; e < kC2; e += kThreads) s_b3[e] = b3[e];
+  __syncthreads();
+
+  const int g = blockIdx.y;
+  const int P = N * K2;
+  const int p = blockIdx.x * kThreads + tid;
+  if (p >= P) return;
+  const int j = p / N, n = p - j * N;
+  const int r = idx[(static_cast<size_t>(g) * N + n) * K2 + j];
+  const float* a = p2 + (static_cast<size_t>(g) * N2 + r) * 3;
+  const float* c = p1 + (static_cast<size_t>(g) * N + n) * 3;
+  float x[4];
+  x[0] = a[0] - c[0];
+  x[1] = a[1] - c[1];
+  x[2] = a[2] - c[2];
+  x[3] = sqrtf(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])),
+                                   __fmul_rn(x[2], x[2])),
+                         1e-20f));
+  float* pl = planes + static_cast<size_t>(g) * 4 * P;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pl[static_cast<size_t>(i) * P + p] = x[i];
+
+  float h1[kC1];
+#pragma unroll
+  for (int o = 0; o < kC1; ++o) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc = fmaf(x[i], s_w1[i * kC1 + o], acc);
+    h1[o] = fmaxf(acc + s_b1[o], 0.f);
+  }
+  float h2[kC1];
+#pragma unroll
+  for (int o = 0; o < kC1; ++o) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kC1; ++i) acc = fmaf(h1[i], s_w2[i * kC1 + o], acc);
+    h2[o] = fmaxf(acc + s_b2[o], 0.f);
+  }
+  float m = 0.f;  // max over relu outputs, all >= 0
+#pragma unroll 4
+  for (int o = 0; o < kC2; ++o) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kC1; ++i) acc = fmaf(h2[i], s_w3[i * kC2 + o], acc);
+    m = fmaxf(m, acc + s_b3[o]);
+  }
+  logits[static_cast<size_t>(g) * P + p] = m;
+}
+
+}  // namespace
+
+// points2 (G, N2, 3), idx (G, N, K2) int32, points1 (G, N, 3), folded weights
+// w1 (4, 64), w2 (64, 64), w3 (64, 128) with their biases, all f32
+// -> planes (G, 4, N*K2), logits (G, N*K2), pair p = j*N + n.
+MOCOPCI_API int mocopci_fusion_pair(const float* p2, const int* idx, const float* p1,
+                                    const float* w1, const float* b1, const float* w2,
+                                    const float* b2, const float* w3, const float* b3,
+                                    float* planes, float* logits, int G, int N, int N2,
+                                    int K2, void* stream) {
+  const size_t smem =
+      (4 * kC1 + kC1 + kC1 * kC1 + kC1 + kC1 * kC2 + kC2) * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(fusion_pair_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(mocopci::ceil_div(N * K2, kThreads), G);
+  fusion_pair_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p2, idx, p1, w1, b1, w2, b2, w3, b3, planes, logits, N, N2, K2);
+  return cudaGetLastError();
+}

@@ -1,0 +1,42 @@
+"""Softmax attention: CUDA kernel ``csrc/attention.cu`` and its plain twin.
+
+Replaces ``mocopci_tpu/ops/pallas/attention.py``: ``fused_attention_pallas``
+(:60).  Full-row f32 softmax over at most ``MAX_SEQ`` keys; the logits stay in
+shared memory.  Operations bound it at the main-path shapes.
+"""
+from __future__ import annotations
+
+import torch
+
+from mocopci_torch.kernels import _lib
+
+SOURCE = "mocopci_torch/csrc/attention.cu"
+REPLACES = "mocopci_tpu/ops/pallas/attention.py:60"
+
+MAX_SEQ = 4096
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """(G, N, D), (G, M, D), (G, M, D) -> (G, N, D) f32."""
+    attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) * scale, dim=-1)
+    return torch.matmul(attn, v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q kᵀ · scale) v; the kernel on CUDA, the twin on the CPU."""
+    if _lib.dispatch_device(q, k, v) == "cpu":
+        return attention_plain(q, k, v, scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _lib.check_cuda(f"attention {name}", t, torch.float32, 3)
+    G, N, D = q.shape
+    M = k.shape[1]
+    if k.shape != (G, M, D) or v.shape != (G, M, D):
+        raise ValueError(f"attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not 1 <= M <= MAX_SEQ:
+        raise ValueError(f"attention kernel covers 1 <= M <= {MAX_SEQ}, got {M}")
+    out = torch.empty_like(q)
+    _lib.launch("attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                G, N, M, D, float(scale), _lib.stream(q))
+    return out

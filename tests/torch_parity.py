@@ -1,0 +1,66 @@
+"""Shared helpers for the tests that hold the PyTorch port against the JAX package.
+
+Inputs and weights are made with numpy, run through the JAX module on the CPU
+(plain XLA, exact kNN mode) and through its port counterpart with the weights
+carried over by ``mocopci_torch.bridge``.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mocopci_tpu.ops import distance as jax_distance
+from mocopci_torch.bridge import params_from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def exact_knn():
+    """JAX kNN in exact mode for this module's tests, restored afterwards so
+    other tests on the same worker see the mode they expect.  PyTorch runs on
+    one thread: the shapes are tiny, and idle pool threads would spin on
+    cores the other test workers need."""
+    saved = (jax_distance._KNN_MODE, jax_distance._KNN_RECALL)
+    jax_distance.set_knn_mode("exact")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    jax_distance.set_knn_mode(*saved)
+
+
+def np_tree(variables):
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
+
+
+def perturb(variables, rng, scale=0.05):
+    """Move every leaf off its init value (BN stats, gamma, alpha included) so
+    no parameter hides behind a zero or identity initialisation."""
+
+    def one(path, a):
+        name = getattr(path[-1], "key", "")
+        if name == "var":
+            return (a * rng.uniform(0.5, 1.5, a.shape)).astype(np.float32)
+        return (a + scale * rng.normal(size=a.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(one, np_tree(variables))
+
+
+def init_jax(module, rng, *args, **kwargs):
+    """``jax.jit(module.init)`` on numpy inputs, then perturbed numpy variables."""
+    v = jax.jit(lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs))(*args)
+    return perturb(v, rng)
+
+
+def load(torch_module, variables):
+    """Carry flax variables into ``torch_module`` (strict) and return it in eval."""
+    torch_module.load_state_dict(params_from_jax(variables), strict=True)
+    return torch_module.eval()
+
+
+def t(x):
+    return torch.from_numpy(np.array(x, order="C"))
+
+
+def assert_close(got, want, atol=1e-5, rtol=1e-4):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
