@@ -10,12 +10,18 @@ Phases, each fatal on failure:
      the main path, with median times (CUDA events) and the least time the
      card could take (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
      whichever is larger; H100 SXM data sheet);
-  4. the main path: ``interpolate`` at the production ``ModelConfig()`` on 3
-     synthetic frame pairs, every kernel's launch count read, the Chamfer
-     distance to the same model run with ``device="cpu"`` (the plain twins),
-     then the median forward time, peak memory and one profiled forward
-     (device time per kernel, the device's busy share);
-  5. the summary lines: the card, the per-kernel JSON line, the contract line.
+  4. the forward, once per kNN mode (approx, the default, then exact):
+     ``interpolate`` at the production ``ModelConfig()`` on 3 synthetic frame
+     pairs, the launch counts read, the Chamfer distance to the same model
+     run with ``device="cpu"`` (the plain twins), the median forward time and
+     peak memory; one profiled forward in approx mode (device time per
+     kernel, the device's busy share);
+  5. the eval path: ``eval_step`` (forward, CD, EMD) on one sample, its
+     metrics against the CPU's, the times of its parts, then the eval CLI
+     ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
+  6. the summary lines: the card, the per-kernel JSON line, the contract line.
+Every path runs with the launch counts set to 0 just before it and read just
+after; every kernel must launch on at least one path.
 Exits non-zero, printing no result, without a card or without the package.
 """
 from __future__ import annotations
@@ -31,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+T0 = time.perf_counter()
 PEAK_F32_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 REPS = 20
@@ -82,8 +89,8 @@ def check_kernels(kernels, cfg, dataset, dev):
     from mocopci_torch.ops.distance import _normalise
 
     mods = {name: importlib.import_module(f"mocopci_torch.kernels.{name}")
-            for name in ("fps", "knn", "attention", "cross_tail", "transformer_tail",
-                         "fusion_pair")}
+            for name in ("fps", "knn", "knn_approx", "attention", "cross_tail",
+                         "transformer_tail", "fusion_pair", "chamfer_pair")}
     c0, c1, c2, c3, _ = cfg.enc_channels
     n0, (n1, n2, n3, _) = cfg.npoints, cfg.pyramid
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -139,6 +146,28 @@ def check_kernels(kernels, cfg, dataset, dev):
         lambda: torch.topk(torch.cdist(p1, p2), k, dim=-1, largest=False),
         2 * p1.numel() * F32 + p1.shape[0] * n0 * k * I32,
         8.0 * p1.shape[0] * n0 * n0, gap, 1e-6)
+
+    # knn_approx: the same fusion query (the fold is engaged: M > 1024), then
+    # the cosine half of the up_1 cost volume
+    got_a = kernels.knn_approx(p1, p2, k, "euclidean")
+    mism = int((got_a != kernels.knn_approx_plain(p1, p2, k, "euclidean")).sum())
+    cg, cw = kernels.knn_approx(fq, fr, kc, "cosine"), kernels.knn_approx_plain(fq, fr, kc, "cosine")
+    gap = float((d.gather(2, cg.long()) - d.gather(2, cw.long())).abs().max())
+    recall = float((got_a[..., :, None] == got[..., None, :]).any(-1).float().mean())
+    # a key keeps 23 - idx_bits mantissa bits: kernel and twin sum the dot in
+    # another order, so a swap may span two quantisation steps of d <= 2
+    qtol = 4.0 * 2.0 ** (mods["knn_approx"].tiling(n1, kc)[1] - 23)
+    log(f"knn_approx euclidean {tuple(p1.shape)} k={k}: index mismatches {mism}, recall "
+        f"against knn_exact {recall:.5f}; cosine {tuple(fq.shape)} k={kc}: mismatches "
+        f"{int((cg != cw).sum())}, max distance gap {gap:.3e} (tol {qtol:.1e})")
+    if mism:
+        raise SystemExit("knn_approx: Euclidean indices differ from the plain version")
+    row("knn_approx", mods["knn_approx"],
+        lambda: kernels.knn_approx(p1, p2, k, "euclidean"),
+        lambda: kernels.knn_approx_plain(p1, p2, k, "euclidean"),
+        lambda: torch.topk(torch.cdist(p1, p2), k, dim=-1, largest=False),
+        2 * p1.numel() * F32 + p1.shape[0] * n0 * k * I32,
+        8.0 * p1.shape[0] * n0 * n0, gap, qtol)
 
     # attention: Multi_Frame_Att at L1, (B*F*H, N, hd) = (5*8, n1, c1/8); then
     # EI at L2 / L3 and Cross_Frame_Att (head width c3) for the other widths
@@ -207,6 +236,31 @@ def check_kernels(kernels, cfg, dataset, dev):
         + idx.numel() * I32,
         G * P * (2 * (4 * c1 + c1 * c1 + c1 * c2) + 2 * (c1 + c1 + c2) + 9),
         err, 1e-4 * (1 + float(logits.abs().max())))
+
+    # chamfer_pair: the eval CD, 3 predicted frames against 3 ground-truth frames
+    _, gts = dataset[0]
+    a = torch.stack(f[1:]).contiguous()
+    b = torch.stack([torch.from_numpy(x).to(dev) for x in gts]).contiguous()
+    k12, k21 = kernels.chamfer_pair_keys(a, b)
+    w12, w21 = kernels.chamfer_pair_keys_plain(a, b)
+    mism = int((k12 != w12).sum() + (k21 != w21).sum())
+    got_d = kernels.chamfer_pair(a, b)
+    mask = (1 << mods["chamfer_pair"].index_bits(n0, n0)) - 1
+    want_d = [((x - kernels._lib.group_rows(y, key & mask)) ** 2).sum(-1)
+              for x, y, key in ((a, b, w12), (b, a, w21))]
+    err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got_d, want_d))
+    true12 = torch.cdist(a.double(), b.double()).pow(2).amin(2)
+    tie = float((got_d[0].double() - true12).abs().max())
+    log(f"chamfer_pair {tuple(a.shape)} x {tuple(b.shape)}: key mismatches {mism}, max d "
+        f"error {err:.3e}; largest gap to the float64 minimum {tie:.3e}")
+    if mism:
+        raise SystemExit("chamfer_pair: keys differ from the plain version")
+    row("chamfer_pair", mods["chamfer_pair"],
+        lambda: kernels.chamfer_pair_keys(a, b),
+        lambda: kernels.chamfer_pair_keys_plain(a, b),
+        lambda: (lambda dm: (dm.amin(2), dm.amin(1)))(torch.cdist(a, b)),
+        (a.numel() + b.numel()) * F32 + 2 * 3 * n0 * I32,
+        9.0 * 3 * n0 * n0, err, 0.0)
     return rows
 
 
@@ -223,10 +277,21 @@ def chamfer(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(directed(a, b) + directed(b, a))
 
 
-def run_slice(kernels, cfg, dataset, dev):
-    from mocopci_torch import MoCoPCI, interpolate
+# launch-counter names of the kernels the forward runs in each kNN mode
+FORWARD_KERNELS = {
+    "approx": ("fps", "knn_approx", "attention", "cross_tail", "transformer_tail",
+               "fusion_pair"),
+    "exact": ("fps", "knn", "attention", "cross_tail", "transformer_tail", "fusion_pair"),
+}
 
-    model = MoCoPCI(cfg, device=dev, seed=0)
+
+def run_slice(kernels, cfg, dataset, dev, model, cpu_model, mode):
+    """The forward in kNN ``mode`` on 3 pairs: launches, CD to the CPU run,
+    the 12-run median; profiled once in approx mode."""
+    from mocopci_torch import interpolate
+    from mocopci_torch.ops import set_knn_mode
+
+    set_knn_mode(mode)
     pairs = []
     for i in range(3):
         f = frames(dataset, i, dev)
@@ -235,22 +300,21 @@ def run_slice(kernels, cfg, dataset, dev):
     outs = [interpolate(model, x1, x2) for x1, x2 in pairs]
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    log(f"slice launches per 3 forwards: {launches}")
+    log(f"slice {mode}: launches per 3 forwards: {launches}")
     for out in outs:
         if out.shape != (1, 3, cfg.npoints, 3) or not bool(torch.isfinite(out).all()):
-            raise SystemExit(f"slice output wrong: {tuple(out.shape)}")
-    missing = [name for name, n in launches.items() if n == 0]
+            raise SystemExit(f"slice {mode}: output wrong: {tuple(out.shape)}")
+    missing = [name for name in FORWARD_KERNELS[mode] if launches[name] == 0]
     if missing:
-        raise SystemExit(f"kernels not launched on the main path: {missing}")
+        raise SystemExit(f"slice {mode}: kernels not launched on the main path: {missing}")
 
     t0 = time.perf_counter()
-    cpu_model = MoCoPCI(cfg, device="cpu", seed=0)
     ref = interpolate(cpu_model, pairs[0][0].cpu(), pairs[0][1].cpu())
     cpu_s = time.perf_counter() - t0
     cds = [chamfer(outs[0][0, j], ref[0, j].to(dev)) for j in range(cfg.n_frames)]
-    log(f"CD card vs cpu per frame {cds} (cpu forward {cpu_s:.1f} s)")
+    log(f"slice {mode}: CD card vs cpu per frame {cds} (cpu forward {cpu_s:.1f} s)")
     if max(cds) > 1e-4:
-        raise SystemExit("slice: card output differs from the CPU run")
+        raise SystemExit(f"slice {mode}: card output differs from the CPU run")
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -263,17 +327,100 @@ def run_slice(kernels, cfg, dataset, dev):
         times.append((time.perf_counter() - t0) * 1e3)
     fwd_ms = float(np.median(times))
     peak = torch.cuda.max_memory_allocated()
-    log(f"slice: ModelConfig() B=1 eval forward median {fwd_ms:.3f} ms over 12 runs "
+    log(f"slice {mode}: ModelConfig() B=1 eval forward median {fwd_ms:.3f} ms over 12 runs "
         f"(min {min(times):.3f}, max {max(times):.3f}), peak memory {peak / 2**20:.1f} MiB")
-    busy = profile_forward(model, *pairs[0])
+    busy = profile_forward(model, *pairs[0]) if mode == "approx" else {}
     return launches, {"forward_ms": fwd_ms, "forward_ms_min": min(times),
                       "forward_ms_max": max(times), "cd_max": max(cds),
                       "peak_mib": peak / 2**20, **busy}
 
 
+# the final JSON keys of the JAX package's eval CLI, which the port's CLI keeps
+CLI_KEYS = {f"{m}_frame{j}" for m in ("cd", "emd") for j in (1, 2, 3)} | {
+    "cd_mean", "emd_mean", "wall_s", "compile_s", "per_sample_ms", "device_ms_per_sample",
+    "synced_roundtrip_ms_per_sample", "n_samples"}
+
+
+def host_ms(fn, reps=5) -> float:
+    """Median host-clock ms of ``fn`` ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def run_eval(kernels, cfg, dataset, dev, model, cpu_model):
+    """eval_step (forward, CD, EMD) on one sample in approx mode, held against
+    the CPU, the times of its parts, then the eval CLI on 3 synthetic samples."""
+    from mocopci_torch import interpolate, ops
+    from mocopci_torch.cli import test as cli_test
+    from mocopci_torch.training import eval_metrics, eval_step
+
+    ops.set_knn_mode("approx")
+    inputs, gts = dataset[0]
+    batch = {"pc1": inputs[1][None], "pc2": inputs[2][None], "gt": np.stack(gts)[None]}
+    kernels.reset_launches()
+    m = eval_step(model, batch)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"eval: launches per eval_step: {launches}")
+    if launches["chamfer_pair"] == 0:
+        raise SystemExit("eval: chamfer_pair not launched")
+    card = {k: float(v[0]) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in card.values()):
+        raise SystemExit(f"eval: metrics not finite: {card}")
+
+    # the times first, before the CPU comparisons load the host
+    out = interpolate(model, batch["pc1"], batch["pc2"])
+    x1, x2, gt_d = (torch.from_numpy(batch[k]).to(dev) for k in ("pc1", "pc2", "gt"))
+    B, F, N, _ = out.shape
+    timing = {
+        "eval_step_ms": host_ms(lambda: eval_step(model, batch)),
+        "forward_ms": host_ms(lambda: interpolate(model, x1, x2)),
+        "cd_ms": host_ms(lambda: ops.chamfer_distance_per_sample(
+            out.reshape(B * F, N, 3), gt_d.reshape(B * F, N, 3))),
+        "emd_ms": host_ms(lambda: [ops.earth_mover_distance_auto(out[:, j], gt_d[:, j])
+                                   for j in range(F)]),
+    }
+    log("eval: ModelConfig() B=1 ms per sample, median of 5 (host clock, synchronized): "
+        + json.dumps({k: round(v, 3) for k, v in timing.items()}))
+
+    # the card's output through the metrics on the CPU (every kernel's plain
+    # version), then the whole eval_step on the CPU model
+    t0 = time.perf_counter()
+    same = {k: float(v[0]) for k, v in eval_metrics(out.cpu(), gt_d.cpu()).items()}
+    whole = {k: float(v[0]) for k, v in eval_step(cpu_model, batch).items()}
+    cpu_s = time.perf_counter() - t0
+    gaps = {k: abs(card[k] - same[k]) / abs(same[k]) for k in card}
+    gaps_whole = {k: abs(card[k] - whole[k]) / abs(whole[k]) for k in card}
+    log(f"eval: card metrics {card}")
+    log(f"eval: relative gap to the CPU metrics of the same output {gaps}; to the CPU "
+        f"eval_step {gaps_whole} ({cpu_s:.1f} s on the CPU)")
+    bad = [k for k, g in gaps.items() if g > (1e-6 if k.startswith("cd") else 1e-3)]
+    if bad:
+        raise SystemExit(f"eval: card metrics differ from the CPU's: {bad}")
+
+    kernels.reset_launches()
+    result = cli_test.main(["--synthetic", "3"])
+    cli_launches = dict(kernels.LAUNCHES)
+    log(f"eval cli: launches {cli_launches}")
+    if cli_launches["chamfer_pair"] == 0 or set(result) != CLI_KEYS:
+        raise SystemExit(f"eval cli: chamfer_pair launches {cli_launches['chamfer_pair']}, "
+                         f"keys {sorted(result)}")
+    return launches, {"metrics": card, "gap_same_output": gaps, "gap_cpu_eval_step": gaps_whole,
+                      **timing, "cli": result}
+
+
 # device-kernel name fragment -> port kernel, for the profile breakdown
 KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
-                  "knn_dot_kernel": "knn_exact", "attention_kernel": "attention",
+                  "knn_dot_kernel": "knn_exact", "knn_approx_xyz_kernel": "knn_approx",
+                  "knn_approx_dot_kernel": "knn_approx", "chamfer_pair_kernel": "chamfer_pair",
+                  "attention_kernel": "attention",
                   "cross_tail_kernel": "cross_tail",
                   "transformer_tail_kernel": "transformer_tail",
                   "fusion_pair_kernel": "fusion_pair"}
@@ -326,7 +473,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, root)
-    from mocopci_torch import ModelConfig, kernels
+    from mocopci_torch import MoCoPCI, ModelConfig, kernels
     from mocopci_torch.data import SyntheticInterpolationDataset
     from mocopci_torch.device import resolve_device
     from mocopci_torch.kernels import _lib
@@ -346,10 +493,25 @@ def main() -> int:
     cfg = ModelConfig()
     dataset = SyntheticInterpolationDataset(length=3, num_points=cfg.npoints, seed=0)
     rows = check_kernels(kernels, cfg, dataset, dev)
-    launches, slice_stats = run_slice(kernels, cfg, dataset, dev)
+    model = MoCoPCI(cfg, device=dev, seed=0)
+    cpu_model = MoCoPCI(cfg, device="cpu", seed=0)
+    paths, stats = {}, {}
+    for mode in ("approx", "exact"):
+        paths[f"slice_{mode}"], stats[f"slice_{mode}"] = run_slice(
+            kernels, cfg, dataset, dev, model, cpu_model, mode)
+    paths["eval"], stats["eval"] = run_eval(kernels, cfg, dataset, dev, model, cpu_model)
+    # each kernel's launches on the path it belongs to: the default forward,
+    # the exact-mode forward for knn_exact, eval_step for chamfer_pair
+    home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair")}
     for r in rows:
-        r["launches"] = launches[{"knn_exact": "knn"}.get(r["name"], r["name"])]
-    log(json.dumps({"slice": slice_stats}))
+        path, counter = home.get(r["name"], ("slice_approx", r["name"]))
+        r["launches"], r["path"] = paths[path][counter], path
+    never = [r["name"] for r in rows if r["launches"] == 0]
+    if never or len(rows) != len(_lib.LAUNCHES):
+        raise SystemExit(f"kernels not launched on their path: {never}")
+    log(json.dumps({"paths": paths}))
+    log(json.dumps(stats))
+    log(f"total: {time.perf_counter() - T0:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

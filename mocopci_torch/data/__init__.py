@@ -1,3 +1,4 @@
+from mocopci_torch.data.nldrive import NLDriveDataset, batches
 from mocopci_torch.data.synthetic import SyntheticInterpolationDataset
 
-__all__ = ["SyntheticInterpolationDataset"]
+__all__ = ["NLDriveDataset", "SyntheticInterpolationDataset", "batches"]

@@ -6,18 +6,26 @@ launches per kernel name; ``reset_launches()`` zeroes them.
 """
 from mocopci_torch.kernels._lib import LAUNCHES, reset_launches
 from mocopci_torch.kernels.attention import attention, attention_plain
+from mocopci_torch.kernels.chamfer_pair import (
+    chamfer_pair,
+    chamfer_pair_keys,
+    chamfer_pair_keys_plain,
+)
 from mocopci_torch.kernels.cross_tail import cross_tail, cross_tail_plain
 from mocopci_torch.kernels.fps import fps, fps_plain
 from mocopci_torch.kernels.fusion_pair import fold_bn_dense, fusion_pair, fusion_pair_plain
 from mocopci_torch.kernels.knn import knn_exact, knn_plain
+from mocopci_torch.kernels.knn_approx import knn_approx, knn_approx_plain
 from mocopci_torch.kernels.transformer_tail import transformer_tail, transformer_tail_plain
 
 __all__ = [
     "LAUNCHES", "reset_launches",
     "attention", "attention_plain",
+    "chamfer_pair", "chamfer_pair_keys", "chamfer_pair_keys_plain",
     "cross_tail", "cross_tail_plain",
     "fps", "fps_plain",
     "fold_bn_dense", "fusion_pair", "fusion_pair_plain",
     "knn_exact", "knn_plain",
+    "knn_approx", "knn_approx_plain",
     "transformer_tail", "transformer_tail_plain",
 ]

@@ -40,6 +40,8 @@ SIGNATURES = {
     "cross_tail": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "transformer_tail": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "fusion_pair": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "knn_approx": [_P, _P, _P] + [_I] * 9 + [_P, _P],
+    "chamfer_pair": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 # launches per kernel since the last reset_launches()

@@ -1,0 +1,102 @@
+"""Bidirectional 1-NN Chamfer keys: CUDA kernel ``csrc/chamfer_pair.cu`` and
+its plain twin, plus the exact recompute around them.
+
+Replaces the forward of ``mocopci_tpu/ops/pallas/chamfer_pair.py``:
+``_pair_keys`` (:126) under ``chamfer_pair`` (:169).  One distance sweep gives
+per query the least key over the reference cloud (``k12``) and per reference
+point the least key over the queries (``k21``); a key is the squared
+distance's float bits with the low ``bit_length(max(N, M) - 1)`` bits replaced
+by the index.  The distance is ``fma(dz, dz, fma(dx, dx, dy * dy))``: the
+contraction XLA's CPU compiler gives the Pallas kernel body, so the keys equal
+the interpret-mode reference's bit for bit.  The twin emulates each fused
+multiply-add in float64 (the product is exact there).  Outside the kernel the
+selected neighbour is gathered and its distance recomputed exactly, as in JAX.
+Operations bound it.
+"""
+from __future__ import annotations
+
+import torch
+
+from mocopci_torch.kernels import _lib
+
+SOURCE = "mocopci_torch/csrc/chamfer_pair.cu"
+REPLACES = "mocopci_tpu/ops/pallas/chamfer_pair.py:126"
+
+TQ, TM = 256, 1024      # the Pallas kernel's query and reference tiles
+TS = TO = 512           # its backward's scatter tiles (source, output)
+INF_KEY = 0x7F7FFFFF    # f32 max bit pattern
+# distance-matrix entries per chunk of the plain version
+_CHUNK = 1 << 22
+
+
+def supported(n: int, m: int) -> bool:
+    """True when (N=n, M=m) clouds tile onto the Pallas kernel's grid; the JAX
+    package (and so the port) takes two directed 1-NN queries otherwise."""
+    for size, tile in ((n, TQ), (m, TM), (n, TS), (m, TS), (n, TO), (m, TO)):
+        t = min(tile, size)
+        if size % t or t % 8:
+            return False
+    return min(TM, m) % 128 == 0
+
+
+def index_bits(n: int, m: int) -> int:
+    return max((max(n, m) - 1).bit_length(), 1)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fma(a, b, c): the product is exact in float64, one rounding
+    there, one to float32 (differs from a true fma only on a float64 result
+    exactly halfway between two floats)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def pair_distances(pc1: torch.Tensor, pc2: torch.Tensor) -> torch.Tensor:
+    """(G, N, M) squared distances as the kernel computes them."""
+    dx, dy, dz = (pc1[:, :, None, c] - pc2[:, None, :, c] for c in range(3))
+    return _fma(dz, dz, _fma(dx, dx, dy * dy))
+
+
+def chamfer_pair_keys_plain(pc1: torch.Tensor, pc2: torch.Tensor):
+    """(G, N, 3) x (G, M, 3) -> packed argmin keys (k12 (G, N), k21 (G, M))."""
+    G, N, _ = pc1.shape
+    M = pc2.shape[1]
+    mask = (1 << index_bits(N, M)) - 1
+    cols = torch.arange(M, dtype=torch.int32, device=pc1.device)
+    k21 = torch.full((G, M), INF_KEY, dtype=torch.int32, device=pc1.device)
+    k12 = []
+    rows = max(1, _CHUNK // max(M, 1))
+    for s in range(0, N, rows):
+        hi = pair_distances(pc1[:, s:s + rows], pc2).view(torch.int32) & ~mask
+        k12.append((hi | cols).amin(-1))
+        qid = torch.arange(s, s + hi.shape[1], dtype=torch.int32, device=pc1.device)
+        k21 = torch.minimum(k21, (hi | qid[:, None]).amin(1))
+    return torch.cat(k12, dim=1), k21
+
+
+def chamfer_pair_keys(pc1: torch.Tensor, pc2: torch.Tensor):
+    """Packed argmin keys; the kernel on CUDA, the twin on the CPU."""
+    if _lib.dispatch_device(pc1, pc2) == "cpu":
+        return chamfer_pair_keys_plain(pc1, pc2)
+    _lib.check_cuda("chamfer_pair pc1", pc1, torch.float32, 3)
+    _lib.check_cuda("chamfer_pair pc2", pc2, torch.float32, 3)
+    G, N, C = pc1.shape
+    M = pc2.shape[1]
+    if C != 3 or pc2.shape[0] != G or pc2.shape[2] != 3:
+        raise ValueError(f"chamfer_pair: shapes {tuple(pc1.shape)} vs {tuple(pc2.shape)}")
+    k12 = torch.full((G, N), INF_KEY, dtype=torch.int32, device=pc1.device)
+    k21 = torch.full((G, M), INF_KEY, dtype=torch.int32, device=pc1.device)
+    _lib.launch("chamfer_pair", pc1.data_ptr(), pc2.data_ptr(), G, N, M, index_bits(N, M),
+                k12.data_ptr(), k21.data_ptr(), _lib.stream(pc1))
+    return k12, k21
+
+
+def chamfer_pair(pc1: torch.Tensor, pc2: torch.Tensor):
+    """Both directed per-point min squared distances (d12 (G, N), d21 (G, M)),
+    exact for the selected neighbours (near ties within the key quantisation
+    may select a marginally farther one, as in JAX)."""
+    pc1, pc2 = pc1.float().contiguous(), pc2.float().contiguous()
+    k12, k21 = chamfer_pair_keys(pc1, pc2)
+    mask = (1 << index_bits(pc1.shape[1], pc2.shape[1])) - 1
+    diff12 = pc1 - _lib.group_rows(pc2, k12 & mask)
+    diff21 = pc2 - _lib.group_rows(pc1, k21 & mask)
+    return (diff12 * diff12).sum(-1), (diff21 * diff21).sum(-1)

@@ -1,18 +1,38 @@
-"""Pairwise distances and exact k-nearest-neighbour selection.
+"""Pairwise distances and k-nearest-neighbour selection.
 
-Port of ``mocopci_tpu/ops/distance.py`` in its exact mode: the k smallest
-(distance, index) pairs in ascending order, ties to the lowest index.  The
-selection runs in the ``knn_exact`` kernel (CUDA) or its plain twin (CPU).
+Port of ``mocopci_tpu/ops/distance.py``.  ``set_knn_mode`` picks the
+selection, with the JAX package's values and default:
+
+- ``"approx"`` (default): the packed-key kNN of the JAX package's TPU path,
+  the ``knn_approx`` kernel (CUDA) or its plain twin (CPU);
+- ``"exact"``: the k smallest (distance, index) pairs in ascending order,
+  ties to the lowest index, the ``knn_exact`` kernel or its twin.
+
 Channels-last ``(B, N, C)`` throughout.
 """
 from __future__ import annotations
 
 import torch
 
-from mocopci_torch.kernels import knn_exact
+from mocopci_torch.kernels import knn_approx, knn_exact
 from mocopci_torch.kernels.knn import distances
 
 COSINE_EPS = 1e-8
+MODES = ("approx", "exact")
+
+_KNN_MODE = "approx"
+
+
+def set_knn_mode(mode: str) -> None:
+    """mode: "approx" (packed keys, the default) or "exact" (full top-k)."""
+    global _KNN_MODE
+    if mode not in MODES:
+        raise ValueError(f"knn mode must be one of {MODES}, got {mode!r}")
+    _KNN_MODE = mode
+
+
+def get_knn_mode() -> str:
+    return _KNN_MODE
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -29,12 +49,16 @@ def cosine_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return distances(_normalise(src), _normalise(dst), "cosine")
 
 
+def _select(query: torch.Tensor, ref: torch.Tensor, k: int, metric: str) -> torch.Tensor:
+    fn = knn_approx if _KNN_MODE == "approx" else knn_exact
+    return fn(query.contiguous(), ref.contiguous(), k, metric)
+
+
 def knn(k: int, ref: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     """Euclidean k-NN: (B, N, min(k, M)) int32 indices of ``ref`` rows per query."""
-    return knn_exact(query.float().contiguous(), ref.float().contiguous(), k, "euclidean")
+    return _select(query.float(), ref.float(), k, "euclidean")
 
 
 def knn_cosine(k: int, ref: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     """Cosine-distance k-NN in feature space (rows normalised first)."""
-    return knn_exact(_normalise(query.float()).contiguous(),
-                     _normalise(ref.float()).contiguous(), k, "cosine")
+    return _select(_normalise(query.float()), _normalise(ref.float()), k, "cosine")

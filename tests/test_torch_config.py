@@ -3,6 +3,9 @@
 No JAX model is built here: these tests run in well under a second each.
 """
 import dataclasses
+import importlib
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -77,6 +80,12 @@ def test_wrappers_take_plain_path_only_on_cpu():
     with pytest.raises(ValueError):
         kernels.knn_exact(xyz, xyz, 2, "manhattan")
     with pytest.raises(ValueError):
+        kernels.knn_approx(xyz, xyz.to("meta"), 2, "euclidean")
+    with pytest.raises(ValueError):
+        kernels.knn_approx(xyz, xyz, 2, "manhattan")
+    with pytest.raises(ValueError):
+        kernels.chamfer_pair_keys(xyz, xyz.to("meta"))
+    with pytest.raises(ValueError):
         _lib.check_cuda("x", xyz, torch.float32, 3)
 
 
@@ -101,3 +110,32 @@ def test_time_embedding_and_area_matrix_match_jax():
     for n_in, n_out in ((3, 32), (3, 5), (8, 3)):
         np.testing.assert_array_equal(area_resize_matrix(n_in, n_out),
                                       np.asarray(jax_area(n_in, n_out)))
+
+
+def test_knn_mode_defaults_to_approx_as_jax():
+    from mocopci_tpu.ops import distance as jax_distance
+    from mocopci_torch.ops import distance
+
+    src = pathlib.Path(jax_distance.__file__).read_text()
+    assert re.search(r'^_KNN_MODE = "approx"$', src, re.M)
+    assert distance.get_knn_mode() == "approx" and distance.MODES == ("approx", "exact")
+    with pytest.raises(ValueError):
+        distance.set_knn_mode("fast")
+
+
+def test_chamfer_supported_and_knn_tiling_match_jax():
+    """The port's dispatch sizes: chamfer_pair.supported as JAX's, and the
+    approx kNN's tile, index bits and fold condition as fused_knn_pallas's."""
+    from mocopci_tpu.ops.pallas import chamfer_pair as jax_cp
+    from mocopci_torch.kernels.knn_approx import tiling
+
+    port_cp = importlib.import_module("mocopci_torch.kernels.chamfer_pair")
+    for n in (8, 64, 100, 128, 512, 1000, 1024, 1536, 2048, 8192, 16384):
+        for m in (64, 128, 256, 1024, 1536, 8192):
+            assert port_cp.supported(n, m) == jax_cp.supported(n, m), (n, m)
+    assert tiling(300, 9) == (384, 9, False)
+    assert tiling(1024, 32) == (1024, 10, False)
+    assert tiling(1500, 8) == (1024, 11, True)
+    assert tiling(8192, 32) == (1024, 13, True)
+    assert tiling(8192, 400) == (1024, 13, False)
+    assert tiling(64, 16) == (128, 6, False)

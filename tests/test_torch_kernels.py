@@ -3,13 +3,17 @@ in Pallas interpret mode on the CPU with the same numpy inputs.
 
 The twins are what the kernels are compared with on the card (chip_smoke.py,
 tests/test_torch_cuda.py), so this closes the chain kernel = twin = Pallas.
-Indices must be equal; values agree to atol 1e-5, rtol 1e-4 (sum order).
+Indices and packed keys must be equal; values agree to atol 1e-5, rtol 1e-4
+(sum order).  The cosine kNN ranks by a dot product whose sum order differs,
+so there only swaps at float-rounding distance gaps are allowed.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from mocopci_tpu.ops.pallas.attention import fused_attention_pallas
+from mocopci_tpu.ops.pallas.chamfer_pair import _pair_keys
+from mocopci_tpu.ops.pallas.chamfer_pair import chamfer_pair as jax_chamfer_pair
 from mocopci_tpu.ops.pallas.cross_tail import cross_tail as jax_cross_tail
 from mocopci_tpu.ops.pallas.fps import (
     farthest_point_sample_pallas,
@@ -18,7 +22,7 @@ from mocopci_tpu.ops.pallas.fps import (
 from mocopci_tpu.ops.pallas.fusion_head import fold_bn_dense as jax_fold
 from mocopci_tpu.ops.pallas.fusion_head import fusion_head_pallas
 from mocopci_tpu.ops.pallas.gather_planes import bucket_gather_pair_planes
-from mocopci_tpu.ops.pallas.knn import exact_knn_pallas
+from mocopci_tpu.ops.pallas.knn import exact_knn_pallas, fused_knn_pallas
 from mocopci_tpu.ops.pallas.transformer_tail import transformer_tail as jax_tt
 from mocopci_torch import kernels
 from mocopci_torch.ops.distance import _normalise
@@ -115,3 +119,50 @@ def test_fusion_pair_twin_matches_pallas():
     assert_close(planes, want_planes)
     want = fusion_head_pallas(want_planes, *map(jnp.asarray, folded_np), interpret=True)
     assert_close(logits, want)
+
+
+@pytest.mark.parametrize("case", ["one_tile", "fold", "duplicates", "cosine"])
+def test_knn_approx_twin_matches_pallas(case):
+    """M <= tr (no fold), M > 1024 (fold, ragged last tile), duplicated
+    reference points, and the cosine metric at C = 32."""
+    rng = np.random.default_rng(6)
+    B, N, M, C, k, metric = {
+        "one_tile": (2, 70, 300, 3, 9, "euclidean"),
+        "fold": (1, 64, 1500, 3, 8, "euclidean"),
+        "duplicates": (2, 48, 256, 3, 12, "euclidean"),
+        "cosine": (2, 40, 200, 32, 8, "cosine"),
+    }[case]
+    q, r = _x(rng, B, N, C, scale=4.0), _x(rng, B, M, C, scale=4.0)
+    if case == "duplicates":
+        r[:, M // 2:] = r[:, :M // 2]          # every point twice
+        q[:, :8] = r[:, 3:11]                  # queries on reference points
+    q, r = t(q), t(r)
+    if metric == "cosine":
+        q, r = _normalise(q), _normalise(r)
+    got = kernels.knn_approx_plain(q, r, k, metric).numpy()
+    want = np.asarray(fused_knn_pallas(jnp.asarray(q.numpy()), jnp.asarray(r.numpy()), k,
+                                       metric, interpret=True))
+    assert got.dtype == np.int32 and got.shape == (B, N, k)
+    if metric == "euclidean":
+        np.testing.assert_array_equal(got, want)
+        return
+    # cosine: a swap is allowed only where the two distances agree to float rounding
+    d = kernels.knn.distances(q.double(), r.double(), "cosine").numpy()
+    dg = np.take_along_axis(d, got.astype(np.int64), 2)
+    dw = np.take_along_axis(d, want.astype(np.int64), 2)
+    assert (got == want).mean() > 0.98
+    np.testing.assert_allclose(dg, dw, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("G,N,M", [(3, 64, 64), (3, 128, 256)])
+def test_chamfer_pair_twin_matches_pallas(G, N, M):
+    rng = np.random.default_rng(7)
+    p1, p2 = _x(rng, G, N, 3, scale=5.0), _x(rng, G, M, 3, scale=5.0)
+    k12, k21 = kernels.chamfer_pair_keys_plain(t(p1), t(p2))
+    w12, w21 = _pair_keys(jnp.asarray(p1), jnp.asarray(p2.transpose(0, 2, 1)), True)
+    np.testing.assert_array_equal(k12.numpy(), np.asarray(w12))
+    np.testing.assert_array_equal(k21.numpy(), np.asarray(w21))
+    d12, d21 = kernels.chamfer_pair(t(p1), t(p2))
+    j12, j21 = jax_chamfer_pair(jnp.asarray(p1), jnp.asarray(p2), True)
+    assert_close(d12, j12, atol=1e-6, rtol=1e-6)
+    assert_close(d21, j21, atol=1e-6, rtol=1e-6)

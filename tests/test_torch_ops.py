@@ -1,5 +1,5 @@
-"""Port ops held against the JAX package on the CPU: kNN, FPS, gathers and
-3-NN interpolation.  kNN and FPS indices must be exactly equal."""
+"""Port ops held against the JAX package on the CPU: kNN, FPS, gathers, 3-NN
+interpolation, Chamfer and EMD.  kNN and FPS indices must be exactly equal."""
 import numpy as np
 import pytest
 
@@ -108,3 +108,37 @@ def test_interpolation_matches_jax():
     flow = 0.1 * _cloud(rng, 2, 16, 3)
     x2 = _cloud(rng, 2, 24, 3)
     assert_close(ops.point_warp(t(sparse), t(x2), t(flow)), jops.point_warp(sparse, x2, flow))
+
+
+@pytest.mark.parametrize("n", [128, 64])
+def test_chamfer_per_sample_matches_jax(n):
+    """n = 128 takes the chamfer_pair route, n = 64 the two directed 1-NN
+    queries; JAX on the CPU takes its dense path.  rtol 3e-3: the packed keys
+    may pick a marginally farther neighbour among near ties."""
+    from mocopci_torch.kernels.chamfer_pair import supported
+
+    assert supported(n, n) == (n == 128)
+    rng = np.random.default_rng(10)
+    a = 5.0 * _cloud(rng, 3, n, 3)
+    b = (a + 0.3 * _cloud(rng, 3, n, 3)).astype(np.float32)
+    got = ops.chamfer_distance_per_sample(t(a), t(b))
+    want = np.asarray(jops.chamfer_distance_per_sample(a, b))
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-3)
+    np.testing.assert_allclose(float(ops.chamfer_distance(t(a), t(b))), want.mean(), rtol=3e-3)
+    many = ops.chamfer_many([(t(a[:1]), t(b[:1])), (t(a[1:2]), t(b[1:2]))])
+    np.testing.assert_allclose(many.numpy(), want[:2], rtol=3e-3)
+    np.testing.assert_allclose(float(ops.chamfer_distance_blocked(t(a), t(b), 32)),
+                               float(jops.chamfer_distance_blocked(a, b, 32)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,m", [(60, 48), (40, 96)])
+def test_emd_dense_and_blocked_match_jax(n, m):
+    """n != m exercises the integer-division capacity init on both sides."""
+    rng = np.random.default_rng(11)
+    a, b = 2.0 * _cloud(rng, 2, n, 3), 2.0 * _cloud(rng, 2, m, 3)
+    want = np.asarray(jops.earth_mover_distance(a, b))
+    np.testing.assert_allclose(ops.earth_mover_distance(t(a), t(b)).numpy(), want, rtol=1e-4)
+    assert_close(ops.approx_match(t(a), t(b)), jops.approx_match(a, b), atol=1e-6, rtol=1e-4)
+    np.testing.assert_allclose(ops.earth_mover_distance_blocked(t(a), t(b)).numpy(),
+                               np.asarray(jops.earth_mover_distance_blocked(a, b)), rtol=1e-4)
+    np.testing.assert_allclose(float(ops.emd(t(a), t(b))), float(jops.emd(a, b)), rtol=1e-4)

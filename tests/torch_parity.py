@@ -1,9 +1,11 @@
 """Shared helpers for the tests that hold the PyTorch port against the JAX package.
 
 Inputs and weights are made with numpy, run through the JAX module on the CPU
-(plain XLA, exact kNN mode) and through its port counterpart with the weights
-carried over by ``mocopci_torch.bridge``.
+(plain XLA) and through its port counterpart with the weights carried over by
+``mocopci_torch.bridge``, both in the kNN mode a module's fixture sets.
 """
+import contextlib
+
 import jax
 import numpy as np
 import pytest
@@ -11,21 +13,42 @@ import torch
 
 from mocopci_tpu.ops import distance as jax_distance
 from mocopci_torch.bridge import params_from_jax
+from mocopci_torch.ops import distance as port_distance
+
+
+@contextlib.contextmanager
+def knn_mode(mode):
+    """JAX and the port in kNN ``mode``, restored afterwards so other tests on
+    the same worker see the mode they expect.  PyTorch runs on one thread:
+    the shapes are tiny, and idle pool threads would spin on cores the other
+    test workers need."""
+    saved = (jax_distance._KNN_MODE, jax_distance._KNN_RECALL)
+    saved_port = port_distance.get_knn_mode()
+    jax_distance.set_knn_mode(mode)
+    port_distance.set_knn_mode(mode)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        port_distance.set_knn_mode(saved_port)
+        jax_distance.set_knn_mode(*saved)
 
 
 @pytest.fixture(scope="module", autouse=True)
 def exact_knn():
-    """JAX kNN in exact mode for this module's tests, restored afterwards so
-    other tests on the same worker see the mode they expect.  PyTorch runs on
-    one thread: the shapes are tiny, and idle pool threads would spin on
-    cores the other test workers need."""
-    saved = (jax_distance._KNN_MODE, jax_distance._KNN_RECALL)
-    jax_distance.set_knn_mode("exact")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-    jax_distance.set_knn_mode(*saved)
+    """Both packages in exact kNN mode for this module's tests."""
+    with knn_mode("exact"):
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def approx_knn():
+    """Both packages in approx kNN mode, the default, for this module's tests
+    (on the CPU the JAX package then still selects exactly)."""
+    with knn_mode("approx"):
+        yield
 
 
 def np_tree(variables):
