@@ -19,7 +19,18 @@ Phases, each fatal on failure:
   5. the eval path: ``eval_step`` (forward, CD, EMD) on one sample, its
      metrics against the CPU's, the times of its parts, then the eval CLI
      ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
-  6. the summary lines: the card, the per-kernel JSON line, the contract line.
+  6. the train path: ``create_train_state`` at ``ModelConfig()`` (seed 0) and
+     6 ``train_step``s at B=2 on synthetic pairs (finite losses, launches,
+     median step time of the last 5, peak memory, one profiled step); one
+     step at ``tiny_model_config(4096)`` on the card against the CPU (loss
+     components within rel 1e-4, the whole gradient within rel L2 1e-3, each
+     leaf within 5e-2: see ``run_train_parity``);
+     the train CLI for one epoch, then ``--resume`` to a second;
+  7. the summary lines: the card, the per-kernel JSON line, the contract line.
+The train kernels (scatter-add, train attention forward and backward, the two
+tails' backwards, the train fusion head forward and backward, the fusion
+planes) are checked in phase 3 at the train step's shapes, each run twice to
+show it repeats its bits.
 Every path runs with the launch counts set to 0 just before it and read just
 after; every kernel must launch on at least one path.
 Exits non-zero, printing no result, without a card or without the package.
@@ -78,6 +89,22 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def add_row(rows, name, source, replaces, launch, plain, library, nbytes, flops, err, tol,
+            reps=REPS):
+    """Time a kernel, its plain version and the library call; one JSON row.
+    Fails when the kernel's error against its plain version exceeds ``tol``."""
+    ms, plain_ms = median_ms(launch, reps), median_ms(plain, max(3, reps // 4))
+    lib_ms = median_ms(library, reps) if library is not None else None
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.1e}) ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {lib_ms} bound_ms {b_ms:.5f} ({b_by})")
+    if not err <= tol:
+        raise SystemExit(f"kernel {name} disagrees with its plain version")
+    rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+
+
 def frames(dataset, index, dev):
     inputs, _ = dataset[index]
     return [torch.from_numpy(f).to(dev) for f in inputs]
@@ -102,18 +129,8 @@ def check_kernels(kernels, cfg, dataset, dev):
     rows = []
 
     def row(name, module, launch, plain, library, nbytes, flops, err, tol):
-        ms, plain_ms = median_ms(launch), median_ms(plain)
-        lib_ms = median_ms(library) if library is not None else None
-        b_ms, b_by = bound(nbytes, flops)
-        ok = err <= tol
-        log(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.1e}) ms {ms:.4f} "
-            f"plain_ms {plain_ms:.4f} library_ms {lib_ms} bound_ms {b_ms:.5f} ({b_by})")
-        if not ok:
-            raise SystemExit(f"kernel {name} disagrees with its plain version")
-        rows.append({"name": name, "route": "cuda", "source": module.SOURCE,
-                     "replaces": module.REPLACES, "launches": None, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms})
+        add_row(rows, name, module.SOURCE, module.REPLACES, launch, plain, library, nbytes,
+                flops, err, tol)
 
     # fps: the encoder's level 0, both clouds, n0 -> n1
     xyz = torch.stack([f[1], f[2]]).contiguous()
@@ -264,6 +281,216 @@ def check_kernels(kernels, cfg, dataset, dev):
     return rows
 
 
+def bits_equal(a, b) -> bool:
+    return all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def check_train_kernels(kernels, cfg, dev, rows):
+    """The train kernels against their plain versions at the train step's
+    shapes (B=2, the 3 frames folded into the batch: G = 6), each repeated
+    once to show it returns the same bits."""
+    from mocopci_torch.config import TrainConfig
+
+    (attention_train, cross_tail, fusion_head_train, fusion_pair, scatter_add,
+     transformer_tail) = (importlib.import_module(f"mocopci_torch.kernels.{name}") for name in (
+         "attention_train", "cross_tail", "fusion_head_train", "fusion_pair", "scatter_add",
+         "transformer_tail"))
+
+    B, F = TrainConfig().batch_size, cfg.n_frames
+    G = B * F
+    c0, c1, c2, c3, _ = cfg.enc_channels
+    n0, n1 = cfg.npoints, cfg.pyramid[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def idx_of(*shape, high):
+        return torch.randint(0, high, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def err_of(got, want):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    def rel_err(got, want):
+        """Largest abs error of each tensor over max(1, its largest value)."""
+        return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                   for g, w in zip(got, want))
+
+    # scatter_add: the fusion planes' backward, (G, 3, N*2k) -> N rows; then
+    # the 8192 Chamfer VJP of the loss (5 pairs x B*F = 30 groups, C = 3)
+    S = n0 * 2 * cfg.fusion_k
+    v, idx = rnd(G, 3, S), idx_of(G, S, high=n0)
+    got = scatter_add.scatter_add(v, idx, n0, planes=True)
+    want = scatter_add.scatter_add_plain(v, idx, n0, planes=True)
+    same = bits_equal([got], [scatter_add.scatter_add(v, idx, n0, planes=True)])
+    vc, ic = rnd(30, n0, 3), idx_of(30, n0, high=n0)
+    got_c = scatter_add.scatter_add(vc, ic, n0)
+    same_c = bits_equal([got_c], [scatter_add.scatter_add(vc, ic, n0)])
+    err_c = float((got_c - scatter_add.scatter_add_plain(vc, ic, n0)).abs().max())
+    log(f"scatter_add planes {tuple(v.shape)} -> {n0}: repeat bit-equal {same}; Chamfer "
+        f"rows {tuple(vc.shape)}: max_abs_err {err_c:.3e}, repeat bit-equal {same_c}")
+    if not (same and same_c) or err_c > 1e-4:
+        raise SystemExit("scatter_add: a run did not repeat its bits, or the Chamfer shape disagrees")
+    rows_flat = v.transpose(1, 2).reshape(-1, 3).contiguous()
+    flat = (idx.long() + torch.arange(G, device=dev)[:, None] * n0).reshape(-1)
+    add_row(rows, "scatter_add", scatter_add.SOURCE, scatter_add.REPLACES,
+            lambda: scatter_add.scatter_add(v, idx, n0, planes=True),
+            lambda: scatter_add.scatter_add_plain(v, idx, n0, planes=True),
+            lambda: torch.zeros(G * n0, 3, device=dev).index_add_(0, flat, rows_flat),
+            (v.numel() + G * n0 * 3) * F32 + idx.numel() * I32, 1.0 * v.numel(),
+            float((got - want).abs().max()), 1e-4)
+
+    # attention_train: Multi_Frame_Att at L1, (B*5*8, n1, c1/8), the dropout rate
+    Ga, D, rate = B * 5 * 8, c1 // 8, cfg.attn_drop
+    q, k, vv, do = rnd(Ga, n1, D), rnd(Ga, n1, D), rnd(Ga, n1, D), rnd(Ga, n1, D)
+    seed_i = -12345
+    seed = torch.tensor([seed_i], dtype=torch.int32, device=dev)
+    sc = D ** -0.5
+    out, lse = attention_train.attention_train_fwd(q, k, vv, seed, sc, rate)
+    want = attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate)
+    err = float((out - want).abs().max())
+    # one flipped keep factor moves its row by about |v| / (M (1 - rate)) >> tol
+    add_row(rows, "attention_train_fwd", attention_train.SOURCE, attention_train.REPLACES,
+            lambda: attention_train.attention_train_fwd(q, k, vv, seed, sc, rate),
+            lambda: attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, vv, scale=sc),
+            (4 * q.numel() + Ga * n1) * F32, Ga * n1 * n1 * (4.0 * D + 3), err, 1e-5)
+    got = attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate)
+    want = attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do)
+    same = bits_equal(got, attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed,
+                                                               sc, rate))
+    log(f"attention_train bwd repeat bit-equal {same}")
+    if not same:
+        raise SystemExit("attention_train_bwd: a run did not repeat its bits")
+    add_row(rows, "attention_train_bwd", attention_train.SOURCE, attention_train.REPLACES_BWD,
+            lambda: attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate),
+            lambda: attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do),
+            None, (8 * q.numel() + Ga * n1) * F32, Ga * n1 * n1 * (10.0 * D + 6),
+            err_of(got, want), 1e-4)
+    del q, k, vv, do, out, lse, got, want
+
+    # cross_tail backward: bid / fe at up_1, G x n1 queries, K = flow_nei;
+    # the rows' gradient compared after its scatter (ties split differently)
+    M, N, K, C = n1, n1, cfg.flow_nei, c1
+    tab, base, dout = rnd(G, M, C), rnd(G, N, C), rnd(G, N, C)
+    w, b = rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1)
+    idx = idx_of(G, N, K, high=M)
+    out = cross_tail.cross_tail_fwd(tab, idx, base, w, b)
+    got = cross_tail.cross_tail_bwd(tab, idx, base, w, b, out, dout)
+    want = cross_tail.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
+    same = bits_equal(got, cross_tail.cross_tail_bwd(tab, idx, base, w, b, out, dout))
+    flat_idx = idx.reshape(G, N * K)
+    d_tab = [scatter_add.gather_backward(r.reshape(G, N * K, C), flat_idx, M)
+             for r in (got[0], want[0])]
+    err = rel_err([d_tab[0], *got[1:]], [d_tab[1], *want[1:]])
+    log(f"cross_tail bwd: repeat bit-equal {same}; d_tab/d_base/dw/db error over "
+        f"max(1, |value|) {err:.3e}")
+    if not same:
+        raise SystemExit("cross_tail_bwd: a run did not repeat its bits")
+    add_row(rows, "cross_tail_bwd", cross_tail.SOURCE, cross_tail.REPLACES_BWD,
+            lambda: cross_tail.cross_tail_bwd(tab, idx, base, w, b, out, dout),
+            lambda: cross_tail.cross_tail_bwd_plain(tab, idx, base, w, b, dout), None,
+            (tab.numel() + 3 * base.numel() + 2 * w.numel() + 2 * b.numel() + 2 * out.numel()
+             + N * K * C * G) * F32 + idx.numel() * I32,
+            G * N * (2.0 * K * C * C + 4 * C * C + 3 * K * C), err, 1e-4)
+    del tab, base, dout, out, got, want, d_tab
+
+    # transformer_tail backward: the refine head, G x refine_npoint, K = refine_k
+    M = N = cfg.refine_npoint
+    K, D = cfg.refine_k, c1
+    table, xq, qq, dout = rnd(G, M, 3 + 2 * D), rnd(G, N, 3), rnd(G, N, D), rnd(G, N, D)
+    ws = []
+    for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
+        ws += [rnd(ci, co, scale=ci ** -0.5), rnd(co, scale=0.1)]
+    idx = idx_of(G, N, K, high=M)
+    got = transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout)
+    want = transformer_tail.transformer_tail_bwd_plain(table, idx, xq, qq, *ws, dout)
+    same = bits_equal(got, transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout))
+    err = rel_err(got, want)
+    log(f"transformer_tail bwd: repeat bit-equal {same}; error over max(1, |value|) {err:.3e}")
+    if not same:
+        raise SystemExit("transformer_tail_bwd: a run did not repeat its bits")
+    add_row(rows, "transformer_tail_bwd", transformer_tail.SOURCE,
+            transformer_tail.REPLACES_BWD,
+            lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
+            lambda: transformer_tail.transformer_tail_bwd_plain(table, idx, xq, qq, *ws, dout),
+            None, (table.numel() + 2 * xq.numel() + 3 * qq.numel() + 2 * sum(
+                t.numel() for t in ws) + G * N * K * (3 + 2 * D)) * F32 + idx.numel() * I32,
+            G * N * K * 6.0 * (3 * D * D + 3 * D), err, 1e-4)
+    del table, xq, qq, dout, got, want
+
+    # fusion_pair planes and fusion_head_train: G x n0 queries x 2k pairs, 3 groups
+    K2 = 2 * cfg.fusion_k
+    P = n0 * K2
+    p2, p1 = rnd(G, n0, 3, scale=10.0), rnd(G, n0, 3, scale=10.0)
+    idx = idx_of(G, n0, K2, high=n0)
+    planes = fusion_pair.fusion_pair_planes_kernel(p2, idx, p1)
+    err = float((planes - fusion_pair.pair_planes(p2, idx, p1)).abs().max())
+    add_row(rows, "fusion_pair_planes", fusion_pair.SOURCE, fusion_pair.REPLACES_PLANES,
+            lambda: fusion_pair.fusion_pair_planes_kernel(p2, idx, p1),
+            lambda: fusion_pair.pair_planes(p2, idx, p1), None,
+            (p1.numel() + p2.numel() + planes.numel()) * F32 + idx.numel() * I32,
+            9.0 * G * P, err, 1e-4)
+    params, cin = [], 4
+    for c in fusion_head_train.WIDTHS[1:]:
+        params += [rnd(cin, c, scale=cin ** -0.5), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1),
+                   rnd(c, scale=0.1)]
+        cin = c
+    chain = 2.0 * (4 * c1 + c1 * c1 + c1 * c2) + 8 * (2 * c1 + c2)
+    o, stats, (packed, st) = fusion_head_train.fusion_head_train_fwd(planes, params, F)
+    want_o, want_stats = fusion_head_train.fusion_head_train_plain(planes, params, F)
+    o2, stats2, _ = fusion_head_train.fusion_head_train_fwd(planes, params, F)
+    same = bits_equal([o, *[t for s in stats for t in s]], [o2, *[t for s in stats2 for t in s]])
+    err_stats = rel_err([t for s in stats for t in s], [t for s in want_stats for t in s])
+    log(f"fusion_head_train fwd: repeat bit-equal {same}; stats error over max(1, |value|) "
+        f"{err_stats:.3e}")
+    if not same or err_stats > 1e-3:
+        raise SystemExit("fusion_head_train_fwd: stats disagree or a run did not repeat")
+    add_row(rows, "fusion_head_train_fwd", fusion_head_train.SOURCE, fusion_head_train.REPLACES,
+            lambda: fusion_head_train.fusion_head_train_fwd(planes, params, F),
+            lambda: fusion_head_train.fusion_head_train_plain(planes, params, F), None,
+            (planes.numel() + o.numel() + packed.numel()) * F32, G * P * chain,
+            float((o - want_o).abs().max()), 1e-3, reps=5)
+    # the gradient follows the channel max and the ReLU kinks; where the top
+    # two channels are within 1e-4 relative, or a hidden pre-activation within
+    # 1e-4 of 0, kernel and twin (sums in another order) may route it
+    # differently, so those pairs get no gradient in this comparison
+    h3, _, kink = fusion_head_train.fusion_head_train_channels(planes, params, F)
+    top2 = h3.topk(2, dim=1).values
+    del h3
+    near = ((top2[:, 0] - top2[:, 1]) <= 1e-4 * top2[:, 0]) | (kink < 1e-4)
+    log(f"fusion_head_train bwd: {float(near.float().mean()):.5f} of pairs are within 1e-4 "
+        f"of a channel-max tie or a ReLU kink and get no gradient here")
+    d_o = rnd(G, P) * (~near)
+    del top2, near, kink
+    got = fusion_head_train.fusion_head_train_bwd(planes, params, F, packed, st, d_o)
+    want = fusion_head_train.fusion_head_train_bwd_plain(planes, params, F, 1e-3, d_o)
+    same = bits_equal(got, fusion_head_train.fusion_head_train_bwd(planes, params, F, packed,
+                                                                   st, d_o))
+    # b1..b3 precede a train-mode BatchNorm, so their exact gradient is 0 and
+    # both versions return float32 noise of that 0: held only below 1e-2 of
+    # their layer's largest weight gradient; every other output is compared
+    biases = (2, 6, 10)
+    err = rel_err([g for i, g in enumerate(got) if i not in biases],
+                  [w for i, w in enumerate(want) if i not in biases])
+    each = [round(rel_err([g], [w]), 9) for g, w in zip(got, want)]
+    noise = [max(float(got[i].abs().max()), float(want[i].abs().max()))
+             / float(want[i - 1].abs().max()) for i in biases]
+    log(f"fusion_head_train bwd: repeat bit-equal {same}; dx and parameter grads error over "
+        f"max(1, |value|) {err:.3e} (biases excluded), each (dx, W1, b1, g1, e1, ..., e3): "
+        f"{each}; bias gradients over their weight's largest: {noise}")
+    if not same or max(noise) > 1e-2:
+        raise SystemExit("fusion_head_train_bwd: a run did not repeat its bits, or a bias "
+                         "gradient is not noise")
+    add_row(rows, "fusion_head_train_bwd", fusion_head_train.SOURCE,
+            fusion_head_train.REPLACES_BWD,
+            lambda: fusion_head_train.fusion_head_train_bwd(planes, params, F, packed, st, d_o),
+            lambda: fusion_head_train.fusion_head_train_bwd_plain(planes, params, F, 1e-3, d_o),
+            None, (2 * planes.numel() + d_o.numel() + 2 * packed.numel()) * F32,
+            2.0 * G * P * chain, err, 1e-3, reps=5)
+
+
 def chamfer(a: torch.Tensor, b: torch.Tensor) -> float:
     """Bidirectional squared-distance Chamfer of (N, 3) clouds, each direction
     a mean over points, summed; direct differences in float64."""
@@ -329,7 +556,7 @@ def run_slice(kernels, cfg, dataset, dev, model, cpu_model, mode):
     peak = torch.cuda.max_memory_allocated()
     log(f"slice {mode}: ModelConfig() B=1 eval forward median {fwd_ms:.3f} ms over 12 runs "
         f"(min {min(times):.3f}, max {max(times):.3f}), peak memory {peak / 2**20:.1f} MiB")
-    busy = profile_forward(model, *pairs[0]) if mode == "approx" else {}
+    busy = profile(lambda: interpolate(model, *pairs[0]), "forward") if mode == "approx" else {}
     return launches, {"forward_ms": fwd_ms, "forward_ms_min": min(times),
                       "forward_ms_max": max(times), "cd_max": max(cds),
                       "peak_mib": peak / 2**20, **busy}
@@ -416,6 +643,156 @@ def run_eval(kernels, cfg, dataset, dev, model, cpu_model):
                       **timing, "cli": result}
 
 
+# the kernels one train step launches in the default (approx) kNN mode
+TRAIN_KERNELS = ("fps", "knn_approx", "cross_tail", "cross_tail_bwd", "transformer_tail",
+                 "transformer_tail_bwd", "attention_train_fwd", "attention_train_bwd",
+                 "fusion_pair_planes", "fusion_head_train_fwd", "fusion_head_train_bwd",
+                 "chamfer_pair", "scatter_add")
+TRAIN_STEPS = 6
+ZERO_GRAD_LEAVES = {f"estimator.fusion_conv{i}.bias" for i in range(3)}
+
+
+def run_train(kernels, cfg, dev):
+    """``create_train_state`` at ``cfg`` with seed 0, then TRAIN_STEPS train
+    steps at B=2 on synthetic pairs: finite losses, the kernels launched, the
+    median step time of the last 5 (host clock, synchronized), peak memory;
+    then one profiled step."""
+    from mocopci_torch import ops
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.data import SyntheticInterpolationDataset, batches
+    from mocopci_torch.training import create_train_state, train_step
+
+    ops.set_knn_mode("approx")
+    tcfg = TrainConfig()
+    data = SyntheticInterpolationDataset(length=TRAIN_STEPS * tcfg.batch_size,
+                                         num_points=cfg.npoints, seed=2)
+    steps = list(batches(data, tcfg.batch_size, shuffle=False))
+    model, state = create_train_state(cfg, tcfg, steps_per_epoch=len(steps), device=dev)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times, auxes = [], []
+    for batch in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = train_step(state, batch, rng)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        auxes.append({k: float(v) for k, v in aux.items()})
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train: launches per {len(steps)} steps: {launches}")
+    for i, aux in enumerate(auxes):
+        log(f"train: step {i} " + json.dumps({k: round(v, 6) for k, v in aux.items()}))
+    bad = [i for i, aux in enumerate(auxes) if not all(np.isfinite(v) for v in aux.values())]
+    if bad:
+        raise SystemExit(f"train: loss not finite at steps {bad}")
+    missing = [name for name in TRAIN_KERNELS if launches[name] == 0]
+    if missing:
+        raise SystemExit(f"train: kernels not launched on the train path: {missing}")
+    step_ms = float(np.median(times[1:]))
+    log(f"train: ModelConfig() B=2 step median {step_ms:.3f} ms over the last "
+        f"{len(times) - 1} (first {times[0]:.1f} ms, min {min(times[1:]):.3f}, max "
+        f"{max(times[1:]):.3f}), peak memory {peak / 2**20:.1f} MiB")
+    busy = profile(lambda: train_step(state, steps[0], rng), "train step")
+    return launches, {"step_ms": step_ms, "step_ms_all": times, "peak_mib": peak / 2**20,
+                      "loss": [a["loss"] for a in auxes], **busy}
+
+
+def run_train_parity(kernels, dev):
+    """One step's loss and gradients at tiny_model_config(4096) (level 1 and
+    the refine head at 1024, so both tails and every train kernel run), B=2,
+    exact kNN, dropout rates 0, the same weights, on the card and on the CPU:
+    loss components within rel 1e-4; the whole gradient (all leaves as one
+    vector) within rel L2 1e-3 and every leaf within rel L2 5e-2 plus 1e-6
+    absolute.  The sums run in another order on the two devices, so a near
+    tie of a max over neighbours or channels, a ReLU kink or a kNN selection
+    can go the other way and move a row's gradient to its neighbour: the loss
+    barely moves, a leaf's gradient can by a few percent; a leaf whose
+    gradient cancels to near zero keeps the float32 noise of its terms.  The
+    gradients are compared, not an AdamW update of them, whose first step
+    turns noise on near-zero gradients into +-lr.  The biases before the
+    fusion head's train-mode BatchNorms have a gradient of exactly zero: on
+    both devices it must stay below 1e-5 of their weight's gradient."""
+    import dataclasses
+
+    from mocopci_torch import MoCoPCI, ops, tiny_model_config
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.training.loop import loss_and_grads
+
+    cfg = dataclasses.replace(tiny_model_config(4096), attn_drop=0.0, proj_drop=0.0,
+                              drop_path=0.0)
+    rng = np.random.default_rng(3)
+    x1 = (rng.normal(size=(2, cfg.npoints, 3)) * 5).astype(np.float32)
+    flow = (0.3 * rng.normal(size=(2, 1, 3))).astype(np.float32)
+    batch = {"pc1": x1, "pc2": x1 + flow,
+             "gt": np.stack([x1 + flow * t for t in (0.25, 0.5, 0.75)], 1).astype(np.float32)}
+    ops.set_knn_mode("exact")
+    card_model, cpu_model = MoCoPCI(cfg, device=dev), MoCoPCI(cfg, device="cpu")
+    kernels.reset_launches()
+    got = loss_and_grads(card_model, batch, None, cfg, TrainConfig())
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    want = loss_and_grads(cpu_model, batch, None, cfg, TrainConfig())
+    cpu_s = time.perf_counter() - t0
+    ops.set_knn_mode("approx")
+    loss_gap = {k: abs(float(got[k]) - float(v)) / abs(float(v)) for k, v in want.items()}
+    grad_gap = {}       # leaf gap over its limit: <= 1 passes
+    cpu_grads = dict(cpu_model.named_parameters())
+    d2 = g2 = 0.0
+    for name, p in card_model.named_parameters():
+        q = cpu_grads[name].grad
+        if name in ZERO_GRAD_LEAVES:
+            # a bias before a train-mode BatchNorm: its gradient is exactly 0
+            w_norm = float(torch.linalg.vector_norm(cpu_grads[name[:-4] + "weight"].grad))
+            grad_gap[name] = max(float(torch.linalg.vector_norm(p.grad)),
+                                 float(torch.linalg.vector_norm(q))) / (1e-5 * w_norm)
+            continue
+        gap = float(torch.linalg.vector_norm(p.grad.cpu() - q))
+        norm = float(torch.linalg.vector_norm(q))
+        grad_gap[name] = gap / (5e-2 * norm + 1e-6)
+        d2, g2 = d2 + gap ** 2, g2 + norm ** 2
+    whole = (d2 / g2) ** 0.5
+    worst = sorted(grad_gap.items(), key=lambda kv: -kv[1])[:5]
+    log(f"train parity: launches {launches}")
+    log(f"train parity: loss relative gaps {json.dumps(loss_gap)} (limit 1e-4); largest "
+        f"gradient rel L2 gap {whole:.3e} (limit 1e-3); largest leaf gaps over their limit "
+        f"{worst} over {len(grad_gap)} leaves (limit 1); CPU step {cpu_s:.1f} s")
+    missing = [n for n in TRAIN_KERNELS if n != "knn_approx" and launches[n] == 0]
+    if missing or max(loss_gap.values()) > 1e-4 or whole > 1e-3 or max(grad_gap.values()) > 1:
+        raise SystemExit(f"train parity: card differs from the CPU (or kernels missing: "
+                         f"{missing})")
+    return {"loss_gap": loss_gap, "grad_gap_whole": whole, "worst_leaves": worst}
+
+
+def run_train_cli(kernels):
+    """The train CLI in-process at ModelConfig() on 4 synthetic samples: one
+    epoch, then a resume to the second."""
+    import shutil
+    import tempfile
+
+    from mocopci_torch.cli import train as cli_train
+
+    save_dir = tempfile.mkdtemp(prefix="mocopci_train_cli_")
+    try:
+        common = ["--synthetic", "4", "--batch_size", "2", "--save_dir", save_dir,
+                  "--log_every", "1"]
+        kernels.reset_launches()
+        first = cli_train.main(common + ["--epochs", "1"])
+        second = cli_train.main(common + ["--epochs", "2", "--resume"])
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    log(f"train cli: launches {launches}")
+    ok = (first["step"] == 2 and second["start_epoch"] == 1 and second["step"] == 4
+          and all(np.isfinite(v) for e in first["epochs"] + second["epochs"] for v in e.values()))
+    if not ok or launches["fusion_head_train_bwd"] == 0:
+        raise SystemExit(f"train cli: unexpected result {first} / {second}")
+    return {"first": first["epochs"], "second": second["epochs"]}
+
+
 # device-kernel name fragment -> port kernel, for the profile breakdown
 KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
                   "knn_dot_kernel": "knn_exact", "knn_approx_xyz_kernel": "knn_approx",
@@ -423,21 +800,32 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
                   "attention_kernel": "attention",
                   "cross_tail_kernel": "cross_tail",
                   "transformer_tail_kernel": "transformer_tail",
-                  "fusion_pair_kernel": "fusion_pair"}
+                  "fusion_pair_kernel": "fusion_pair",
+                  "scatter_count_kernel": "scatter_add", "scatter_scan_kernel": "scatter_add",
+                  "scatter_fill_kernel": "scatter_add", "scatter_rank_kernel": "scatter_add",
+                  "scatter_reduce_kernel": "scatter_add",
+                  "attention_train_fwd_kernel": "attention_train_fwd",
+                  "attention_train_dkv_kernel": "attention_train_bwd",
+                  "attention_train_dq_kernel": "attention_train_bwd",
+                  "cross_tail_bwd_kernel": "cross_tail_bwd",
+                  "transformer_tail_bwd_kernel": "transformer_tail_bwd",
+                  "fusion_pair_planes_kernel": "fusion_pair_planes",
+                  "fusion_head_train_kernel": "fusion_head_train",
+                  "reduce_partials_kernel": "block partial sums (tails, fusion_head_train)"}
 
 
-def profile_forward(model, x1, x2) -> dict:
-    """One forward under torch.profiler: device time per port kernel, the rest
-    (PyTorch's own kernels) by name, and the device's busy share of the
+def profile(fn, what: str) -> dict:
+    """One call of ``fn`` under torch.profiler: device time per port kernel, the
+    rest (PyTorch's own kernels) by name, and the device's busy share of the
     profiled wall time (the profiler's own overhead inflates the wall)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    from mocopci_torch import interpolate
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        interpolate(model, x1, x2)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel, other = {}, {}
@@ -452,14 +840,14 @@ def profile_forward(model, x1, x2) -> dict:
         bucket[name] = bucket.get(name, 0.0) + us / 1e3
     device_ms = sum(per_kernel.values()) + sum(other.values())
     if device_ms == 0.0:
-        log("profile: the profiler recorded no device time; breakdown not measured")
+        log(f"profile {what}: the profiler recorded no device time; breakdown not measured")
         return {"profile": "not measured"}
-    log(f"profile: device busy {device_ms:.3f} ms of {wall_ms:.3f} ms profiled wall "
+    log(f"profile {what}: device busy {device_ms:.3f} ms of {wall_ms:.3f} ms profiled wall "
         f"({100 * device_ms / wall_ms:.1f}%)")
-    log("profile: port kernels ms " + json.dumps(
+    log(f"profile {what}: port kernels ms " + json.dumps(
         {k: round(v, 4) for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])}))
     top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
-    log("profile: top other kernels ms " + json.dumps({k: round(v, 4) for k, v in top}))
+    log(f"profile {what}: top other kernels ms " + json.dumps({k: round(v, 4) for k, v in top}))
     return {"profile_device_ms": device_ms, "profile_wall_ms": wall_ms,
             "profile_port_kernels_ms": sum(per_kernel.values())}
 
@@ -493,6 +881,8 @@ def main() -> int:
     cfg = ModelConfig()
     dataset = SyntheticInterpolationDataset(length=3, num_points=cfg.npoints, seed=0)
     rows = check_kernels(kernels, cfg, dataset, dev)
+    check_train_kernels(kernels, cfg, dev, rows)
+    torch.cuda.empty_cache()
     model = MoCoPCI(cfg, device=dev, seed=0)
     cpu_model = MoCoPCI(cfg, device="cpu", seed=0)
     paths, stats = {}, {}
@@ -500,9 +890,17 @@ def main() -> int:
         paths[f"slice_{mode}"], stats[f"slice_{mode}"] = run_slice(
             kernels, cfg, dataset, dev, model, cpu_model, mode)
     paths["eval"], stats["eval"] = run_eval(kernels, cfg, dataset, dev, model, cpu_model)
+    del model, cpu_model
+    paths["train"], stats["train"] = run_train(kernels, cfg, dev)
+    stats["train_parity"] = run_train_parity(kernels, dev)
+    stats["train_cli"] = run_train_cli(kernels)
     # each kernel's launches on the path it belongs to: the default forward,
-    # the exact-mode forward for knn_exact, eval_step for chamfer_pair
+    # the exact-mode forward for knn_exact, eval_step for chamfer_pair, the
+    # train steps for the train kernels
     home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair")}
+    home.update({name: ("train", name) for name in TRAIN_KERNELS
+                 if name.endswith(("_bwd", "_fwd")) or name in ("scatter_add",
+                                                                  "fusion_pair_planes")})
     for r in rows:
         path, counter = home.get(r["name"], ("slice_approx", r["name"]))
         r["launches"], r["path"] = paths[path][counter], path

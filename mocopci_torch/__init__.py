@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of MoCoPCI for one NVIDIA H100 (eval forward).
+"""PyTorch/CUDA port of MoCoPCI for one NVIDIA H100 (eval, and the train step
+on one device: ``mocopci_torch.training``).
 
 The JAX package ``mocopci_tpu`` is the reference; this package imports nothing
-of it.  Every Pallas kernel on the eval path has a hand-written CUDA kernel in
+of it.  Every Pallas kernel on those paths has a hand-written CUDA kernel in
 ``csrc/`` with a plain PyTorch twin beside its wrapper in ``kernels/``.
 
     from mocopci_torch import MoCoPCI, ModelConfig, interpolate

@@ -60,13 +60,13 @@ class ModelConfig:
     fusion_k: int = 32       # kNN-softmax fusion neighbourhood
     t_forward: Tuple[float, ...] = (0.0, 0.41666666666666663, 0.5, 0.5833333333333333, 1.0)
     t_backward: Tuple[float, ...] = (1.0, 0.5833333333333333, 0.5, 0.41666666666666663, 0.0)
-    # dropout rates of the attention decoder blocks (no-ops in eval)
+    # dropout rates of the attention decoder blocks (train only)
     attn_drop: float = 0.05
     proj_drop: float = 0.05
     drop_path: float = 0.04
     # refine head downsample size
     refine_npoint: int = 2048
-    # decoder rematerialisation under autodiff (train only; unused in eval)
+    # decoder rematerialisation under autodiff: not ported yet, must stay False
     remat: bool = False
 
     @property
@@ -79,6 +79,32 @@ class ModelConfig:
             raise ValueError(f"pyramid must shrink: {self.levels}")
         if self.refine_npoint > n0:
             raise ValueError(f"refine_npoint {self.refine_npoint} > npoints {n0}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe; the defaults are the reference recipe (B=2, AdamW 1e-3
+    with decoupled weight decay 1e-4, StepLR 15 epochs x 0.8 clamped at 5e-5,
+    global-norm clip 2.0, the multi-scale Chamfer loss weights)."""
+
+    batch_size: int = 2
+    epochs: int = 400
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    lr_step: int = 15          # StepLR step_size, epochs
+    lr_gamma: float = 0.8      # StepLR gamma
+    lr_clip: float = 5e-5      # the learning rate's floor
+    grad_clip: float = 2.0     # global-norm clip
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    seed: int = 0
+    alpha: Tuple[float, float, float, float] = (1.0, 0.8, 0.4, 0.2)
+    w_straight: float = 0.5
+    w_multi: float = 0.25
+    # the batch runs as grad_accum sequential micro-batches whose mean
+    # gradient makes one update; BatchNorm statistics chain through them
+    grad_accum: int = 1
 
 
 def tiny_model_config(npoints: int = 256) -> ModelConfig:

@@ -8,9 +8,35 @@
 
 #define MOCOPCI_API extern "C" __attribute__((visibility("default")))
 
+// Inside an entry point that launches several kernels: return the first
+// launch error instead of launching on.
+#define MOCOPCI_CHECK_LAUNCH()                  \
+  do {                                          \
+    cudaError_t e_ = cudaGetLastError();        \
+    if (e_ != cudaSuccess) return e_;           \
+  } while (0)
+
 namespace mocopci {
 
+// out[e] = sum_b partial[b][e] over nblk block partials, in block order: the
+// fixed-order second pass of every cross-block reduction (deterministic).
+static __global__ void reduce_partials_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ out, int nblk, int E) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  float acc = 0.f;
+  for (int b = 0; b < nblk; ++b) acc += partial[static_cast<size_t>(b) * E + e];
+  out[e] = acc;
+}
+
+static inline cudaError_t reduce_partials(const float* partial, float* out, int nblk, int E,
+                                   cudaStream_t stream) {
+  reduce_partials_kernel<<<(E + 255) / 256, 256, 0, stream>>>(partial, out, nblk, E);
+  return cudaGetLastError();
+}
+
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.1f * x; }
+__device__ __forceinline__ float dleaky(float x) { return x >= 0.f ? 1.f : 0.1f; }
 
 // (value, index) pair ordering used by every lexicographic reduction:
 // smaller value first, then smaller index.

@@ -20,6 +20,10 @@
 // their max on the fly, so no (G, C, P) activation exists anywhere.  Plain
 // FMAs: a tensor-core version (pairs as the M dimension of an mma) is a later
 // step.
+//
+// mocopci_fusion_pair_planes is the planes alone (the train path, whose head
+// has batch statistics): bytes bound it, 4 + 12 bytes read and 16 written per
+// pair.
 #include "common.cuh"
 
 namespace {
@@ -27,6 +31,38 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kC1 = 64;
 constexpr int kC2 = 128;
+
+// x = [resi, dist] of pair p = j*N + n of group g, written to its planes.
+__device__ __forceinline__ void pair_plane(const float* __restrict__ p2,
+                                           const int* __restrict__ idx,
+                                           const float* __restrict__ p1,
+                                           float* __restrict__ planes, int g, int p, int N,
+                                           int N2, int K2, float x[4]) {
+  const int P = N * K2;
+  const int j = p / N, n = p - j * N;
+  const int r = idx[(static_cast<size_t>(g) * N + n) * K2 + j];
+  const float* a = p2 + (static_cast<size_t>(g) * N2 + r) * 3;
+  const float* c = p1 + (static_cast<size_t>(g) * N + n) * 3;
+  x[0] = a[0] - c[0];
+  x[1] = a[1] - c[1];
+  x[2] = a[2] - c[2];
+  x[3] = sqrtf(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])),
+                                   __fmul_rn(x[2], x[2])),
+                         1e-20f));
+  float* pl = planes + static_cast<size_t>(g) * 4 * P;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pl[static_cast<size_t>(i) * P + p] = x[i];
+}
+
+// The planes alone, for the train path (its head is fusion_head_train.cuh).
+__global__ void __launch_bounds__(kThreads) fusion_pair_planes_kernel(
+    const float* __restrict__ p2, const int* __restrict__ idx, const float* __restrict__ p1,
+    float* __restrict__ planes, int N, int N2, int K2) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= N * K2) return;
+  float x[4];
+  pair_plane(p2, idx, p1, planes, blockIdx.y, p, N, N2, K2, x);
+}
 
 __global__ void __launch_bounds__(kThreads) fusion_pair_kernel(
     const float* __restrict__ p2, const int* __restrict__ idx, const float* __restrict__ p1,
@@ -55,20 +91,8 @@ __global__ void __launch_bounds__(kThreads) fusion_pair_kernel(
   const int P = N * K2;
   const int p = blockIdx.x * kThreads + tid;
   if (p >= P) return;
-  const int j = p / N, n = p - j * N;
-  const int r = idx[(static_cast<size_t>(g) * N + n) * K2 + j];
-  const float* a = p2 + (static_cast<size_t>(g) * N2 + r) * 3;
-  const float* c = p1 + (static_cast<size_t>(g) * N + n) * 3;
   float x[4];
-  x[0] = a[0] - c[0];
-  x[1] = a[1] - c[1];
-  x[2] = a[2] - c[2];
-  x[3] = sqrtf(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])),
-                                   __fmul_rn(x[2], x[2])),
-                         1e-20f));
-  float* pl = planes + static_cast<size_t>(g) * 4 * P;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) pl[static_cast<size_t>(i) * P + p] = x[i];
+  pair_plane(p2, idx, p1, planes, g, p, N, N2, K2, x);
 
   float h1[kC1];
 #pragma unroll
@@ -114,5 +138,15 @@ MOCOPCI_API int mocopci_fusion_pair(const float* p2, const int* idx, const float
   dim3 grid(mocopci::ceil_div(N * K2, kThreads), G);
   fusion_pair_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p2, idx, p1, w1, b1, w2, b2, w3, b3, planes, logits, N, N2, K2);
+  return cudaGetLastError();
+}
+
+// points2 (G, N2, 3), idx (G, N, K2) int32, points1 (G, N, 3) -> planes (G, 4, N*K2).
+MOCOPCI_API int mocopci_fusion_pair_planes(const float* p2, const int* idx, const float* p1,
+                                           float* planes, int G, int N, int N2, int K2,
+                                           void* stream) {
+  dim3 grid(mocopci::ceil_div(N * K2, kThreads), G);
+  fusion_pair_planes_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p2, idx, p1, planes, N, N2, K2);
   return cudaGetLastError();
 }

@@ -42,6 +42,14 @@ SIGNATURES = {
     "fusion_pair": [_P] * 11 + [_I, _I, _I, _I, _P],
     "knn_approx": [_P, _P, _P] + [_I] * 9 + [_P, _P],
     "chamfer_pair": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "scatter_add": [_P] * 4 + [_I] * 5 + [_P],
+    "attention_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _F, _P],
+    "attention_train_bwd": [_P] * 9 + [_I] * 4 + [_F, _P, _I, _F, _P],
+    "cross_tail_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    "transformer_tail_bwd": [_P] * 18 + [_I] * 6 + [_P],
+    "fusion_pair_planes": [_P] * 4 + [_I] * 4 + [_P],
+    "fusion_head_train_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "fusion_head_train_bwd": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 # launches per kernel since the last reset_launches()
@@ -146,6 +154,14 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> Non
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A forward-only kernel must not hand back an output with no ``grad_fn``
+    where autograd expects one: raise instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel is forward-only; call it under "
+                           "torch.no_grad() or on inputs that do not require grad")
 
 
 def group_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -24,9 +24,12 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """softmax(q kᵀ · scale) v; the kernel on CUDA, the twin on the CPU."""
+    """softmax(q kᵀ · scale) v, eval only; the kernel on CUDA, the twin on the
+    CPU.  The kernel has no backward, so on CUDA it refuses inputs that would
+    need one (training takes ``attention_train``)."""
     if _lib.dispatch_device(q, k, v) == "cpu":
         return attention_plain(q, k, v, scale)
+    _lib.refuse_grad("attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _lib.check_cuda(f"attention {name}", t, torch.float32, 3)
     G, N, D = q.shape

@@ -1,0 +1,154 @@
+"""Training attention with dropout: CUDA ``csrc/attention_train.cu`` and its twin.
+
+Replaces ``mocopci_tpu/ops/pallas/attention_train.py``: ``attention_train``
+(:160), forward (:181) and backward (:206).  The dropout mask is the TPU
+kernel's counter hash (``_keep_mask`` :46-64), a pure function of (seed,
+group, row, column), rebuilt bit for bit by the forward kernel, the backward
+kernel and the twin; the twin computes it in int64 masked to 32 bits, as
+PyTorch has little uint32 arithmetic.  Operations bound it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mocopci_torch.kernels import _lib
+
+SOURCE = "mocopci_torch/csrc/attention_train.cu"
+REPLACES = "mocopci_tpu/ops/pallas/attention_train.py:181"      # forward pallas_call
+REPLACES_BWD = "mocopci_tpu/ops/pallas/attention_train.py:206"  # backward pallas_call
+
+MAX_SEQ = 4096
+MAX_D = 2048
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x < 2^32, without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's finaliser on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_constants(rate: float):
+    """(threshold, keep scale) exactly as the TPU kernel forms them."""
+    return int(np.int32(rate * (1 << 24))), float(np.float32(1.0 / (1.0 - rate)))
+
+
+def keep_mask_plain(seed: int, G: int, N: int, M: int, rate: float,
+                    device=None) -> torch.Tensor:
+    """(G, N, M) f32 keep factors: 1/(1-rate) where kept, 0 where dropped."""
+    thr, kscale = dropout_constants(rate)
+    g = torch.arange(G, dtype=torch.int64, device=device)
+    gseed = _fmix32(g ^ (int(seed) & _M32))                       # (G,)
+    rows = torch.arange(N, dtype=torch.int64, device=device)[:, None] << 12
+    cols = torch.arange(M, dtype=torch.int64, device=device)[None, :]
+    h = _fmix32((rows ^ cols)[None] ^ gseed[:, None, None])
+    keep = (h & 0xFFFFFF) >= thr
+    return torch.where(keep, torch.tensor(kscale, device=device),
+                       torch.tensor(0.0, device=device))
+
+
+def attention_train_plain(q, k, v, seed: int, scale: float, rate: float) -> torch.Tensor:
+    """(G, N, D), (G, M, D), (G, M, D) -> (G, N, D): softmax, then the mask, then v."""
+    attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) * scale, dim=-1)
+    if rate > 0.0:
+        attn = attn * keep_mask_plain(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device)
+    return torch.matmul(attn, v)
+
+
+def attention_train_bwd_plain(q, k, v, seed, scale, rate, dout):
+    """(dq, dk, dv) of :func:`attention_train_plain` by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_train_plain(*leaves, seed, scale, rate)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _check(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _lib.check_cuda(f"attention_train {name}", t, torch.float32, 3)
+    G, N, D = q.shape
+    M = k.shape[1]
+    if k.shape != (G, M, D) or v.shape != (G, M, D):
+        raise ValueError(f"attention_train: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not 1 <= M <= MAX_SEQ or D > MAX_D:
+        raise ValueError(f"attention_train kernel covers M <= {MAX_SEQ}, D <= {MAX_D}; "
+                         f"got M={M}, D={D}")
+
+
+def _check_seed(seed, q):
+    _lib.check_cuda("attention_train seed", seed, torch.int32, 1)
+    if seed.numel() != 1 or seed.device != q.device:
+        raise ValueError("attention_train: seed must be one int32 on the inputs' device")
+
+
+def attention_train_fwd(q, k, v, seed, scale, rate):
+    """Kernel forward: (out (G, N, D), lse (G, N)) on the card; seed a (1,)
+    int32 tensor on the card (read there, so drawing it costs no sync)."""
+    _check(q, k, v)
+    _check_seed(seed, q)
+    G, N, D = q.shape
+    thr, kscale = dropout_constants(rate)
+    out = torch.empty_like(q)
+    lse = torch.empty((G, N), dtype=torch.float32, device=q.device)
+    _lib.launch("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), G, N, k.shape[1], D, float(scale),
+                seed.data_ptr(), thr, kscale, _lib.stream(q))
+    return out, lse
+
+
+def attention_train_bwd(q, k, v, out, lse, dout, seed, scale, rate):
+    """Kernel backward: (dq, dk, dv) on the card."""
+    _check(q, k, v)
+    _check_seed(seed, q)
+    _lib.check_cuda("attention_train dout", dout, torch.float32, 3)
+    G, N, D = q.shape
+    thr, kscale = dropout_constants(rate)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _lib.launch("attention_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), G, N, k.shape[1], D, float(scale), seed.data_ptr(), thr,
+                kscale, _lib.stream(q))
+    return dq, dk, dv
+
+
+class _AttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seed, scale, rate):
+        ctx.consts = (scale, rate)
+        if _lib.dispatch_device(q, k, v, seed) == "cpu":
+            ctx.save_for_backward(q, k, v, seed)
+            return attention_train_plain(q, k, v, int(seed), scale, rate)
+        out, lse = attention_train_fwd(q, k, v, seed, scale, rate)
+        ctx.save_for_backward(q, k, v, seed, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        scale, rate = ctx.consts
+        saved = ctx.saved_tensors
+        if len(saved) == 4:
+            q, k, v, seed = saved
+            grads = attention_train_bwd_plain(q, k, v, int(seed), scale, rate, dout)
+        else:
+            q, k, v, seed, out, lse = saved
+            grads = attention_train_bwd(q, k, v, out, lse, dout.contiguous(), seed, scale, rate)
+        return (*grads, None, None, None)
+
+
+def attention_train(q, k, v, seed: torch.Tensor, scale: float, rate: float) -> torch.Tensor:
+    """softmax(q kᵀ · scale) · keep-mask · v with a backward; the kernels on
+    CUDA, the twin on the CPU.  ``seed``: a (1,) int32 tensor on the inputs'
+    device (negative seeds wrap to uint32, as in the TPU kernel)."""
+    return _AttentionTrain.apply(q, k, v, seed.reshape(1), float(scale), float(rate))

@@ -11,13 +11,15 @@ contraction XLA's CPU compiler gives the Pallas kernel body, so the keys equal
 the interpret-mode reference's bit for bit.  The twin emulates each fused
 multiply-add in float64 (the product is exact there).  Outside the kernel the
 selected neighbour is gathered and its distance recomputed exactly, as in JAX.
-Operations bound it.
+Operations bound it.  The backward (:class:`_ChamferPair`) scatters through the
+``scatter_add`` kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from mocopci_torch.kernels import _lib
+from mocopci_torch.kernels.scatter_add import scatter_add
 
 SOURCE = "mocopci_torch/csrc/chamfer_pair.cu"
 REPLACES = "mocopci_tpu/ops/pallas/chamfer_pair.py:126"
@@ -90,13 +92,35 @@ def chamfer_pair_keys(pc1: torch.Tensor, pc2: torch.Tensor):
     return k12, k21
 
 
+class _ChamferPair(torch.autograd.Function):
+    """The VJP of ``mocopci_tpu/ops/pallas/chamfer_pair.py`` (:180-232): with
+    v12 = 2·g12·diff12 and v21 = 2·g21·diff21, d_pc1 = v12 − scatter(v21 → i21)
+    and d_pc2 = v21 − scatter(v12 → i12), each scatter the deterministic
+    ``scatter_add`` kernel (the JAX package's ``bucket_scatter_add`` at
+    N, M % 128 == 0, its one-hot scatter otherwise)."""
+
+    @staticmethod
+    def forward(ctx, pc1, pc2):
+        k12, k21 = chamfer_pair_keys(pc1, pc2)
+        mask = (1 << index_bits(pc1.shape[1], pc2.shape[1])) - 1
+        i12, i21 = k12 & mask, k21 & mask
+        diff12 = pc1 - _lib.group_rows(pc2, i12)
+        diff21 = pc2 - _lib.group_rows(pc1, i21)
+        ctx.save_for_backward(diff12, diff21, i12, i21)
+        return (diff12 * diff12).sum(-1), (diff21 * diff21).sum(-1)
+
+    @staticmethod
+    def backward(ctx, g12, g21):
+        diff12, diff21, i12, i21 = ctx.saved_tensors
+        v12 = (2.0 * g12)[..., None] * diff12
+        v21 = (2.0 * g21)[..., None] * diff21
+        d_pc1 = v12 - scatter_add(v21.contiguous(), i21, diff12.shape[1])
+        d_pc2 = v21 - scatter_add(v12.contiguous(), i12, diff21.shape[1])
+        return d_pc1, d_pc2
+
+
 def chamfer_pair(pc1: torch.Tensor, pc2: torch.Tensor):
     """Both directed per-point min squared distances (d12 (G, N), d21 (G, M)),
     exact for the selected neighbours (near ties within the key quantisation
-    may select a marginally farther one, as in JAX)."""
-    pc1, pc2 = pc1.float().contiguous(), pc2.float().contiguous()
-    k12, k21 = chamfer_pair_keys(pc1, pc2)
-    mask = (1 << index_bits(pc1.shape[1], pc2.shape[1])) - 1
-    diff12 = pc1 - _lib.group_rows(pc2, k12 & mask)
-    diff21 = pc2 - _lib.group_rows(pc1, k21 & mask)
-    return (diff12 * diff12).sum(-1), (diff21 * diff21).sum(-1)
+    may select a marginally farther one, as in JAX); differentiable."""
+    return _ChamferPair.apply(pc1.float().contiguous(), pc2.float().contiguous())

@@ -1,8 +1,12 @@
-"""Point-transformer tail: CUDA kernel ``csrc/transformer_tail.cu`` and its twin.
+"""Point-transformer tail: CUDA kernels ``csrc/transformer_tail.cu`` and their twins.
 
 Replaces ``mocopci_tpu/ops/pallas/transformer_tail.py``: ``transformer_tail``
-forward (:212).  Both versions gather the [xyz | k | v] rows from the table
-by index.  Operations bound it.
+forward (:212) and backward (:237).  Both versions gather the [xyz | k | v]
+rows from the table by index; the backward returns the rows' gradient, which
+:func:`~mocopci_torch.kernels.scatter_add.gather_backward` scatters into the
+table (through the ``scatter_add`` kernel at the refine head's shape, as JAX's
+gather VJP).  The backward kernel recomputes the per-channel softmax instead
+of reading a saved (m, l).  Operations bound both.
 """
 from __future__ import annotations
 
@@ -11,18 +15,19 @@ import math
 import torch
 
 from mocopci_torch.kernels import _lib
+from mocopci_torch.kernels.scatter_add import gather_backward
 
 SOURCE = "mocopci_torch/csrc/transformer_tail.cu"
 REPLACES = "mocopci_tpu/ops/pallas/transformer_tail.py:212"
+REPLACES_BWD = "mocopci_tpu/ops/pallas/transformer_tail.py:237"
 
 _MAX_SMEM = 227 * 1024
+BWD_BLOCKS = 132      # one per SM of an H100 (the backward's shared memory fills one)
 
 
-def transformer_tail_plain(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2):
-    """table (B, M, 3+2D), idx (B, N, K), xyzq (B, N, 3), q (B, N, D) -> (B, N, D)."""
+def _tail(rows, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2):
     D = q.shape[-1]
-    r = _lib.group_rows(table, idx)
-    knn_xyz, k_g, v_g = r[..., :3], r[..., 3:3 + D], r[..., 3 + D:]
+    knn_xyz, k_g, v_g = rows[..., :3], rows[..., 3:3 + D], rows[..., 3 + D:]
     rel = xyzq[:, :, None, :] - knn_xyz
     pos = torch.relu(rel @ wd1 + bd1) @ wd2 + bd2
     gv = q[:, :, None] - k_g + pos
@@ -31,11 +36,21 @@ def transformer_tail_plain(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg
     return torch.sum(attn * (v_g + pos), dim=2)
 
 
-def transformer_tail(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2):
-    """Kernel on CUDA, twin on the CPU; weights (in, out), biases (out,)."""
-    weights = (wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2)
-    if _lib.dispatch_device(table, idx, xyzq, q, *weights) == "cpu":
-        return transformer_tail_plain(table, idx, xyzq, q, *weights)
+def transformer_tail_plain(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2):
+    """table (B, M, 3+2D), idx (B, N, K), xyzq (B, N, 3), q (B, N, D) -> (B, N, D)."""
+    return _tail(_lib.group_rows(table, idx), xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2)
+
+
+def transformer_tail_bwd_plain(table, idx, xyzq, q, *weights_and_dout):
+    """(d_rows (B, N, K, 3+2D), dxq, dq, 8 weight grads) by autograd."""
+    *weights, dout = weights_and_dout
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (_lib.group_rows(table, idx), xyzq, q, *weights)]
+        return torch.autograd.grad(_tail(*leaves), leaves, dout)
+
+
+def _check(table, idx, xyzq, q, weights):
     _lib.check_cuda("transformer_tail table", table, torch.float32, 3)
     _lib.check_cuda("transformer_tail idx", idx, torch.int32, 3)
     _lib.check_cuda("transformer_tail xyzq", xyzq, torch.float32, 3)
@@ -50,10 +65,65 @@ def transformer_tail(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2
         want = (D,) if i % 2 else ((3, D) if i == 0 else (D, D))
         if tuple(t.shape) != want:
             raise ValueError(f"transformer_tail weight {i}: {tuple(t.shape)} != {want}")
-    if (3 * D * D + 8 * D + 3 * K + 3 * K * D) * 4 > _MAX_SMEM:
+    bwd_floats = 9 * D * D + 20 * D + 6 * K + 11 * K * D
+    if (3 * D * D + 8 * D + 3 * K + 3 * K * D) * 4 > _MAX_SMEM or bwd_floats * 4 > _MAX_SMEM:
         raise ValueError(f"transformer_tail kernel: D={D}, K={K} exceed shared memory")
+    return B, M, N, K, D
+
+
+def transformer_tail_fwd(table, idx, xyzq, q, *weights):
+    """Kernel forward, (B, N, D)."""
+    B, M, N, K, D = _check(table, idx, xyzq, q, weights)
     out = torch.empty((B, N, D), dtype=torch.float32, device=table.device)
     _lib.launch("transformer_tail", table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
                 q.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
                 B, M, N, K, D, _lib.stream(table))
     return out
+
+
+def transformer_tail_bwd(table, idx, xyzq, q, *weights_and_dout):
+    """Kernel backward: (d_rows (B, N, K, 3+2D), dxq, dq, 8 weight grads)."""
+    *weights, dout = weights_and_dout
+    B, M, N, K, D = _check(table, idx, xyzq, q, weights)
+    _lib.check_cuda("transformer_tail dout", dout, torch.float32, 3)
+    dev = table.device
+    d_rows = torch.empty((B, N, K, 3 + 2 * D), dtype=torch.float32, device=dev)
+    dxq = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
+    sizes = [3 * D, D, D * D, D, D * D, D, D * D, D]
+    dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    nblk = min(BWD_BLOCKS, B * N)
+    partial = torch.empty(nblk * sum(sizes), dtype=torch.float32, device=dev)
+    _lib.launch("transformer_tail_bwd", table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
+                q.data_ptr(), *(t.data_ptr() for t in weights), dout.data_ptr(),
+                d_rows.data_ptr(), dxq.data_ptr(), dq.data_ptr(), dw.data_ptr(),
+                partial.data_ptr(), B, M, N, K, D, nblk, _lib.stream(table))
+    grads = [g.view(t.shape) for g, t in zip(torch.split(dw, sizes), weights)]
+    return (d_rows, dxq, dq, *grads)
+
+
+class _TransformerTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, xyzq, q, *weights):
+        cpu = _lib.dispatch_device(table, idx, xyzq, q, *weights) == "cpu"
+        ctx.cpu = cpu
+        ctx.save_for_backward(table, idx, xyzq, q, *weights)
+        if cpu:
+            return transformer_tail_plain(table, idx, xyzq, q, *weights)
+        return transformer_tail_fwd(table, idx, xyzq, q, *weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        table, idx, xyzq, q, *weights = ctx.saved_tensors
+        bwd = transformer_tail_bwd_plain if ctx.cpu else transformer_tail_bwd
+        d_rows, dxq, dq, *dws = bwd(table, idx, xyzq, q, *weights, dout.contiguous())
+        B, N, K, W = d_rows.shape
+        d_table = gather_backward(d_rows.reshape(B, N * K, W), idx.reshape(B, N * K),
+                                  table.shape[1])
+        return (d_table, None, dxq, dq, *dws)
+
+
+def transformer_tail(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2):
+    """The kernels on CUDA, the twins on the CPU; weights (in, out), biases
+    (out,); differentiable in everything but idx."""
+    return _TransformerTail.apply(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2)

@@ -1,12 +1,16 @@
-"""MoCoPCI eval forward (port of ``mocopci_tpu/models/mocopci.py``).
+"""MoCoPCI forward, eval and train (port of ``mocopci_tpu/models/mocopci.py``).
 
   - ``PointConvEncoder``: shared 5-level PointConv feature pyramid, run once
     over both clouds stacked on the batch axis.
   - ``MultiframeAttention``: per-level decoder stage; the 3 candidate frames
     are folded into the batch axis.
-  - ``MultiFrameEstimator``: coarse-to-fine decoder, refine head and the eval
-    kNN-softmax fusion head (k-major pairs p = j·N + n).
-  - ``MoCoPCI`` and the entry point :func:`interpolate`.
+  - ``MultiFrameEstimator``: coarse-to-fine decoder, refine head and the
+    kNN-softmax fusion head (k-major pairs p = j·N + n): BatchNorm folded into
+    one pair kernel in eval, the planes kernel and ``fusion_head_train`` (batch
+    statistics per frame group) in train.
+  - ``MoCoPCI`` and the entry point :func:`interpolate`; ``MoCoPCI(...)(xyz1,
+    xyz2, train=True, rng=generator)`` also returns the multi-scale frames the
+    training loss reads.
 
 Channels-last (B, N, C) at every function, as in the JAX package.
 """
@@ -22,7 +26,7 @@ from torch import nn
 from mocopci_torch import ops
 from mocopci_torch.config import ModelConfig
 from mocopci_torch.device import resolve_device
-from mocopci_torch.kernels import fold_bn_dense, fusion_pair
+from mocopci_torch.kernels import fold_bn_dense, fusion_head_train, fusion_pair, fusion_pair_planes
 from mocopci_torch.nn.attention import CrossFrameBlock, EICrossformer, MultiFrameBlock
 from mocopci_torch.nn.basic import ConvLReLU, Dense, FrameBatchNorm, init_weights
 from mocopci_torch.nn.cross import (
@@ -119,17 +123,19 @@ class MultiframeAttention(nn.Module):
     """Per-level decoder stage: for each candidate flow warp pc2, re-correlate,
     embed the motion; then attend over the 5 time tokens."""
 
-    def __init__(self, feat_ch: int, latent_ch: int, mlp1, mlp2, flow_nei: int):
+    def __init__(self, feat_ch: int, latent_ch: int, mlp1, mlp2, flow_nei: int,
+                 attn_drop: float = 0.05, proj_drop: float = 0.05, drop_path: float = 0.04):
         super().__init__()
         self.feat_ch = feat_ch
         self.flow_nei = flow_nei
         self.bid = BidirectionalLayerFeatCosine(flow_nei, 3 * feat_ch, mlp1)
         self.fe = FlowEmbeddingLayer(flow_nei, mlp1[-1], mlp2)
-        self.cross_block = MultiFrameBlock(feat_ch, latent_ch)
+        self.cross_block = MultiFrameBlock(feat_ch, latent_ch, drop=proj_drop,
+                                           attn_drop=attn_drop, drop_path=drop_path)
         self.downsample = ConvLReLU(latent_ch, feat_ch)
 
     def forward(self, pc1, pc2, feat1_new, feat2_new, feat1_0, feat1_1, feat2_0, feat2_1,
-                up_frames, ts):
+                up_frames, ts, train: bool = False, rng=None):
         c_feat1 = torch.cat([feat1_0, feat1_1, feat1_new], dim=-1)
         c_feat2 = torch.cat([feat2_0, feat2_1, feat2_new], dim=-1)
         B, F = up_frames.shape[:2]
@@ -159,13 +165,13 @@ class MultiframeAttention(nn.Module):
         x = torch.cat([f1n[:, None], fe_all[:, :3], f2n[:, None]], dim=1)   # (B, 5, N, C)
         emb = torch.as_tensor(time_embedding(ts, self.feat_ch), device=x.device)
         x = x + emb[None, :, None, :]
-        feats, frames = self.cross_block(x)
+        feats, frames = self.cross_block(x, train, rng)
         feats = self.downsample(feats)
         return frames, f1n, f2n, feats
 
 
 class MultiFrameEstimator(nn.Module):
-    """Coarse-to-fine bidirectional multi-frame flow decoder (eval)."""
+    """Coarse-to-fine bidirectional multi-frame flow decoder."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -178,11 +184,12 @@ class MultiFrameEstimator(nn.Module):
         self.deconv3_2 = ConvLReLU(c3, c2)
         self.deconv2_1 = ConvLReLU(c2, c1)
         self.cross3 = CrossLayerFeatCosine(cfg.flow_nei, 2 * c3 + c1, (c3, c3), (c3, c3))
-        self.cross_block3 = CrossFrameBlock(c3)
+        self.cross_block3 = CrossFrameBlock(c3, drop=cfg.proj_drop, attn_drop=cfg.attn_drop)
+        rates = dict(attn_drop=cfg.attn_drop, proj_drop=cfg.proj_drop, drop_path=cfg.drop_path)
         self.multi_frame_up_2 = MultiframeAttention(c2, c1 + c1 * 4, (c2, c2), (c2, c2),
-                                                    cfg.flow_nei)
+                                                    cfg.flow_nei, **rates)
         self.multi_frame_up_1 = MultiframeAttention(c1, c1 + c0 * 4, (c1, c1), (c1, c1),
-                                                    cfg.flow_nei)
+                                                    cfg.flow_nei, **rates)
         # fusion head 4 -> 64 -> 64 -> 128 with BatchNorm (eps 1e-3) + ReLU
         self.fusion_conv0 = Dense(4, c1)
         self.fusion_conv1 = Dense(c1, c1)
@@ -197,15 +204,39 @@ class MultiFrameEstimator(nn.Module):
         self.pred1 = Dense(c1, c0)
         self.pred2 = Dense(c0, 3)
 
-    def _fusion(self, points1, points2):
-        """kNN-softmax position blend on (F·B, N, 3) clouds (eval BatchNorm
-        folded into the dense layers; one fused pair kernel)."""
+    def _fusion(self, points1, points2, train: bool = False):
+        """kNN-softmax position blend on (F·B, N, 3) clouds, frame-major.  Eval:
+        BatchNorm folded into the dense layers, one fused pair kernel.  Train:
+        the planes kernel, then ``fusion_head_train`` with batch statistics per
+        frame group (the reference calls the fusion once per frame), whose
+        statistics move the running ones."""
         k = self.cfg.fusion_k
         idx_both = ops.knn(k, torch.cat([points1, points2], dim=0),
                            torch.cat([points1, points1], dim=0))
         idx_self, idx_cross = torch.chunk(idx_both, 2, dim=0)
         idx = torch.cat([idx_self, idx_cross], dim=-1).contiguous()    # (FB, N, 2k)
         fb, n, k2 = idx.shape
+        if train:
+            F = self.cfg.n_frames
+            planes = fusion_pair_planes(points2.float().contiguous(), idx,
+                                        points1.float().contiguous())
+            params, bns = [], []
+            for i in range(3):
+                dense = getattr(self, f"fusion_conv{i}")
+                bn = getattr(self, f"fusion_bn{i}")
+                params += [dense.weight.t().contiguous(), dense.bias, bn.weight, bn.bias]
+                bns.append(bn)
+            h, stats = fusion_head_train(planes, params, F, bns[0].eps)
+            for bn, (mean, var) in zip(bns, stats):
+                bn.ema_update(mean, var, (fb // F) * n * k2)
+        else:
+            planes, h = self._fusion_eval(points1, points2, idx)
+        w = torch.softmax(h.reshape(fb, k2, n), dim=1)                 # (FB, 2k, N)
+        # softmax weights sum to 1: sum w * neighbour = p1 + sum w * resi
+        blend = torch.einsum("bkn,bckn->bnc", w, planes[:, :3].reshape(fb, 3, k2, n))
+        return points1.float() + blend
+
+    def _fusion_eval(self, points1, points2, idx):
         folded = []
         for i in range(3):
             dense = getattr(self, f"fusion_conv{i}")
@@ -213,12 +244,8 @@ class MultiFrameEstimator(nn.Module):
             w, b = fold_bn_dense(dense.weight.t(), dense.bias, bn.weight, bn.bias,
                                  bn.running_mean, bn.running_var, bn.eps)
             folded += [w.contiguous(), b.contiguous()]
-        planes, h = fusion_pair(points2.float().contiguous(), idx,
-                                points1.float().contiguous(), *folded)
-        w = torch.softmax(h.reshape(fb, k2, n), dim=1)                 # (FB, 2k, N)
-        # softmax weights sum to 1: sum w * neighbour = p1 + sum w * resi
-        blend = torch.einsum("bkn,bckn->bnc", w, planes[:, :3].reshape(fb, 3, k2, n))
-        return points1.float() + blend
+        return fusion_pair(points2.float().contiguous(), idx,
+                           points1.float().contiguous(), *folded)
 
     def _refine(self, feat0, base_pc, up_flow):
         """Full-resolution compensation head."""
@@ -230,14 +257,14 @@ class MultiFrameEstimator(nn.Module):
         up = ops.upsample(base_pc, down_xyz, shaped)
         return self.pred2(torch.relu(self.pred1(up)))
 
-    def forward(self, pc1s, pc2s, feat1s, feat2s):
+    def forward(self, pc1s, pc2s, feat1s, feat2s, train: bool = False, rng=None):
         cfg = self.cfg
         F = cfg.n_frames
         t_f, t_b = cfg.t_forward, cfg.t_backward
 
-        fus1 = self.ei1(feat1s[1], feat2s[1])
-        fus2 = self.ei2(feat1s[2], feat2s[2])
-        fus3 = self.ei3(feat1s[3], feat2s[3])
+        fus1 = self.ei1(feat1s[1], feat2s[1], train)
+        fus2 = self.ei2(feat1s[2], feat2s[2], train)
+        fus3 = self.ei3(feat1s[3], feat2s[3], train)
 
         # L4 -> L3
         feat1_l4_3 = self.deconv4_3(ops.upsample(pc1s[3], pc1s[4], feat1s[4]))
@@ -248,8 +275,8 @@ class MultiFrameEstimator(nn.Module):
         c_feat2_l3 = torch.cat([feat2s[3], fus3, feat2_l4_3], dim=-1)
         f1n_l3, f2n_l3 = self.cross3(pc1s[3], pc2s[3], c_feat1_l3, c_feat2_l3,
                                      feat1s[3], feat2s[3])
-        _, frame3_f = self.cross_block3(torch.stack([f1n_l3, f2n_l3], dim=1))
-        _, frame3_b = self.cross_block3(torch.stack([f2n_l3, f1n_l3], dim=1))
+        _, frame3_f = self.cross_block3(torch.stack([f1n_l3, f2n_l3], dim=1), train, rng)
+        _, frame3_b = self.cross_block3(torch.stack([f2n_l3, f1n_l3], dim=1), train, rng)
 
         # L3 -> L2
         feat1_l3_2, up_frame2_f = _upsample_feat_and_frames(pc1s[2], pc1s[3], f1n_l3, frame3_f)
@@ -260,10 +287,10 @@ class MultiFrameEstimator(nn.Module):
         # L2
         frame2_f, f1n_l2_f, f2n_l2_f, _ = self.multi_frame_up_2(
             pc1s[2], pc2s[2], feat1_l3_2, feat2_l3_2,
-            feat1s[2], fus2, feat2s[2], fus2, up_frame2_f, t_f)
+            feat1s[2], fus2, feat2s[2], fus2, up_frame2_f, t_f, train, rng)
         frame2_b, f2n_l2_b, f1n_l2_b, _ = self.multi_frame_up_2(
             pc2s[2], pc1s[2], feat2_l3_2, feat1_l3_2,
-            feat2s[2], fus2, feat1s[2], fus2, up_frame2_b, t_b)
+            feat2s[2], fus2, feat1s[2], fus2, up_frame2_b, t_b, train, rng)
 
         # L2 -> L1
         (feat1_l2_1_f, feat1_l2_1_b), up_frame1_f = _upsample_feats_and_frames(
@@ -278,10 +305,10 @@ class MultiFrameEstimator(nn.Module):
         # L1
         frame1_f, _, _, _ = self.multi_frame_up_1(
             pc1s[1], pc2s[1], feat1_l2_1_f, feat2_l2_1_f,
-            feat1s[1], fus1, feat2s[1], fus1, up_frame1_f, t_f)
+            feat1s[1], fus1, feat2s[1], fus1, up_frame1_f, t_f, train, rng)
         frame1_b, _, _, _ = self.multi_frame_up_1(
             pc2s[1], pc1s[1], feat2_l2_1_b, feat1_l2_1_b,
-            feat2s[1], fus1, feat1s[1], fus1, up_frame1_b, t_b)
+            feat2s[1], fus1, feat1s[1], fus1, up_frame1_b, t_b, train, rng)
 
         # L1 -> L0; the backward branch uses time-reversed frame order
         _, up_frame0_f = _upsample_feat_and_frames(pc1s[0], pc1s[1], None, frame1_f)
@@ -296,14 +323,29 @@ class MultiFrameEstimator(nn.Module):
         feat0 = torch.cat([feat1s[0], feat1s[0], feat2s[0]], dim=0)
         flows = torch.cat([up_frame0_f[:, 0], up_frame0_f[:, 1], up_frame0_b[:, 2]], dim=0)
         refine_out = self._refine(feat0, base, flows)
-        fused = self._fusion(base, refine_out)                    # (3B, N, 3)
+        fused = self._fusion(base, refine_out, train)             # (3B, N, 3)
         out = torch.stack([fused[i * B:(i + 1) * B] for i in range(F)], dim=1)
-        return {"out": out}                                       # (B, 3, N, 3)
+        result = {"out": out}                                     # (B, 3, N, 3)
+        if train:
+            # [warped, reverse-warped, L1, L2, L3] per direction, (B, 3, n_l, 3)
+            result["frames_f"] = (
+                warped_f, pc1s[0][:, None] + _rev_frames(up_frame0_b),
+                pc1s[1][:, None] + frame1_f, pc1s[2][:, None] + frame2_f,
+                pc1s[3][:, None] + frame3_f)
+            result["frames_b"] = (
+                warped_b, pc2s[0][:, None] + _rev_frames(up_frame0_f),
+                pc2s[1][:, None] + _rev_frames(frame1_b),
+                pc2s[2][:, None] + _rev_frames(frame2_b),
+                pc2s[3][:, None] + _rev_frames(frame3_b))
+        return result
 
 
 class MoCoPCI(nn.Module):
-    """Top-level model, eval forward: ``model(xyz1, xyz2)["out"]`` is the
-    (B, 3, N, 3) tensor of the three interpolated frames.
+    """Top-level model: ``model(xyz1, xyz2)["out"]`` is the (B, 3, N, 3)
+    tensor of the three interpolated frames.  ``train=True`` uses batch
+    statistics (moving the running ones), the train kernels with their
+    backwards, dropout drawn from ``rng`` when one is given, and adds
+    ``frames_f`` / ``frames_b`` for the loss.
 
     Parameters are drawn from ``torch.Generator().manual_seed(seed)`` and
     placed on ``device``: the card by default (raises without one), or
@@ -321,14 +363,14 @@ class MoCoPCI(nn.Module):
         self.eval()
         self.to(self.device)
 
-    def forward(self, xyz1, xyz2):
+    def forward(self, xyz1, xyz2, train: bool = False, rng: Optional[torch.Generator] = None):
         B = xyz1.shape[0]
         pcs, feats = self.encoder(torch.cat([xyz1, xyz2], dim=0).float())
         pc1s = [p[:B] for p in pcs]
         pc2s = [p[B:] for p in pcs]
         feat1s = [f[:B] for f in feats]
         feat2s = [f[B:] for f in feats]
-        return self.estimator(pc1s, pc2s, feat1s, feat2s)
+        return self.estimator(pc1s, pc2s, feat1s, feat2s, train, rng)
 
 
 def interpolate(model: MoCoPCI, xyz1: Union[np.ndarray, torch.Tensor],

@@ -1,4 +1,4 @@
-"""Attention modules, eval branches (port of ``mocopci_tpu/nn/attention.py``).
+"""Attention modules (port of ``mocopci_tpu/nn/attention.py``).
 
   - ``CrossAttention`` / ``Injector`` / ``Extractor`` / ``EICrossformer``:
     the extrapolation+injection fusion.
@@ -8,7 +8,11 @@
 
 Softmax attention with at most ``MAX_SEQ`` keys runs in the ``attention``
 kernel (CUDA) or its twin (CPU); longer sequences use the plain
-query-chunked form.  Dropout and stochastic depth are identities in eval.
+query-chunked form.  In train mode (``train=True``) every attention runs in
+the ``attention_train`` kernel with its backward, as on the TPU, with the
+dropout seed drawn per call from ``rng`` (rate 0 and seed 0 without one);
+train attention over more than ``MAX_SEQ`` keys (JAX's chunked dropout path)
+is not ported.
 """
 from __future__ import annotations
 
@@ -16,12 +20,18 @@ import torch
 from torch import nn
 
 from mocopci_torch.kernels import attention as attention_kernel
+from mocopci_torch.kernels import attention_train
 from mocopci_torch.kernels.attention import MAX_SEQ
-from mocopci_torch.nn.basic import Dense, EasyMlp, FrameBatchNorm, Mlp, MlpT
+from mocopci_torch.nn.basic import Dense, EasyMlp, FrameBatchNorm, Mlp, MlpT, drop_path, dropout
 
 # above this many entries per (batch, frame, head) the long-sequence path
 # chunks the queries
 _DENSE_ATTN_LIMIT = 8 * 1024 * 1024
+
+
+def _to_g(x, L, D):
+    """(..., L, H, D) -> (G, L, D), G = (...)·H, the TPU kernels' group order."""
+    return x.movedim(-2, -3).reshape(-1, L, D).float().contiguous()
 
 
 def _fused_sdpa(q, k, v, scale):
@@ -29,11 +39,33 @@ def _fused_sdpa(q, k, v, scale):
     lead = q.shape[:-3]
     N, H, D = q.shape[-3:]
     M = k.shape[-3]
+    out = attention_kernel(_to_g(q, N, D), _to_g(k, M, D), _to_g(v, M, D), scale)
+    return out.reshape(lead + (H, N, D)).movedim(-3, -2)
 
-    def to_g(x, L):
-        return x.movedim(-2, -3).reshape(-1, L, D).float().contiguous()
 
-    out = attention_kernel(to_g(q, N), to_g(k, M), to_g(v, M), scale)
+def _dropout_seed(rate: float, rng, device) -> torch.Tensor:
+    """The int32 seed of one train attention call, drawn on the device (0 when
+    there is no dropout), as ``_dropout_seed`` draws it per call in JAX."""
+    if rate <= 0.0 or rng is None:
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=rng, device=device,
+                         dtype=torch.int32)
+
+
+def _sdpa_train(q, k, v, scale, rate, rng):
+    """Train attention with dropout on the softmax matrix, (..., N, H, D)
+    layout, through the ``attention_train`` kernel and its backward."""
+    lead = q.shape[:-3]
+    N, H, D = q.shape[-3:]
+    M = k.shape[-3]
+    if M > MAX_SEQ:
+        raise NotImplementedError(
+            f"train attention over {M} > {MAX_SEQ} keys (the JAX package's chunked "
+            "dropout path) is not ported yet: see ROADMAP.md, section 1")
+    if rng is None:
+        rate = 0.0
+    seed = _dropout_seed(rate, rng, q.device)
+    out = attention_train(_to_g(q, N, D), _to_g(k, M, D), _to_g(v, M, D), seed, scale, rate)
     return out.reshape(lead + (H, N, D)).movedim(-3, -2)
 
 
@@ -63,7 +95,8 @@ class CrossAttention(nn.Module):
         self.kv = Dense(dim, 2 * dim, bias=False)
         self.proj = Dense(dim, dim)
 
-    def forward(self, x, c):
+    def forward(self, x, c, train: bool = False):
+        """The EI attention has no dropout (rate 0 in the reference)."""
         B, N, C = x.shape
         M = c.shape[1]
         H = self.num_heads
@@ -71,9 +104,12 @@ class CrossAttention(nn.Module):
         kv = self.kv(c).reshape(B, M, 2, H, hd)
         k, v = kv[:, :, 0], kv[:, :, 1]
         q = self.q(x).reshape(B, N, H, hd)
-        sdpa = _fused_sdpa if M <= MAX_SEQ else _dense_mha
-        out = sdpa(q, k, v, hd ** -0.5).reshape(B, N, C)
-        return self.proj(out)
+        if train:
+            out = _sdpa_train(q, k, v, hd ** -0.5, 0.0, None)
+        else:
+            sdpa = _fused_sdpa if M <= MAX_SEQ else _dense_mha
+            out = sdpa(q, k, v, hd ** -0.5)
+        return self.proj(out.reshape(B, N, C))
 
 
 class Injector(nn.Module):
@@ -86,8 +122,8 @@ class Injector(nn.Module):
         self.attn = CrossAttention(dim, num_heads)
         self.gamma = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, query, feat):
-        return self.gamma * self.attn(self.query_norm(query), self.feat_norm(feat))
+    def forward(self, query, feat, train: bool = False):
+        return self.gamma * self.attn(self.query_norm(query), self.feat_norm(feat), train)
 
 
 class Extractor(nn.Module):
@@ -101,8 +137,8 @@ class Extractor(nn.Module):
         self.ffn_norm = nn.LayerNorm(dim, eps=1e-6)
         self.ffn = Mlp(dim, int(dim * cffn_ratio), dim)
 
-    def forward(self, x1, x2):
-        query = x1 + self.attn(self.query_norm(x1), self.feat_norm(x2))
+    def forward(self, x1, x2, train: bool = False):
+        query = x1 + self.attn(self.query_norm(x1), self.feat_norm(x2), train)
         return self.ffn(self.ffn_norm(query))
 
 
@@ -115,9 +151,9 @@ class EICrossformer(nn.Module):
         self.extractor = Extractor(dim, num_heads)
         self.pj = Dense(2 * dim, dim, bias=False)
 
-    def forward(self, x1, x2):
-        res1 = self.injector(x1, x2)
-        res2 = self.extractor(x2, x1)
+    def forward(self, x1, x2, train: bool = False):
+        res1 = self.injector(x1, x2, train)
+        res2 = self.extractor(x2, x1, train)
         return self.pj(torch.cat([res1, res2], dim=-1))
 
 
@@ -126,29 +162,36 @@ class CrossFrameBlock(nn.Module):
     frames (B, 3, N, 3)); 4 full-width heads whose outputs, summed over the
     two input frames, become 4 candidate frames, head 0 dropped."""
 
-    def __init__(self, dim: int, num_heads: int = 4, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int = 4, mlp_ratio: float = 4.0,
+                 drop: float = 0.05, attn_drop: float = 0.05):
         super().__init__()
         self.num_heads = num_heads
+        self.drop = drop
+        self.attn_drop = attn_drop
         self.norm1 = FrameBatchNorm(dim)
         self.attn_q = Dense(dim, dim * num_heads, init_std=0.02)
         self.attn_kv = Dense(dim, 2 * dim * num_heads, init_std=0.02)
         self.attn_proj = Dense(dim, dim, init_std=0.02)
-        self.trans_block_2 = EasyMlp(dim, int(dim * mlp_ratio), dim)
+        self.trans_block_2 = EasyMlp(dim, int(dim * mlp_ratio), dim, drop)
         self.mapping_xyz = Dense(dim, 3, init_std=0.02)
 
-    def forward(self, xs):
+    def forward(self, xs, train: bool = False, rng=None):
         B, F, N, C = xs.shape
         H = self.num_heads
-        x = self.norm1(xs)
+        x = self.norm1(xs, train)
         x_rev = torch.flip(x, dims=(1,))
         M = x_rev.shape[2]
         q = self.attn_q(x).reshape(B, F, N, H, C)
         kv = self.attn_kv(x_rev).reshape(B, F, M, 2, H, C)
         k, v = kv[:, :, :, 0], kv[:, :, :, 1]
-        sdpa = _fused_sdpa if M <= MAX_SEQ else _dense_mha
-        out = sdpa(q, k, v, C ** -0.5)                     # (B, F, N, H, C)
+        if train:
+            out = _sdpa_train(q, k, v, C ** -0.5, self.attn_drop, rng)
+        else:
+            sdpa = _fused_sdpa if M <= MAX_SEQ else _dense_mha
+            out = sdpa(q, k, v, C ** -0.5)                 # (B, F, N, H, C)
         out = out.sum(dim=1).transpose(1, 2)               # (B, H, N, C)
-        feats = self.trans_block_2(self.attn_proj(out))
+        out = dropout(self.attn_proj(out), self.drop, rng)
+        feats = self.trans_block_2(out, rng)
         frames = self.mapping_xyz(feats)
         return feats[:, 1:], frames[:, 1:]
 
@@ -157,37 +200,44 @@ class MultiFrameBlock(nn.Module):
     """L2/L1 time-token stage: xs (B, 5, N, C) -> (feats (B, 3, N, latent),
     frames (B, 3, N, 3)) for the middle tokens."""
 
-    def __init__(self, dim: int, latent: int, num_heads: int = 8, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, latent: int, num_heads: int = 8, mlp_ratio: float = 4.0,
+                 drop: float = 0.05, attn_drop: float = 0.05, drop_path: float = 0.04):
         super().__init__()
         self.num_heads = num_heads
+        self.drop = drop
+        self.attn_drop = attn_drop
+        self.drop_path = drop_path
         self.norm1 = FrameBatchNorm(dim)
         self.attn_q = Dense(dim, dim, init_std=0.02)
         self.attn_kv = Dense(dim, 2 * dim, init_std=0.02)
         self.attn_proj = Dense(dim, dim, init_std=0.02)
         self.norm2 = FrameBatchNorm(dim)
-        self.mlp = MlpT(dim, int(dim * mlp_ratio), dim)
-        self.trans_block = MlpT(dim, int(dim * mlp_ratio), latent)
+        self.mlp = MlpT(dim, int(dim * mlp_ratio), dim, drop)
+        self.trans_block = MlpT(dim, int(dim * mlp_ratio), latent, drop)
         self.mapping_xyz = Dense(latent, 3, init_std=0.02)
 
-    def forward(self, xs):
+    def forward(self, xs, train: bool = False, rng=None):
         B, F, N, C = xs.shape
         H = self.num_heads
         hd = C // H
-        x_norm = self.norm1(xs)
+        x_norm = self.norm1(xs, train)
         x_rev = torch.flip(x_norm, dims=(1,))
         M = x_rev.shape[2]
         q = self.attn_q(x_norm).reshape(B, F, N, H, hd)
         kv = self.attn_kv(x_rev).reshape(B, F, M, 2, H, hd)
         k, v = kv[:, :, :, 0], kv[:, :, :, 1]
-        if M <= MAX_SEQ:
+        if train:
+            out = _sdpa_train(q, k, v, hd ** -0.5, self.attn_drop, rng)
+        elif M <= MAX_SEQ:
             out = _fused_sdpa(q, k, v, hd ** -0.5)
         elif N * M > _DENSE_ATTN_LIMIT:
             out = _chunked_mha(q, k, v, hd ** -0.5)
         else:
             out = _dense_mha(q, k, v, hd ** -0.5)
-        out = self.attn_proj(out.reshape(B, F, N, C))
-        x_norm = x_norm + out
-        x = xs + self.mlp(self.norm2(x_norm))              # residual on the raw input
-        x_f = self.trans_block(x)
+        out = dropout(self.attn_proj(out.reshape(B, F, N, C)), self.drop, rng)
+        x_norm = x_norm + drop_path(out, self.drop_path, rng)
+        x_back = drop_path(self.mlp(self.norm2(x_norm, train), rng), self.drop_path, rng)
+        x = xs + x_back                                    # residual on the raw input
+        x_f = self.trans_block(x, rng)
         frames = self.mapping_xyz(x_f)
         return x_f[:, 1:-1], frames[:, 1:-1]

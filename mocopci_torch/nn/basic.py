@@ -2,9 +2,12 @@
 
 Every reference Conv1d/Conv2d is a 1x1 convolution, i.e. a ``Dense`` over the
 last axis.  Module and parameter names follow the flax tree, so
-``bridge.params_from_jax`` maps one onto the other by name.  Eval only:
-dropout and stochastic depth are identities there, so no module of the port
-calls them; the train slice adds them.
+``bridge.params_from_jax`` maps one onto the other by name.
+
+Train mode follows the JAX modules' arguments: ``train`` switches BatchNorm to
+batch statistics (and their running EMA), and a ``torch.Generator`` passed as
+``rng`` turns dropout and stochastic depth on (``rng=None`` is JAX's
+``deterministic=True``).  The port's random stream is its own, not flax's.
 """
 from __future__ import annotations
 
@@ -15,6 +18,26 @@ import torch.nn.functional as F
 from torch import nn
 
 LEAKY_RATE = 0.1
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale by 1/(1 - rate);
+    the identity when ``rng`` is None or the rate is 0."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, rng: Optional[torch.Generator],
+              sample_ndim: int = 2) -> torch.Tensor:
+    """Stochastic depth over the leading ``sample_ndim`` axes ((batch, frames)
+    in the decoder, as the reference's per-item loop makes frames the sample)."""
+    if rng is None or rate == 0.0:
+        return x
+    shape = x.shape[:sample_ndim] + (1,) * (x.dim() - sample_ndim)
+    keep = torch.rand(shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Linear):
@@ -96,51 +119,80 @@ class Mlp(nn.Module):
 
 
 class EasyMlp(nn.Module):
-    """Dense -> PReLU -> Dense (dropout is an identity in eval)."""
+    """Dense -> PReLU -> dropout -> Dense -> dropout."""
 
-    def __init__(self, in_features: int, hidden: int, out: int):
+    def __init__(self, in_features: int, hidden: int, out: int, drop: float = 0.05):
         super().__init__()
+        self.drop = drop
         self.fc1 = Dense(in_features, hidden, init_std=0.02)
         self.act = PReLU()
         self.fc2 = Dense(hidden, out, init_std=0.02)
 
-    def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x, rng=None):
+        x = dropout(self.act(self.fc1(x)), self.drop, rng)
+        return dropout(self.fc2(x), self.drop, rng)
 
 
 class MlpT(nn.Module):
-    """Dense -> depthwise 1x1 (per-channel scale + shift) -> PReLU -> Dense."""
+    """Dense -> depthwise 1x1 (per-channel scale + shift) -> PReLU -> dropout
+    -> Dense -> dropout."""
 
-    def __init__(self, in_features: int, hidden: int, out: int):
+    def __init__(self, in_features: int, hidden: int, out: int, drop: float = 0.05):
         super().__init__()
+        self.drop = drop
         self.fc1 = Dense(in_features, hidden, init_std=0.02)
         self.dw_scale = nn.Parameter(torch.ones(hidden))
         self.dw_bias = nn.Parameter(torch.zeros(hidden))
         self.act = PReLU()
         self.fc2 = Dense(hidden, out, init_std=0.02)
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         x = self.fc1(x) * self.dw_scale + self.dw_bias
-        return self.fc2(self.act(x))
+        x = dropout(self.act(x), self.drop, rng)
+        return dropout(self.fc2(x), self.drop, rng)
 
 
 class FrameBatchNorm(nn.Module):
-    """Eval BatchNorm with running statistics over the last axis, or over
-    axis 2 of (G, B, C, P) planes with ``grouped_cf``."""
+    """BatchNorm over all axes but the leading and the channel one, per
+    leading item (the reference normalises each batch item on its own), over
+    the last axis; with ``grouped_cf`` over axis 2 of (G, B, C, P) planes, per
+    group.  ``train``: batch statistics, and the running statistics move by
+    an EMA (momentum 0.1) of the items' mean and *unbiased* variance; else
+    the running statistics."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x, grouped_cf: bool = False):
-        if self.training:
-            raise NotImplementedError("FrameBatchNorm batch statistics are not ported yet")
+    @torch.no_grad()
+    def ema_update(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Running statistics from per-item batch statistics (items, C) with
+        ``n`` elements each (JAX's ``ema_stats=(mean, var, n)``)."""
+        unbiased = var * (n / max(n - 1, 1))
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean.mean(dim=0))
+        self.running_var.mul_(1 - m).add_(m * unbiased.mean(dim=0))
+
+    def forward(self, x, train: bool = False, grouped_cf: bool = False):
         x = x.float()
-        mean, var, w, b = self.running_mean, self.running_var, self.weight, self.bias
+        w, b = self.weight, self.bias
         if grouped_cf:
-            mean, var, w, b = (t[:, None] for t in (mean, var, w, b))
+            w, b = w[:, None], b[:, None]
+        if not train:
+            mean, var = self.running_mean, self.running_var
+            if grouped_cf:
+                mean, var = mean[:, None], var[:, None]
+            return (x - mean) * torch.rsqrt(var + self.eps) * w + b
+        axes = (1, 3) if grouped_cf else tuple(range(1, x.dim() - 1))
+        mean = x.mean(dim=axes, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
+        n = 1
+        for a in axes:
+            n *= x.shape[a]
+        self.ema_update(mean.reshape(x.shape[0], -1), var.reshape(x.shape[0], -1), n)
         return (x - mean) * torch.rsqrt(var + self.eps) * w + b

@@ -2,7 +2,8 @@
 
 FPS runs in the ``fps`` kernel (CUDA) or its plain twin (CPU); the pyramid is
 one launch per level with a gather in between, each level's indices
-addressing the previous level's cloud.
+addressing the previous level's cloud.  A gather's backward is
+``kernels.scatter_add.gather_backward``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from mocopci_torch.kernels import fps
 from mocopci_torch.kernels._lib import group_rows
+from mocopci_torch.kernels.scatter_add import gather_backward
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -34,14 +36,39 @@ def farthest_point_sample_pyramid(xyz: torch.Tensor, npoints: Sequence[int]) -> 
     return tuple(idxs)
 
 
+class _RowGather(torch.autograd.Function):
+    """Row gather whose backward is :func:`gather_backward`: the deterministic
+    ``scatter_add`` kernel where the JAX gather VJP takes its Pallas scatter,
+    ``index_add_`` elsewhere."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = points.shape[1]
+        return group_rows(points, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        B, C = g.shape[0], g.shape[-1]
+        d = gather_backward(g.reshape(B, -1, C), idx.reshape(B, -1), ctx.n_rows)
+        return d, None
+
+
+def _row_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and points.requires_grad:
+        return _RowGather.apply(points, idx)
+    return group_rows(points, idx)
+
+
 def gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather rows: (B, N, C) x (B, S) -> (B, S, C)."""
-    return group_rows(points, idx)
+    return _row_gather(points, idx)
 
 
 def group(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Grouped gather: (B, N, C) x (B, S, K) -> (B, S, K, C)."""
-    return group_rows(points, idx)
+    return _row_gather(points, idx)
 
 
 def group_multi(idx: torch.Tensor, *arrays: torch.Tensor):

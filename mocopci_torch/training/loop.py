@@ -1,14 +1,113 @@
-"""Eval step (port of ``eval_step`` in ``mocopci_tpu/training/loop.py``).
+"""Train and eval steps (port of ``mocopci_tpu/training/loop.py``), one device.
 
-The train step, its optimizer and checkpoints come with the training port.
+``train_step`` is forward, loss and backward over ``grad_accum`` micro-batches
+(BatchNorm running statistics chain through them, as in JAX's scan), the mean
+gradient, a global-norm clip at 2.0 with optax's rule (scale by clip / norm
+only when norm >= clip; no epsilon in the norm, unlike
+``torch.nn.utils.clip_grad_norm_``), then AdamW (b1 0.9, b2 0.999, eps 1e-8,
+decoupled weight decay 1e-4) at the clipped StepLR rate of the step.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from mocopci_torch import ops
+from mocopci_torch.config import ModelConfig, TrainConfig
+from mocopci_torch.models import MoCoPCI
+from mocopci_torch.training.loss import mocopci_loss
+from mocopci_torch.training.schedule import lr_at
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: MoCoPCI
+    optimizer: torch.optim.Optimizer
+    model_cfg: ModelConfig
+    train_cfg: TrainConfig
+    steps_per_epoch: int
+    step: int = 0
+
+
+def make_optimizer(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Optimizer:
+    """AdamW over every parameter; the rate is set per step by :func:`train_step`."""
+    return torch.optim.AdamW(model.parameters(), lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2),
+                             eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+
+
+def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, steps_per_epoch: int,
+                       device=None) -> Tuple[MoCoPCI, TrainState]:
+    """A model with weights drawn from ``train_cfg.seed`` (on the card unless
+    ``device`` says otherwise) and its optimizer."""
+    if model_cfg.remat:
+        raise NotImplementedError("remat is not ported yet: see ROADMAP.md, section 2")
+    model = MoCoPCI(model_cfg, device=device, seed=train_cfg.seed)
+    return model, TrainState(model, make_optimizer(model, train_cfg), model_cfg, train_cfg,
+                             steps_per_epoch)
+
+
+def _as_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(batch[k], dtype=torch.float32, device=device)
+            for k in ("pc1", "pc2", "gt")}
+
+
+def loss_and_grads(model: MoCoPCI, batch: Dict, rng: Optional[torch.Generator],
+                   model_cfg: ModelConfig, train_cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+    """Fills every parameter's ``.grad`` with the batch's mean gradient over
+    ``grad_accum`` micro-batches (zeros where a parameter gets none, as optax
+    sees them) and returns the mean loss components."""
+    b = _as_batch(batch, model.device)
+    B, K = b["pc1"].shape[0], train_cfg.grad_accum
+    if K < 1 or B % K:
+        raise ValueError(f"batch size {B} not divisible by grad_accum {K}")
+    model.zero_grad(set_to_none=True)
+    sums: Dict[str, torch.Tensor] = {}
+    for k in range(K):
+        sl = slice(k * B // K, (k + 1) * B // K)
+        result = model(b["pc1"][sl], b["pc2"][sl], train=True, rng=rng)
+        total, aux = mocopci_loss(result, b["gt"][sl], model_cfg, train_cfg)
+        (total / K).backward()
+        for name, v in aux.items():
+            sums[name] = sums.get(name, 0.0) + v.detach()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return {name: v / K for name, v in sums.items()}
+
+
+def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the ``.grad`` of ``params``; returns the
+    norm before clipping."""
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+    return norm
+
+
+def apply_update(state: TrainState) -> torch.Tensor:
+    """Clip, then one AdamW step at the step's rate; returns the gradient norm."""
+    norm = clip_by_global_norm(list(state.model.parameters()), state.train_cfg.grad_clip)
+    lr = lr_at(state.train_cfg, state.step, state.steps_per_epoch)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.step += 1
+    return norm
+
+
+def train_step(state: TrainState, batch: Dict,
+               rng: Optional[torch.Generator] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """batch: 'pc1', 'pc2' (B, N, 3) and 'gt' (B, F, N, 3), numpy or tensors.
+    ``rng``: a generator on the model's device for dropout (None: no dropout).
+    Returns the state (updated in place) and the loss components with
+    ``grad_norm``, as 0-d tensors on the device."""
+    aux = loss_and_grads(state.model, batch, rng, state.model_cfg, state.train_cfg)
+    aux["grad_norm"] = apply_update(state)
+    return state, aux
 
 
 @torch.no_grad()
@@ -19,9 +118,8 @@ def eval_step(model, batch: Dict, with_emd: bool = True) -> Dict[str, torch.Tens
     tensors.  Returns :func:`eval_metrics` of the (B, F, N, 3) output.
     """
     model.eval()
-    pc1, pc2, gt = (torch.as_tensor(batch[k], dtype=torch.float32, device=model.device)
-                    for k in ("pc1", "pc2", "gt"))
-    return eval_metrics(model(pc1, pc2)["out"], gt, with_emd)
+    b = _as_batch(batch, model.device)
+    return eval_metrics(model(b["pc1"], b["pc2"])["out"], b["gt"], with_emd)
 
 
 @torch.no_grad()

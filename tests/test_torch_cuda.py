@@ -201,3 +201,204 @@ def test_tiny_eval_step_on_card_matches_cpu(card):
     want = eval_step(MoCoPCI(cfg, device="cpu"), batch)
     for key, v in want.items():
         torch.testing.assert_close(got[key].cpu(), v, rtol=1e-4, atol=1e-6)
+
+
+# ---- train kernels (slice 3) ----
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("planes", [False, True])
+def test_scatter_add_kernel_matches_twin_and_repeats(card, planes):
+    g = torch.Generator().manual_seed(10)
+    G, S, C, N = 3, 20000, 3, 1024
+    v = _x(g, *((G, C, S) if planes else (G, S, C))).to(card)
+    idx = torch.randint(-5, N + 5, (G, S), generator=g, dtype=torch.int32)
+    idx[:, :3000] = 17                                   # one crowded row
+    idx = idx.to(card)
+    got = kernels.scatter_add(v, idx, N, planes=planes)
+    torch.testing.assert_close(got, kernels.scatter_add_plain(v, idx, N, planes),
+                               atol=1e-4, rtol=1e-5)
+    assert _bits_equal(got, kernels.scatter_add(v, idx, N, planes=planes))
+
+
+def test_attention_train_kernel_matches_twin(card):
+    from mocopci_torch.kernels.attention_train import attention_train_bwd_plain
+
+    g = torch.Generator().manual_seed(11)
+    for G, N, M, D in ((300, 20, 40, 8), (4, 100, 300, 16), (2, 33, 64, 256)):
+        q, k, v, do = (_x(g, G, L, D).to(card) for L in (N, M, M, N))
+        seed = torch.tensor([-987654], dtype=torch.int32, device=card)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = kernels.attention_train(*leaves, seed, D ** -0.5, 0.05)
+        out.backward(do)
+        want = kernels.attention_train_plain(q, k, v, -987654, D ** -0.5, 0.05)
+        torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=1e-4)
+        for leaf, w in zip(leaves, attention_train_bwd_plain(q, k, v, -987654, D ** -0.5,
+                                                             0.05, do)):
+            torch.testing.assert_close(leaf.grad, w, atol=1e-4, rtol=1e-4)
+
+
+def test_cross_tail_bwd_kernel_matches_twin_with_ties(card):
+    from mocopci_torch.kernels.cross_tail import cross_tail_bwd, cross_tail_bwd_plain
+    from mocopci_torch.kernels.scatter_add import gather_backward
+
+    g = torch.Generator().manual_seed(12)
+    tab, base = _x(g, 2, 700, 64).to(card), _x(g, 2, 300, 64).to(card)
+    w, b = _x(g, 64, 64, scale=0.125).to(card), _x(g, 64, scale=0.1).to(card)
+    idx = torch.randint(0, 700, (2, 300, 32), generator=g, dtype=torch.int32)
+    idx[:, :, 1] = idx[:, :, 0]
+    idx = idx.to(card)
+    dout = _x(g, 2, 300, 64).to(card)
+    out = kernels.cross_tail(tab, idx, base, w, b)
+    got = cross_tail_bwd(tab, idx, base, w, b, out, dout)
+    want = cross_tail_bwd_plain(tab, idx, base, w, b, dout)
+    # ties between duplicate neighbours: the kernel routes the gradient to the
+    # first, the twin splits it; their sums into the table agree
+    d_tab = [gather_backward(r.reshape(2, 300 * 32, 64), idx.reshape(2, -1), 700)
+             for r in (got[0], want[0])]
+    torch.testing.assert_close(d_tab[0], d_tab[1], atol=1e-4, rtol=1e-4)
+    for a, c in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
+    again = cross_tail_bwd(tab, idx, base, w, b, out, dout)
+    assert all(_bits_equal(a, c) for a, c in zip(got, again))
+
+
+def test_transformer_tail_bwd_kernel_matches_twin(card):
+    from mocopci_torch.kernels.transformer_tail import (
+        transformer_tail_bwd,
+        transformer_tail_bwd_plain,
+    )
+
+    g = torch.Generator().manual_seed(13)
+    D = 64
+    table = _x(g, 2, 700, 3 + 2 * D).to(card)
+    xq, q = _x(g, 2, 300, 3).to(card), _x(g, 2, 300, D).to(card)
+    ws = []
+    for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
+        ws += [_x(g, ci, co, scale=ci ** -0.5).to(card), _x(g, co, scale=0.1).to(card)]
+    idx = torch.randint(0, 700, (2, 300, 16), generator=g, dtype=torch.int32).to(card)
+    dout = _x(g, 2, 300, D).to(card)
+    got = transformer_tail_bwd(table, idx, xq, q, *ws, dout)
+    want = transformer_tail_bwd_plain(table, idx, xq, q, *ws, dout)
+    for i, (a, c) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-3, msg=f"output {i}")
+    again = transformer_tail_bwd(table, idx, xq, q, *ws, dout)
+    assert all(_bits_equal(a, c) for a, c in zip(got, again))
+
+
+def _fusion_head_inputs(g, card, G=6, P=5000):
+    x = _x(g, G, 4, P, scale=3.0).to(card)
+    params, cin = [], 4
+    for c in (64, 64, 128):
+        params += [_x(g, cin, c, scale=cin ** -0.5).to(card), _x(g, c, scale=0.1).to(card),
+                   (1 + 0.1 * _x(g, c)).to(card), _x(g, c, scale=0.1).to(card)]
+        cin = c
+    return x, params
+
+
+def test_fusion_head_train_kernels_match_twin(card):
+    from mocopci_torch.kernels.fusion_head_train import fusion_head_train_bwd_plain
+
+    g = torch.Generator().manual_seed(14)
+    x, params = _fusion_head_inputs(g, card)
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    o, stats = kernels.fusion_head_train(leaves[0], leaves[1:], 3)
+    want_o, want_stats = kernels.fusion_head_train_plain(x, params, 3)
+    torch.testing.assert_close(o.detach(), want_o, atol=1e-4, rtol=1e-4)
+    for (m, v), (wm, wv) in zip(stats, want_stats):
+        torch.testing.assert_close(m, wm, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(v, wv, atol=1e-5, rtol=1e-3)
+    d_o = _x(g, *o.shape).to(card)
+    o.backward(d_o)
+    want = fusion_head_train_bwd_plain(x, params, 3, 1e-3, d_o)
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        torch.testing.assert_close(leaf.grad, w, atol=1e-3, rtol=1e-3, msg=f"grad {i}")
+
+
+def test_fusion_pair_planes_kernel_matches_twin(card):
+    g = torch.Generator().manual_seed(15)
+    p2, p1 = _x(g, 3, 900, 3, scale=5.0).to(card), _x(g, 3, 400, 3, scale=5.0).to(card)
+    idx = torch.randint(0, 900, (3, 400, 8), generator=g, dtype=torch.int32).to(card)
+    torch.testing.assert_close(kernels.fusion_pair_planes(p2, idx, p1),
+                               kernels.pair_planes(p2, idx, p1), atol=1e-5, rtol=1e-5)
+    leaves = [t.clone().requires_grad_() for t in (p2, p1)]
+    cot = _x(g, 3, 4, 400 * 8).to(card)
+    (kernels.fusion_pair_planes(leaves[0], idx, leaves[1]) * cot).sum().backward()
+    cpu = [t.cpu().requires_grad_() for t in (p2, p1)]
+    (kernels.fusion_pair_planes(cpu[0], idx.cpu(), cpu[1]) * cot.cpu()).sum().backward()
+    for a, c in zip(leaves, cpu):
+        torch.testing.assert_close(a.grad.cpu(), c.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_forward_only_kernels_refuse_grad(card):
+    g = torch.Generator().manual_seed(16)
+    q = _x(g, 2, 30, 8).to(card).requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernels.attention(q, q, q, 0.3)
+    with torch.no_grad():
+        assert kernels.attention(q, q, q, 0.3).shape == q.shape
+    p2 = _x(g, 1, 50, 3).to(card).requires_grad_()
+    idx = torch.zeros(1, 20, 4, dtype=torch.int32, device=card)
+    ws = []
+    for ci, co in [(4, 64), (64, 64), (64, 128)]:
+        ws += [_x(g, ci, co).to(card), _x(g, co).to(card)]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernels.fusion_pair(p2, idx, p2[:, :20].detach(), *ws)
+
+
+# the kernels one train step launches (exact kNN mode)
+TRAIN_KERNELS = {"fps", "knn", "cross_tail", "cross_tail_bwd", "transformer_tail",
+                 "transformer_tail_bwd", "attention_train_fwd", "attention_train_bwd",
+                 "fusion_pair_planes", "fusion_head_train_fwd", "fusion_head_train_bwd",
+                 "chamfer_pair", "scatter_add"}
+
+
+def test_tiny_train_step_on_card_matches_cpu(card):
+    """One step's loss and gradients at tiny_model_config(4096) (level 1 and
+    the refine head at 1024: both tails run), exact kNN, no dropout: the
+    limits of chip_smoke.py's train parity (the whole gradient within rel L2
+    1e-3, each leaf within 5e-2 plus 1e-6: a near tie of a max, a ReLU kink or
+    a kNN selection can go the other way on the other device).  The biases
+    before the fusion head's train-mode BatchNorms have a gradient of exactly
+    zero: below 1e-5 of their weight's on both devices."""
+    import dataclasses
+
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.training.loop import loss_and_grads
+
+    cfg = dataclasses.replace(tiny_model_config(4096), attn_drop=0.0, proj_drop=0.0,
+                              drop_path=0.0)
+    rng = np.random.default_rng(2)
+    x1 = (rng.normal(size=(2, cfg.npoints, 3)) * 5).astype(np.float32)
+    flow = (0.3 * rng.normal(size=(2, 1, 3))).astype(np.float32)
+    batch = {"pc1": x1, "pc2": x1 + flow,
+             "gt": np.stack([x1 + flow * s for s in (0.25, 0.5, 0.75)], 1).astype(np.float32)}
+    saved = distance.get_knn_mode()
+    distance.set_knn_mode("exact")
+    try:
+        card_model = MoCoPCI(cfg, device="cuda")
+        cpu_model = MoCoPCI(cfg, device="cpu")
+        kernels.reset_launches()
+        got = loss_and_grads(card_model, batch, None, cfg, TrainConfig())
+        launched = {name for name, n in kernels.LAUNCHES.items() if n > 0}
+        assert TRAIN_KERNELS <= launched, kernels.LAUNCHES
+        want = loss_and_grads(cpu_model, batch, None, cfg, TrainConfig())
+    finally:
+        distance.set_knn_mode(saved)
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-4 * abs(float(v)), k
+    cpu_params = dict(cpu_model.named_parameters())
+    d2 = g2 = 0.0
+    for name, p in card_model.named_parameters():
+        q = cpu_params[name].grad
+        if name in {f"estimator.fusion_conv{i}.bias" for i in range(3)}:
+            # before a train-mode BatchNorm: the gradient is exactly zero
+            w = torch.linalg.vector_norm(cpu_params[name[:-4] + "weight"].grad)
+            assert max(torch.linalg.vector_norm(p.grad), torch.linalg.vector_norm(q)) <= 1e-5 * w
+            continue
+        err = torch.linalg.vector_norm(p.grad.cpu() - q)
+        assert err <= 5e-2 * torch.linalg.vector_norm(q) + 1e-6, name
+        d2, g2 = d2 + err ** 2, g2 + torch.linalg.vector_norm(q) ** 2
+    assert (d2 / g2) ** 0.5 <= 1e-3
