@@ -26,11 +26,18 @@ Phases, each fatal on failure:
      components within rel 1e-4, the whole gradient within rel L2 1e-3, each
      leaf within 5e-2: see ``run_train_parity``);
      the train CLI for one epoch, then ``--resume`` to a second;
-  7. the summary lines: the card, the per-kernel JSON line, the contract line.
+  7. the op paths that reach the last four kernels (path "ops"): approx
+     selection (``_topk_min_indices``) on the fusion query's distances at B=2,
+     exact ``ops.knn`` over a 131072-point sweep (the blocked route), the
+     Chamfer VJP between 64-point and 8192-point clouds (the one-hot
+     scatter), ``build_pair_planes`` forward and backward at the fusion shape;
+     each result against its plain route or the CPU;
+  8. the summary lines: the card, the per-kernel JSON line, the contract line.
 The train kernels (scatter-add, train attention forward and backward, the two
 tails' backwards, the train fusion head forward and backward, the fusion
 planes) are checked in phase 3 at the train step's shapes, each run twice to
-show it repeats its bits.
+show it repeats its bits; the op kernels (select_min_k, the one-hot scatter,
+the pair planes' rows forward and backward) at the shapes of phase 7.
 Every path runs with the launch counts set to 0 just before it and read just
 after; every kernel must launch on at least one path.
 Exits non-zero, printing no result, without a card or without the package.
@@ -286,6 +293,21 @@ def bits_equal(a, b) -> bool:
                for x, y in zip(a, b))
 
 
+def time_chamfer_vjp(kernels, pc1, pc2, what):
+    """The Chamfer VJP's time (CUDA events, through autograd) beside its bound:
+    the two differences, the two cotangents and the two indices read, the
+    two gradients written."""
+    leaves = [pc1.clone().requires_grad_(), pc2.clone().requires_grad_()]
+    d12, d21 = kernels.chamfer_pair(*leaves)
+    loss = d12.sum() + d21.sum()
+    ms = median_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
+    G, N, M = pc1.shape[0], pc1.shape[1], pc2.shape[1]
+    b_ms, b_by = bound(G * (N + M) * (3 + 1 + 3) * F32 + G * (N + M) * I32, 6.0 * G * (N + M))
+    log(f"chamfer_pair bwd {what} {tuple(pc1.shape)} x {tuple(pc2.shape)}: ms {ms:.4f} "
+        f"bound_ms {b_ms:.5f} ({b_by})")
+    return {"ms": ms, "bound_ms": b_ms}
+
+
 def check_train_kernels(kernels, cfg, dev, rows):
     """The train kernels against their plain versions at the train step's
     shapes (B=2, the 3 frames folded into the batch: G = 6), each repeated
@@ -489,6 +511,194 @@ def check_train_kernels(kernels, cfg, dev, rows):
             lambda: fusion_head_train.fusion_head_train_bwd_plain(planes, params, F, 1e-3, d_o),
             None, (2 * planes.numel() + d_o.numel() + 2 * packed.numel()) * F32,
             2.0 * G * P * chain, err, 1e-3, reps=5)
+    # the Chamfer VJP of the loss (5 pairs x B*F = 30 groups of 8192 points)
+    time_chamfer_vjp(kernels, rnd(30, n0, 3, scale=10.0), rnd(30, n0, 3, scale=10.0),
+                     "through scatter_add, the loss shape")
+
+
+def op_inputs(cfg, dev):
+    """The "ops" path's inputs at B=2 (G = 6 folded frames), from seed 5: the
+    fusion query's clouds, a 131072-point sweep with 8192 queries, a 64-point
+    cloud against an 8192-point frame, and k-major neighbour rows (2k per
+    query) with their query planes and a plane cotangent."""
+    from mocopci_torch.config import TrainConfig
+
+    G, n0, K2 = TrainConfig().batch_size * cfg.n_frames, cfg.npoints, 2 * cfg.fusion_k
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    p1 = rnd(G, n0, 3, scale=10.0)
+    gt = rnd(G, n0, 3, scale=10.0)
+    return {"p1": p1, "p2": p1 + rnd(G, n0, 3, scale=0.05),
+            "ref": rnd(1, 131072, 3, scale=20.0), "query": rnd(1, n0, 3, scale=20.0),
+            "pred": (gt[:, ::n0 // 64] + rnd(G, 64, 3, scale=0.1)).contiguous(), "gt": gt,
+            "nbr": rnd(G, n0 * K2, 3, scale=10.0), "p1t": rnd(G, 3, n0, scale=10.0),
+            "dx": rnd(G, 4, n0 * K2)}
+
+
+def check_op_kernels(kernels, cfg, dev, rows):
+    """The op kernels against their plain versions at the "ops" path's shapes:
+    select_min_k on the approx candidates of the fusion query's (6, 8192,
+    8192) distances, the one-hot scatter of the Chamfer VJP (8192 rows into 64
+    columns, and 64 rows into 8192 beside it), the pair planes' rows forward
+    and backward at (6, 8192 x 64) pairs."""
+    from mocopci_torch.ops import distance
+
+    select_k, scatter_onehot, fusion_pair = (importlib.import_module(
+        f"mocopci_torch.kernels.{name}") for name in ("select_k", "scatter_onehot", "fusion_pair"))
+    x = op_inputs(cfg, dev)
+    k = cfg.fusion_k
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    vals, idx = distance.approx_candidates(distance.square_distance(x["p1"], x["p2"]), k)
+    got = select_k.select_min_k(vals, idx, k)
+    mism = int((got != select_k.select_min_k_plain(vals, idx, k)).sum())
+    log(f"select_min_k candidates {tuple(vals.shape)} k={k}: index mismatches {mism}")
+    add_row(rows, "select_min_k", select_k.SOURCE, select_k.REPLACES,
+            lambda: select_k.select_min_k(vals, idx, k),
+            lambda: select_k.select_min_k_plain(vals, idx, k),
+            lambda: torch.topk(vals, k, dim=-1, largest=False),
+            vals.numel() * F32 + 2 * got.numel() * I32, 1.0 * vals.numel(), float(mism), 0.0)
+    del vals, idx, got
+
+    G, n0, n_small = x["gt"].shape[0], cfg.npoints, x["pred"].shape[1]
+    errs = {}
+    for S, n_out in ((n0, n_small), (n_small, n0)):
+        v = torch.randn(G, S, 3, generator=gen, device=dev)
+        ix = torch.randint(0, n_out, (G, S), generator=gen, device=dev, dtype=torch.int32)
+        got = scatter_onehot.onehot_scatter_rows(v, ix, n_out)
+        same = bits_equal([got], [scatter_onehot.onehot_scatter_rows(v, ix, n_out)])
+        errs[(S, n_out)] = float((got - scatter_onehot.onehot_scatter_rows_plain(v, ix, n_out))
+                                 .abs().max())
+        log(f"onehot_scatter ({G}, {S}, 3) -> {n_out}: max_abs_err {errs[(S, n_out)]:.3e}, "
+            f"repeat bit-equal {same}")
+        if not same or errs[(S, n_out)] > 1e-4:
+            raise SystemExit("onehot_scatter: a run did not repeat its bits, or it disagrees")
+        if S == n0:
+            rows_v, ix_big = v, ix
+    flat = (ix_big.long() + torch.arange(G, device=dev)[:, None] * n_small).reshape(-1)
+    add_row(rows, "onehot_scatter", scatter_onehot.SOURCE, scatter_onehot.REPLACES,
+            lambda: scatter_onehot.onehot_scatter_rows(rows_v, ix_big, n_small),
+            lambda: scatter_onehot.onehot_scatter_rows_plain(rows_v, ix_big, n_small),
+            lambda: torch.zeros(G * n_small, 3, device=dev).index_add_(
+                0, flat, rows_v.reshape(-1, 3)),
+            (rows_v.numel() + G * 3 * n_small) * F32 + ix_big.numel() * I32,
+            1.0 * rows_v.numel(), errs[(n0, n_small)], 1e-4)
+
+    time_chamfer_vjp(kernels, x["pred"], x["gt"], "through onehot_scatter")
+
+    nbr, p1t, dx = x["nbr"], x["p1t"], x["dx"]
+    P = nbr.shape[1]
+    planes = fusion_pair.pair_planes_rows_kernel(nbr, p1t)
+    err = float((planes - fusion_pair.build_pair_planes_plain(nbr, p1t)).abs().max())
+    add_row(rows, "pair_planes_rows", fusion_pair.SOURCE, fusion_pair.REPLACES_ROWS,
+            lambda: fusion_pair.pair_planes_rows_kernel(nbr, p1t),
+            lambda: fusion_pair.build_pair_planes_plain(nbr, p1t), None,
+            (nbr.numel() + p1t.numel() + planes.numel()) * F32, 9.0 * G * P, err, 1e-4)
+    got = fusion_pair.pair_planes_bwd_kernel(nbr, p1t, dx)
+    want = fusion_pair.build_pair_planes_bwd_plain(nbr, p1t, dx)
+    err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+              for a, b in zip(got, want))
+    add_row(rows, "pair_planes_bwd", fusion_pair.SOURCE, fusion_pair.REPLACES_BWD,
+            lambda: fusion_pair.pair_planes_bwd_kernel(nbr, p1t, dx),
+            lambda: fusion_pair.build_pair_planes_bwd_plain(nbr, p1t, dx), None,
+            (2 * nbr.numel() + 2 * p1t.numel() + dx.numel()) * F32, 20.0 * G * P, err, 1e-5)
+
+
+# the kernels the "ops" phase launches
+OPS_KERNELS = ("select_min_k", "onehot_scatter", "chamfer_pair", "pair_planes_rows",
+               "pair_planes_bwd")
+
+
+def run_ops(kernels, cfg, dev):
+    """The op paths that reach the op kernels, with the launch counts zeroed
+    before and read after: approx selection on the fusion query's distances,
+    exact ``ops.knn`` over 131072 references (16 query chunks x (8 reference
+    chunks + 1 merge)), ``ops.chamfer_distance`` of a 64-point cloud against
+    an 8192-point frame under grad, ``build_pair_planes`` forward and
+    backward.  Then each result against its plain route (the same route with
+    ``select_min_k_plain``) or the CPU, and each op's time."""
+    from mocopci_torch import ops
+    from mocopci_torch.ops import distance
+
+    select_k = importlib.import_module("mocopci_torch.kernels.select_k")
+    fusion_pair = importlib.import_module("mocopci_torch.kernels.fusion_pair")
+    x = op_inputs(cfg, dev)
+    k = cfg.fusion_k
+    d = distance.square_distance(x["p1"], x["p2"])
+    saved = distance.get_knn_mode()
+
+    def select():
+        distance.set_knn_mode("approx")
+        return distance._topk_min_indices(d, k)
+
+    def blocked():
+        distance.set_knn_mode("exact")
+        return ops.knn(k, x["ref"], x["query"])
+
+    def chamfer_grads(pred, gt):
+        leaves = [pred.clone().requires_grad_(), gt.clone().requires_grad_()]
+        cd = ops.chamfer_distance(*leaves)
+        cd.backward()
+        return [cd.detach()] + [t.grad for t in leaves]
+
+    def planes():
+        leaves = [x["nbr"].clone().requires_grad_(), x["p1t"].clone().requires_grad_()]
+        out = kernels.build_pair_planes(*leaves)
+        out.backward(x["dx"])
+        return [out.detach()] + [t.grad for t in leaves]
+
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        sel, nn, cd, pl = select(), blocked(), chamfer_grads(x["pred"], x["gt"]), planes()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        log(f"ops: launches {launches}")
+        missing = [name for name in OPS_KERNELS if launches[name] == 0]
+        if missing:
+            raise SystemExit(f"ops: kernels not launched on the op paths: {missing}")
+
+        vals, idx = distance.approx_candidates(d, k)
+        mism_sel = int((sel != select_k.select_min_k_plain(vals, idx, k)).sum())
+        exact = torch.topk(d, k, dim=-1, largest=False).indices
+        recall = float((sel[..., :, None] == exact[..., None, :]).any(-1).float().mean())
+        del vals, idx, exact
+        distance.select_min_k = select_k.select_min_k_plain
+        try:
+            nn_plain = blocked()
+        finally:
+            distance.select_min_k = select_k.select_min_k
+        mism_nn = int((nn != nn_plain).sum())
+        cpu = chamfer_grads(x["pred"].cpu(), x["gt"].cpu())
+        cd_gap = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                     for a, b in zip(cd, cpu))
+        want = [fusion_pair.build_pair_planes_plain(x["nbr"], x["p1t"]),
+                *fusion_pair.build_pair_planes_bwd_plain(x["nbr"], x["p1t"], x["dx"])]
+        pl_gap = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                     for a, b in zip(pl, want))
+        log(f"ops: approx selection {tuple(sel.shape)}: index mismatches against the plain "
+            f"selection {mism_sel}, recall against the exact sort {recall:.5f}; exact knn "
+            f"{tuple(x['ref'].shape)} x {tuple(x['query'].shape)}: index mismatches against "
+            f"the route with select_min_k_plain {mism_nn}; chamfer {tuple(x['pred'].shape)} x "
+            f"{tuple(x['gt'].shape)}: value and gradients against the CPU, largest gap over "
+            f"the largest value {cd_gap:.3e}; build_pair_planes planes and gradients against "
+            f"the plain versions {pl_gap:.3e}")
+        if mism_sel or recall < 0.95 or mism_nn or cd_gap > 1e-5 or pl_gap > 1e-5:
+            raise SystemExit("ops: an op path disagrees with its plain route or the CPU")
+        timing = {
+            "approx_select_ms": host_ms(select),
+            "exact_knn_131072_ms": host_ms(blocked),
+            "chamfer_fwd_bwd_ms": host_ms(lambda: chamfer_grads(x["pred"], x["gt"])),
+            "build_pair_planes_fwd_bwd_ms": host_ms(planes),
+        }
+    finally:
+        distance.set_knn_mode(saved)
+    log("ops: ms per call, median of 5 (host clock, synchronized): "
+        + json.dumps({key: round(v, 3) for key, v in timing.items()}))
+    return launches, {"recall": recall, "chamfer_gap": cd_gap, "planes_gap": pl_gap, **timing}
 
 
 def chamfer(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -811,7 +1021,11 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
                   "transformer_tail_bwd_kernel": "transformer_tail_bwd",
                   "fusion_pair_planes_kernel": "fusion_pair_planes",
                   "fusion_head_train_kernel": "fusion_head_train",
-                  "reduce_partials_kernel": "block partial sums (tails, fusion_head_train)"}
+                  "reduce_partials_kernel": "block partial sums (tails, fusion_head_train)",
+                  "select_min_k_kernel": "select_min_k",
+                  "onehot_scatter_kernel": "onehot_scatter",
+                  "pair_planes_rows_kernel": "pair_planes_rows",
+                  "pair_planes_bwd_kernel": "pair_planes_bwd"}
 
 
 def profile(fn, what: str) -> dict:
@@ -882,6 +1096,7 @@ def main() -> int:
     dataset = SyntheticInterpolationDataset(length=3, num_points=cfg.npoints, seed=0)
     rows = check_kernels(kernels, cfg, dataset, dev)
     check_train_kernels(kernels, cfg, dev, rows)
+    check_op_kernels(kernels, cfg, dev, rows)
     torch.cuda.empty_cache()
     model = MoCoPCI(cfg, device=dev, seed=0)
     cpu_model = MoCoPCI(cfg, device="cpu", seed=0)
@@ -894,10 +1109,13 @@ def main() -> int:
     paths["train"], stats["train"] = run_train(kernels, cfg, dev)
     stats["train_parity"] = run_train_parity(kernels, dev)
     stats["train_cli"] = run_train_cli(kernels)
+    torch.cuda.empty_cache()
+    paths["ops"], stats["ops"] = run_ops(kernels, cfg, dev)
     # each kernel's launches on the path it belongs to: the default forward,
     # the exact-mode forward for knn_exact, eval_step for chamfer_pair, the
-    # train steps for the train kernels
+    # train steps for the train kernels, the op paths for the op kernels
     home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair")}
+    home.update({name: ("ops", name) for name in OPS_KERNELS if name != "chamfer_pair"})
     home.update({name: ("train", name) for name in TRAIN_KERNELS
                  if name.endswith(("_bwd", "_fwd")) or name in ("scatter_add",
                                                                   "fusion_pair_planes")})

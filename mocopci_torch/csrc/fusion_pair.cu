@@ -24,6 +24,16 @@
 // mocopci_fusion_pair_planes is the planes alone (the train path, whose head
 // has batch statistics): bytes bound it, 4 + 12 bytes read and 16 written per
 // pair.
+//
+// mocopci_pair_planes_rows and mocopci_pair_planes_bwd are build_pair_planes
+// of fusion_planes.py on rows the caller has gathered: its forward (:148,
+// pallas_call :154) and its backward _bwd_kernel (:112; _bpp_bwd :165,
+// pallas_call :171).  Both are bound by bytes.  The forward is a thread per
+// pair.  The backward recomputes resi and dist, forms
+// d_resi = dx[0:3] + dx[3] * resi / dist, writes it as the row gradient, and
+// sums d_p1t = -sum_j d_resi over the k-major slots j in ascending order: a
+// thread per (g, n), so no atomics (the TPU carried that sum along its
+// sequential slot axis).
 #include "common.cuh"
 
 namespace {
@@ -52,6 +62,68 @@ __device__ __forceinline__ void pair_plane(const float* __restrict__ p2,
   float* pl = planes + static_cast<size_t>(g) * 4 * P;
 #pragma unroll
   for (int i = 0; i < 4; ++i) pl[static_cast<size_t>(i) * P + p] = x[i];
+}
+
+// resi = rows - query plane column, dist = sqrt(|resi|^2 + 1e-20), summed as
+// the planes above.
+__device__ __forceinline__ void resi_dist(const float* __restrict__ row,
+                                          const float* __restrict__ p1t, int n, int N,
+                                          float x[4]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) x[c] = row[c] - p1t[static_cast<size_t>(c) * N + n];
+  x[3] = sqrtf(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])),
+                                   __fmul_rn(x[2], x[2])),
+                         1e-20f));
+}
+
+// rows (G, P, 3) k-major, p1t (G, 3, N) -> planes (G, 4, P); a thread per pair.
+__global__ void __launch_bounds__(kThreads) pair_planes_rows_kernel(
+    const float* __restrict__ rows, const float* __restrict__ p1t, float* __restrict__ planes,
+    int N, int P) {
+  const int g = blockIdx.y;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= P) return;
+  float x[4];
+  resi_dist(rows + (static_cast<size_t>(g) * P + p) * 3, p1t + static_cast<size_t>(g) * 3 * N,
+            p % N, N, x);
+  float* pl = planes + static_cast<size_t>(g) * 4 * P;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pl[static_cast<size_t>(i) * P + p] = x[i];
+}
+
+// dx (G, 4, P) -> d_rows (G, P, 3), d_p1t (G, 3, N); a thread per (g, n)
+// walks its K2 = P / N slots in ascending j.
+__global__ void __launch_bounds__(kThreads) pair_planes_bwd_kernel(
+    const float* __restrict__ rows, const float* __restrict__ p1t, const float* __restrict__ dx,
+    float* __restrict__ d_rows, float* __restrict__ d_p1t, int N, int K2) {
+  const int g = blockIdx.y;
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  if (n >= N) return;
+  const size_t P = static_cast<size_t>(N) * K2;
+  const float* pg = p1t + static_cast<size_t>(g) * 3 * N;
+  const float* dg = dx + static_cast<size_t>(g) * 4 * P;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < K2; ++j) {
+    const size_t p = static_cast<size_t>(j) * N + n;
+    float x[4];
+    resi_dist(rows + (static_cast<size_t>(g) * P + p) * 3, pg, n, N, x);
+    const float w = dg[3 * P + p];
+    const float d0 = dg[p] + w * (x[0] / x[3]);
+    const float d1 = dg[P + p] + w * (x[1] / x[3]);
+    const float d2 = dg[2 * P + p] + w * (x[2] / x[3]);
+    float* dr = d_rows + (static_cast<size_t>(g) * P + p) * 3;
+    dr[0] = d0;
+    dr[1] = d1;
+    dr[2] = d2;
+    s0 -= d0;
+    s1 -= d1;
+    s2 -= d2;
+  }
+  float* dp = d_p1t + static_cast<size_t>(g) * 3 * N;
+  dp[n] = s0;
+  dp[N + n] = s1;
+  dp[2 * N + n] = s2;
 }
 
 // The planes alone, for the train path (its head is fusion_head_train.cuh).
@@ -148,5 +220,25 @@ MOCOPCI_API int mocopci_fusion_pair_planes(const float* p2, const int* idx, cons
   dim3 grid(mocopci::ceil_div(N * K2, kThreads), G);
   fusion_pair_planes_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       p2, idx, p1, planes, N, N2, K2);
+  return cudaGetLastError();
+}
+
+// rows (G, N*K2, 3) gathered k-major, p1t (G, 3, N) -> planes (G, 4, N*K2).
+MOCOPCI_API int mocopci_pair_planes_rows(const float* rows, const float* p1t, float* planes,
+                                         int G, int N, int K2, void* stream) {
+  dim3 grid(mocopci::ceil_div(N * K2, kThreads), G);
+  pair_planes_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, p1t, planes, N, N * K2);
+  return cudaGetLastError();
+}
+
+// rows (G, N*K2, 3), p1t (G, 3, N), dx (G, 4, N*K2) -> d_rows (G, N*K2, 3),
+// d_p1t (G, 3, N).
+MOCOPCI_API int mocopci_pair_planes_bwd(const float* rows, const float* p1t, const float* dx,
+                                        float* d_rows, float* d_p1t, int G, int N, int K2,
+                                        void* stream) {
+  dim3 grid(mocopci::ceil_div(N, kThreads), G);
+  pair_planes_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, p1t, dx, d_rows, d_p1t, N, K2);
   return cudaGetLastError();
 }

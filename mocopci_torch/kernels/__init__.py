@@ -21,12 +21,16 @@ from mocopci_torch.kernels.fusion_pair import (
     fold_bn_dense,
     fusion_pair,
     fusion_pair_plain,
+    build_pair_planes,
+    build_pair_planes_plain,
     fusion_pair_planes,
     pair_planes,
 )
 from mocopci_torch.kernels.knn import knn_exact, knn_plain
 from mocopci_torch.kernels.knn_approx import knn_approx, knn_approx_plain
 from mocopci_torch.kernels.scatter_add import scatter_add, scatter_add_plain
+from mocopci_torch.kernels.scatter_onehot import onehot_scatter_rows, onehot_scatter_rows_plain
+from mocopci_torch.kernels.select_k import select_min_k, select_min_k_plain
 from mocopci_torch.kernels.transformer_tail import transformer_tail, transformer_tail_plain
 
 __all__ = [
@@ -37,9 +41,12 @@ __all__ = [
     "cross_tail", "cross_tail_plain",
     "fps", "fps_plain",
     "fusion_head_train", "fusion_head_train_plain",
+    "build_pair_planes", "build_pair_planes_plain",
     "fold_bn_dense", "fusion_pair", "fusion_pair_plain", "fusion_pair_planes", "pair_planes",
     "knn_exact", "knn_plain",
     "knn_approx", "knn_approx_plain",
+    "onehot_scatter_rows", "onehot_scatter_rows_plain",
     "scatter_add", "scatter_add_plain",
+    "select_min_k", "select_min_k_plain",
     "transformer_tail", "transformer_tail_plain",
 ]

@@ -50,6 +50,10 @@ SIGNATURES = {
     "fusion_pair_planes": [_P] * 4 + [_I] * 4 + [_P],
     "fusion_head_train_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "fusion_head_train_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    "select_min_k": [_P] * 3 + [_I] * 3 + [_P],
+    "onehot_scatter": [_P] * 4 + [_I] * 3 + [_P],
+    "pair_planes_rows": [_P] * 3 + [_I] * 3 + [_P],
+    "pair_planes_bwd": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 # launches per kernel since the last reset_launches()

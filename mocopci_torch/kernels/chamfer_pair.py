@@ -12,7 +12,8 @@ the interpret-mode reference's bit for bit.  The twin emulates each fused
 multiply-add in float64 (the product is exact there).  Outside the kernel the
 selected neighbour is gathered and its distance recomputed exactly, as in JAX.
 Operations bound it.  The backward (:class:`_ChamferPair`) scatters through the
-``scatter_add`` kernel.
+``scatter_add`` kernel at N, M % 128 == 0 and the ``onehot_scatter`` kernel
+otherwise, as the JAX VJP does.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from mocopci_torch.kernels import _lib
 from mocopci_torch.kernels.scatter_add import scatter_add
+from mocopci_torch.kernels.scatter_onehot import onehot_scatter_rows
 
 SOURCE = "mocopci_torch/csrc/chamfer_pair.cu"
 REPLACES = "mocopci_tpu/ops/pallas/chamfer_pair.py:126"
@@ -95,9 +97,10 @@ def chamfer_pair_keys(pc1: torch.Tensor, pc2: torch.Tensor):
 class _ChamferPair(torch.autograd.Function):
     """The VJP of ``mocopci_tpu/ops/pallas/chamfer_pair.py`` (:180-232): with
     v12 = 2·g12·diff12 and v21 = 2·g21·diff21, d_pc1 = v12 − scatter(v21 → i21)
-    and d_pc2 = v21 − scatter(v12 → i12), each scatter the deterministic
-    ``scatter_add`` kernel (the JAX package's ``bucket_scatter_add`` at
-    N, M % 128 == 0, its one-hot scatter otherwise)."""
+    and d_pc2 = v21 − scatter(v12 → i12), each scatter deterministic: the
+    ``scatter_add`` kernel at N, M % 128 == 0 (the JAX package's
+    ``bucket_scatter_add``), else ``onehot_scatter_rows`` (its one-hot
+    scatter, :224-228)."""
 
     @staticmethod
     def forward(ctx, pc1, pc2):
@@ -114,9 +117,13 @@ class _ChamferPair(torch.autograd.Function):
         diff12, diff21, i12, i21 = ctx.saved_tensors
         v12 = (2.0 * g12)[..., None] * diff12
         v21 = (2.0 * g21)[..., None] * diff21
-        d_pc1 = v12 - scatter_add(v21.contiguous(), i21, diff12.shape[1])
-        d_pc2 = v21 - scatter_add(v12.contiguous(), i12, diff21.shape[1])
-        return d_pc1, d_pc2
+        N, M = diff12.shape[1], diff21.shape[1]
+        v12, v21 = v12.contiguous(), v21.contiguous()
+        if N % 128 == 0 and M % 128 == 0:
+            return v12 - scatter_add(v21, i21, N), v21 - scatter_add(v12, i12, M)
+        s21 = onehot_scatter_rows(v21, i21, N)               # (G, 3, N)
+        s12 = onehot_scatter_rows(v12, i12, M)               # (G, 3, M)
+        return v12 - s21.transpose(1, 2), v21 - s12.transpose(1, 2)
 
 
 def chamfer_pair(pc1: torch.Tensor, pc2: torch.Tensor):

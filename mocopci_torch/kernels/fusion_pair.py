@@ -8,6 +8,11 @@ folded into the dense weights on the host (:func:`fold_bn_dense`).
 Operations bound it.  The train path takes the planes alone
 (:func:`fusion_pair_planes`, a second entry of the same source; bytes bound
 it) and scores them with ``fusion_head_train``.
+
+:func:`build_pair_planes` is ``mocopci_tpu/ops/pallas/fusion_planes.py``
+``build_pair_planes`` on rows the caller has gathered, differentiable: the
+``pair_planes_rows`` entry for its forward (:148) and ``pair_planes_bwd`` for
+its own backward kernel (:112, :165), both bound by bytes.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from mocopci_torch.kernels.scatter_add import scatter_add
 SOURCE = "mocopci_torch/csrc/fusion_pair.cu"
 REPLACES = "mocopci_tpu/ops/pallas/gather_planes.py:87; mocopci_tpu/ops/pallas/fusion_planes.py:148; mocopci_tpu/ops/pallas/fusion_head.py:66"
 REPLACES_PLANES = "mocopci_tpu/ops/pallas/gather_planes.py:87"
+REPLACES_ROWS = "mocopci_tpu/ops/pallas/fusion_planes.py:148"
+REPLACES_BWD = "mocopci_tpu/ops/pallas/fusion_planes.py:165"
 
 EPS = 1e-20  # under the sqrt, as the JAX package
 WIDTHS = (4, 64, 64, 128)
@@ -130,3 +137,84 @@ def fusion_pair(points2, idx, points1, w1, b1, w2, b2, w3, b3):
                 *(t.data_ptr() for t in weights), planes.data_ptr(), logits.data_ptr(),
                 G, N, N2, K2, _lib.stream(points2))
     return planes, logits
+
+
+def build_pair_planes_plain(nbr, p1t):
+    """(G, P, 3) k-major neighbour rows + (G, 3, N) query planes -> (G, 4, P)
+    ``[resi, dist]`` planes (``build_pair_planes_xla``, fusion_planes.py:273)."""
+    k2 = nbr.shape[1] // p1t.shape[2]
+    resi = nbr.transpose(1, 2) - p1t.repeat(1, 1, k2)
+    dist = torch.sqrt(torch.sum(resi * resi, dim=1, keepdim=True) + EPS)
+    return torch.cat([resi, dist], dim=1)
+
+
+def build_pair_planes_bwd_plain(nbr, p1t, dx):
+    """The VJP of :func:`build_pair_planes_plain` as the TPU backward kernel
+    forms it: (d_nbr (G, P, 3), d_p1t (G, 3, N))."""
+    G, _, N = p1t.shape
+    x = build_pair_planes_plain(nbr, p1t)
+    d_resi = dx[:, 0:3] + dx[:, 3:4] * (x[:, 0:3] / x[:, 3:4])            # (G, 3, P)
+    return d_resi.transpose(1, 2), -d_resi.reshape(G, 3, -1, N).sum(dim=2)
+
+
+def _check_rows(nbr, p1t):
+    G, P, _ = nbr.shape
+    N = p1t.shape[2]
+    if N % 128 != 0:
+        raise ValueError(f"build_pair_planes needs N % 128 == 0, got N={N}; "
+                         "use build_pair_planes_plain for tiny shapes")
+    if nbr.shape[2] != 3 or p1t.shape[:2] != (G, 3) or P % N:
+        raise ValueError(f"build_pair_planes: nbr {tuple(nbr.shape)}, p1t {tuple(p1t.shape)}")
+    return G, N, P // N
+
+
+def pair_planes_rows_kernel(nbr, p1t):
+    """The forward entry on the card: (G, 4, P) planes."""
+    G, N, K2 = _check_rows(nbr, p1t)
+    _lib.check_cuda("pair_planes_rows nbr", nbr, torch.float32, 3)
+    _lib.check_cuda("pair_planes_rows p1t", p1t, torch.float32, 3)
+    planes = torch.empty((G, 4, N * K2), dtype=torch.float32, device=nbr.device)
+    _lib.launch("pair_planes_rows", nbr.data_ptr(), p1t.data_ptr(), planes.data_ptr(), G, N, K2,
+                _lib.stream(nbr))
+    return planes
+
+
+def pair_planes_bwd_kernel(nbr, p1t, dx):
+    """The backward entry on the card: (d_nbr (G, P, 3), d_p1t (G, 3, N))."""
+    G, N, K2 = _check_rows(nbr, p1t)
+    for name, t in (("nbr", nbr), ("p1t", p1t), ("dx", dx)):
+        _lib.check_cuda(f"pair_planes_bwd {name}", t, torch.float32, 3)
+    if dx.shape != (G, 4, N * K2):
+        raise ValueError(f"pair_planes_bwd: dx {tuple(dx.shape)} for nbr {tuple(nbr.shape)}")
+    d_nbr = torch.empty_like(nbr)
+    d_p1t = torch.empty_like(p1t)
+    _lib.launch("pair_planes_bwd", nbr.data_ptr(), p1t.data_ptr(), dx.data_ptr(),
+                d_nbr.data_ptr(), d_p1t.data_ptr(), G, N, K2, _lib.stream(nbr))
+    return d_nbr, d_p1t
+
+
+class _BuildPairPlanes(torch.autograd.Function):
+    """``build_pair_planes`` with the TPU kernel's own backward (``_bpp_bwd``,
+    fusion_planes.py:165-182): the kernels on the card, the plain versions on
+    the CPU."""
+
+    @staticmethod
+    def forward(ctx, nbr, p1t):
+        _check_rows(nbr, p1t)
+        ctx.save_for_backward(nbr, p1t)
+        if _lib.dispatch_device(nbr, p1t) == "cpu":
+            return build_pair_planes_plain(nbr, p1t)
+        return pair_planes_rows_kernel(nbr, p1t)
+
+    @staticmethod
+    def backward(ctx, dx):
+        nbr, p1t = ctx.saved_tensors
+        if _lib.dispatch_device(nbr, p1t, dx) == "cpu":
+            return build_pair_planes_bwd_plain(nbr, p1t, dx)
+        return pair_planes_bwd_kernel(nbr, p1t, dx.float().contiguous())
+
+
+def build_pair_planes(nbr, p1t):
+    """(G, P, 3) k-major neighbour rows + (G, 3, N) query planes -> (G, 4, P)
+    ``[resi, dist]`` pair planes, differentiable in both; N % 128 == 0."""
+    return _BuildPairPlanes.apply(nbr.float().contiguous(), p1t.float().contiguous())

@@ -48,7 +48,7 @@ def selection_distances(query: torch.Tensor, ref: torch.Tensor, metric: str) -> 
     return d
 
 
-def _sort_keys(d: torch.Tensor) -> torch.Tensor:
+def sort_keys(d: torch.Tensor) -> torch.Tensor:
     """int64 keys whose order is the (distance, index) lexicographic order."""
     bits = (d + 0.0).contiguous().view(torch.int32)     # + 0.0 turns -0 into +0
     mono = bits ^ ((bits >> 31) & 0x7FFFFFFF)             # monotone in the float
@@ -63,7 +63,7 @@ def knn_plain(query: torch.Tensor, ref: torch.Tensor, k: int, metric: str) -> to
     rows = max(1, _CHUNK // max(M, 1))
     out = []
     for s in range(0, query.shape[1], rows):
-        keys = _sort_keys(selection_distances(query[:, s:s + rows], ref, metric))
+        keys = sort_keys(selection_distances(query[:, s:s + rows], ref, metric))
         top = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
         out.append((top & 0xFFFFFFFF).to(torch.int32))
     return torch.cat(out, dim=1)

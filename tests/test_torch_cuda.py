@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from mocopci_torch import MoCoPCI, interpolate, kernels, tiny_model_config
+from mocopci_torch import MoCoPCI, interpolate, kernels, ops, tiny_model_config
 from mocopci_torch.kernels.knn_approx import tiling
 from mocopci_torch.ops import distance
 from mocopci_torch.ops.distance import _normalise
@@ -402,3 +402,104 @@ def test_tiny_train_step_on_card_matches_cpu(card):
         assert err <= 5e-2 * torch.linalg.vector_norm(q) + 1e-6, name
         d2, g2 = d2 + err ** 2, g2 + torch.linalg.vector_norm(q) ** 2
     assert (d2 / g2) ** 0.5 <= 1e-3
+
+
+# ---- op kernels (slice 4) ----
+
+@pytest.mark.parametrize("R,L,k,with_idx", [
+    (7, 64, 64, True), (50, 200, 9, False), (60, 500, 20, True), (300, 1000, 32, True),
+    (30, 2000, 32, False), (20, 3000, 8, True), (40, 5000, 16, False), (8, 16384, 32, True),
+    (4, 20000, 32, True)])
+def test_select_min_k_kernel_equals_twin(card, R, L, k, with_idx):
+    """Every register width of a warp per row (L <= 1024) and of a block per
+    row (L <= 16384), and the rescan from memory above; ties from 50 value
+    levels: the kernel's picks equal the twin's."""
+    g = torch.Generator().manual_seed(20)
+    vals = torch.randint(0, 50, (R, L), generator=g).float().to(card)
+    idxs = torch.randint(0, 1 << 20, (R, L), generator=g, dtype=torch.int32).to(card)
+    i = idxs if with_idx else None
+    assert torch.equal(kernels.select_min_k(vals, i, k), kernels.select_min_k_plain(vals, i, k))
+
+
+@pytest.mark.parametrize("G,S,N", [(3, 8192, 64), (3, 64, 8192), (2, 1024, 512), (2, 2560, 96)])
+def test_onehot_scatter_kernel_matches_twin_and_repeats(card, G, S, N):
+    g = torch.Generator().manual_seed(21)
+    v = _x(g, G, S, 3).to(card)
+    idx = torch.randint(-5, N + 5, (G, S), generator=g, dtype=torch.int32).to(card)
+    got = kernels.onehot_scatter_rows(v, idx, N)
+    torch.testing.assert_close(got, kernels.onehot_scatter_rows_plain(v, idx, N),
+                               atol=1e-5, rtol=1e-5)
+    assert _bits_equal(got, kernels.onehot_scatter_rows(v, idx, N))
+
+
+def test_build_pair_planes_kernels_match_twin(card):
+    from mocopci_torch.kernels.fusion_pair import build_pair_planes_bwd_plain
+
+    g = torch.Generator().manual_seed(22)
+    G, N, K2 = 3, 256, 5
+    nbr, p1t = _x(g, G, N * K2, 3, scale=5.0), _x(g, G, 3, N, scale=5.0)
+    nbr[1, 2 * N + 7] = p1t[1, :, 7]                    # a zero-distance pair
+    nbr, p1t = nbr.to(card), p1t.to(card)
+    leaves = [t.clone().requires_grad_() for t in (nbr, p1t)]
+    x = kernels.build_pair_planes(*leaves)
+    torch.testing.assert_close(x, kernels.build_pair_planes_plain(nbr, p1t), atol=1e-5,
+                               rtol=1e-5)
+    dx = _x(g, G, 4, N * K2).to(card)
+    x.backward(dx)
+    for leaf, w in zip(leaves, build_pair_planes_bwd_plain(nbr, p1t, dx)):
+        assert torch.isfinite(leaf.grad).all()
+        torch.testing.assert_close(leaf.grad, w, atol=1e-5, rtol=1e-5)
+
+
+def test_exact_selection_of_wide_rows_matches_cpu(card, monkeypatch):
+    """Exact ``_topk_min_indices``: one launch up to 16384 columns, the
+    1024-column chunk merge (two launches) above."""
+    monkeypatch.setattr(distance, "_KNN_MODE", "exact")
+    g = torch.Generator().manual_seed(24)
+    for M, launches in ((16384, 1), (17408, 2)):
+        d = torch.randint(0, 400, (2, 3, M), generator=g).float()      # many ties
+        kernels.reset_launches()
+        got = distance._topk_min_indices(d.to(card), 32).cpu()
+        assert kernels.LAUNCHES["select_min_k"] == launches
+        np.testing.assert_array_equal(got.numpy(), distance._topk_min_indices(d, 32).numpy())
+
+
+def test_ops_path_launches_the_op_kernels(card, monkeypatch):
+    """The op paths that reach the four kernels, on the card against the CPU:
+    exact kNN above the kernel's reference limit (patched small, with small
+    blocks), the Chamfer VJP at a size off the 128 multiples, approx
+    selection, and build_pair_planes under grad."""
+    from mocopci_torch.kernels import knn as knn_kernel
+
+    monkeypatch.setattr(distance, "_DENSE_LIMIT", 1 << 14)
+    monkeypatch.setattr(distance, "_REF_CHUNK", 256)
+    monkeypatch.setattr(knn_kernel, "MAX_M", 512)
+    monkeypatch.setattr(distance, "_KNN_MODE", "exact")
+    g = torch.Generator().manual_seed(23)
+    ref, q = _x(g, 1, 1500, 3), _x(g, 1, 300, 3)
+    pred, gt = _x(g, 2, 64, 3, scale=3.0), _x(g, 2, 1024, 3, scale=3.0)
+    d = _x(g, 2, 100, 4096).abs()
+    nbr, p1t = _x(g, 2, 256, 3), _x(g, 2, 3, 128)
+    kernels.reset_launches()
+    got_knn = distance.knn(8, ref.to(card), q.to(card)).cpu()
+    leaves = [t.to(card).requires_grad_() for t in (pred, gt)]
+    ops.chamfer_distance(*leaves).backward()
+    monkeypatch.setattr(distance, "_KNN_MODE", "approx")
+    got_sel = distance._topk_min_indices(d.to(card), 16).cpu()
+    got_narrow = distance._topk_min_indices(d[..., :50].to(card), 30).cpu()     # L <= 2k
+    planes = [t.to(card).requires_grad_() for t in (nbr, p1t)]
+    kernels.build_pair_planes(*planes).sum().backward()
+    launched = dict(kernels.LAUNCHES)
+    assert launched["onehot_scatter"] == 2 and launched["chamfer_pair"] == 1, launched
+    assert launched["pair_planes_rows"] == 1 and launched["pair_planes_bwd"] == 1, launched
+    # (300 / 128 -> 3 query chunks) x (6 reference chunks + 1 merge) + 2 selections
+    assert launched["select_min_k"] == 3 * 7 + 2, launched
+    np.testing.assert_array_equal(got_sel.numpy(), distance._topk_min_indices(d, 16).numpy())
+    np.testing.assert_array_equal(got_narrow.numpy(),
+                                  distance._topk_min_indices(d[..., :50], 30).numpy())
+    monkeypatch.setattr(distance, "_KNN_MODE", "exact")
+    np.testing.assert_array_equal(got_knn.numpy(), distance.knn(8, ref, q).numpy())
+    cpu = [t.clone().requires_grad_() for t in (pred, gt)]
+    ops.chamfer_distance(*cpu).backward()
+    for a, c in zip(leaves, cpu):
+        torch.testing.assert_close(a.grad.cpu(), c.grad, atol=1e-6, rtol=1e-5)

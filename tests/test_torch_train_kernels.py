@@ -172,24 +172,26 @@ def test_fusion_head_train_logits_stats_and_vjp_match_jax():
 
 
 def test_chamfer_pair_vjp_matches_jax():
+    """(2, 256, 384) scatters through scatter_add, as JAX through its bucket
+    scatter; (2, 64, 256) through the one-hot scatter (N % 128 != 0) on both."""
     rng = np.random.default_rng(6)
-    G, N, M = 2, 256, 384
-    pc1, pc2 = _np(rng, G, N, 3, scale=3.0), _np(rng, G, M, 3, scale=3.0)
-    c1, c2 = _np(rng, G, N), _np(rng, G, M)
+    for G, N, M in ((2, 256, 384), (2, 64, 256)):
+        pc1, pc2 = _np(rng, G, N, 3, scale=3.0), _np(rng, G, M, 3, scale=3.0)
+        c1, c2 = _np(rng, G, N), _np(rng, G, M)
 
-    def loss(a, b):
-        d12, d21 = jax_chamfer_pair(a, b, True)
-        return jnp.sum(d12 * c1) + jnp.sum(d21 * c2), (d12, d21)
+        def loss(a, b):
+            d12, d21 = jax_chamfer_pair(a, b, True)
+            return jnp.sum(d12 * c1) + jnp.sum(d21 * c2), (d12, d21)
 
-    (_, want), grads = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
-        jnp.asarray(pc1), jnp.asarray(pc2))
-    leaves = _leaves(pc1, pc2)
-    d12, d21 = kernels.chamfer_pair(*leaves)
-    ((d12 * t(c1)).sum() + (d21 * t(c2)).sum()).backward()
-    assert_close(d12, want[0], atol=1e-6, rtol=1e-5)
-    assert_close(d21, want[1], atol=1e-6, rtol=1e-5)
-    for leaf, g in zip(leaves, grads):
-        assert_close(leaf.grad, g, atol=1e-5, rtol=1e-5)
+        (_, want), grads = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+            jnp.asarray(pc1), jnp.asarray(pc2))
+        leaves = _leaves(pc1, pc2)
+        d12, d21 = kernels.chamfer_pair(*leaves)
+        ((d12 * t(c1)).sum() + (d21 * t(c2)).sum()).backward()
+        assert_close(d12, want[0], atol=1e-6, rtol=1e-5)
+        assert_close(d21, want[1], atol=1e-6, rtol=1e-5)
+        for leaf, g in zip(leaves, grads):
+            assert_close(leaf.grad, g, atol=1e-5, rtol=1e-5)
 
 
 def test_fusion_pair_planes_vjp_matches_jax():
