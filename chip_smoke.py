@@ -57,6 +57,7 @@ import torch
 
 T0 = time.perf_counter()
 PEAK_F32_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
+PEAK_3XTF32_FLOPS = 495e12 / 3   # float32-grade products on the tensor cores (3xTF32)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 REPS = 20
 F32, I32 = 4, 4
@@ -90,19 +91,19 @@ def median_ms(fn, reps=REPS) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes / HBM rate and f32 ops / peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and ops / ``peak``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def add_row(rows, name, source, replaces, launch, plain, library, nbytes, flops, err, tol,
-            reps=REPS):
+            reps=REPS, peak=PEAK_F32_FLOPS):
     """Time a kernel, its plain version and the library call; one JSON row.
     Fails when the kernel's error against its plain version exceeds ``tol``."""
     ms, plain_ms = median_ms(launch, reps), median_ms(plain, max(3, reps // 4))
     lib_ms = median_ms(library, reps) if library is not None else None
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak)
     log(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.1e}) ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {lib_ms} bound_ms {b_ms:.5f} ({b_by})")
     if not err <= tol:
@@ -459,7 +460,8 @@ def check_train_kernels(kernels, cfg, dev, rows):
         params += [rnd(cin, c, scale=cin ** -0.5), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1),
                    rnd(c, scale=0.1)]
         cin = c
-    chain = 2.0 * (4 * c1 + c1 * c1 + c1 * c2) + 8 * (2 * c1 + c2)
+    products = 2.0 * (4 * c1 + c1 * c1 + c1 * c2)     # the chain's products per pair
+    chain = products + 8 * (2 * c1 + c2)
     o, stats, (packed, st) = fusion_head_train.fusion_head_train_fwd(planes, params, F)
     want_o, want_stats = fusion_head_train.fusion_head_train_plain(planes, params, F)
     o2, stats2, _ = fusion_head_train.fusion_head_train_fwd(planes, params, F)
@@ -505,12 +507,14 @@ def check_train_kernels(kernels, cfg, dev, rows):
     if not same or max(noise) > 1e-2:
         raise SystemExit("fusion_head_train_bwd: a run did not repeat its bits, or a bias "
                          "gradient is not noise")
-    add_row(rows, "fusion_head_train_bwd", fusion_head_train.SOURCE,
+    # the bound: a VJP from x needs one forward chain and two products per
+    # layer, 3 x the chain's products, at the tensor cores' float32-grade rate
+    add_row(rows, "fusion_head_train_bwd", fusion_head_train.SOURCE_BWD,
             fusion_head_train.REPLACES_BWD,
             lambda: fusion_head_train.fusion_head_train_bwd(planes, params, F, packed, st, d_o),
             lambda: fusion_head_train.fusion_head_train_bwd_plain(planes, params, F, 1e-3, d_o),
             None, (2 * planes.numel() + d_o.numel() + 2 * packed.numel()) * F32,
-            2.0 * G * P * chain, err, 1e-3, reps=5)
+            3.0 * G * P * products, err, 1e-3, reps=5, peak=PEAK_3XTF32_FLOPS)
     # the Chamfer VJP of the loss (5 pairs x B*F = 30 groups of 8192 points)
     time_chamfer_vjp(kernels, rnd(30, n0, 3, scale=10.0), rnd(30, n0, 3, scale=10.0),
                      "through scatter_add, the loss shape")
@@ -1011,16 +1015,15 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
                   "cross_tail_kernel": "cross_tail",
                   "transformer_tail_kernel": "transformer_tail",
                   "fusion_pair_kernel": "fusion_pair",
-                  "scatter_count_kernel": "scatter_add", "scatter_scan_kernel": "scatter_add",
-                  "scatter_fill_kernel": "scatter_add", "scatter_rank_kernel": "scatter_add",
-                  "scatter_reduce_kernel": "scatter_add",
+                  "scatter_add_": "scatter_add",     # every kernel of scatter_add.cu
                   "attention_train_fwd_kernel": "attention_train_fwd",
                   "attention_train_dkv_kernel": "attention_train_bwd",
                   "attention_train_dq_kernel": "attention_train_bwd",
                   "cross_tail_bwd_kernel": "cross_tail_bwd",
                   "transformer_tail_bwd_kernel": "transformer_tail_bwd",
                   "fusion_pair_planes_kernel": "fusion_pair_planes",
-                  "fusion_head_train_kernel": "fusion_head_train",
+                  "fusion_head_train_kernel": "fusion_head_train_fwd",
+                  "fusion_head_bwd_kernel": "fusion_head_train_bwd",
                   "reduce_partials_kernel": "block partial sums (tails, fusion_head_train)",
                   "select_min_k_kernel": "select_min_k",
                   "onehot_scatter_kernel": "onehot_scatter",

@@ -1,6 +1,6 @@
 // Train fusion head, forward sweeps 0-3 (the kernel and its design are in
-// fusion_head_train.cuh; the backward sweeps are compiled apart, in
-// fusion_head_train_bwd.cu, so that the two build in parallel).
+// fusion_head_train.cuh; the backward sweeps are in fusion_head_train_bwd.cu,
+// which builds in parallel).
 #include "fusion_head_train.cuh"
 
 // One forward sweep.  x (G, 4, P) planes, G = F groups x Bg frame-major;
@@ -14,10 +14,10 @@ MOCOPCI_API int mocopci_fusion_head_train_fwd(const float* x, const float* param
                                               int nblk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return launch_sweep<0>(x, params, stats, nullptr, nullptr, out, partial, red, G, F, P, nblk, st);
-    case 1: return launch_sweep<1>(x, params, stats, nullptr, nullptr, out, partial, red, G, F, P, nblk, st);
-    case 2: return launch_sweep<2>(x, params, stats, nullptr, nullptr, out, partial, red, G, F, P, nblk, st);
-    case 3: return launch_sweep<3>(x, params, stats, nullptr, nullptr, out, partial, red, G, F, P, nblk, st);
+    case 0: return launch_sweep<0>(x, params, stats, out, partial, red, G, F, P, nblk, st);
+    case 1: return launch_sweep<1>(x, params, stats, out, partial, red, G, F, P, nblk, st);
+    case 2: return launch_sweep<2>(x, params, stats, out, partial, red, G, F, P, nblk, st);
+    case 3: return launch_sweep<3>(x, params, stats, out, partial, red, G, F, P, nblk, st);
     default: return cudaErrorInvalidValue;
   }
 }

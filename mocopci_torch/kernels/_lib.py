@@ -49,7 +49,7 @@ SIGNATURES = {
     "transformer_tail_bwd": [_P] * 18 + [_I] * 6 + [_P],
     "fusion_pair_planes": [_P] * 4 + [_I] * 4 + [_P],
     "fusion_head_train_fwd": [_P] * 6 + [_I] * 5 + [_P],
-    "fusion_head_train_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    "fusion_head_train_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "select_min_k": [_P] * 3 + [_I] * 3 + [_P],
     "onehot_scatter": [_P] * 4 + [_I] * 3 + [_P],
     "pair_planes_rows": [_P] * 3 + [_I] * 3 + [_P],

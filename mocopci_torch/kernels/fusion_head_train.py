@@ -9,7 +9,9 @@ statistics.  The kernel recomputes the layer chain in every sweep and stores
 no (G, C, P) activation; its group and weight sums are reduced in a fixed
 order.  The kernel forms the variance as E[z²] − mean² (in float64 on the
 host, from float32 sums, as the TPU kernel does in float32); the twin as the
-mean of squared deviations, as JAX's CPU path.  Operations bound it.
+mean of squared deviations, as JAX's CPU path.  Operations bound it.  The
+forward sweeps run on FMAs; the backward sweeps run their products on the
+tensor cores at float32 grade (``SOURCE_BWD``).
 """
 from __future__ import annotations
 
@@ -17,12 +19,15 @@ import torch
 
 from mocopci_torch.kernels import _lib
 
-SOURCE = "mocopci_torch/csrc/fusion_head_train.cuh"  # entries: fusion_head_train_{fwd,bwd}.cu
+SOURCE = "mocopci_torch/csrc/fusion_head_train.cuh"  # forward sweeps, entry _fwd.cu
+SOURCE_BWD = "mocopci_torch/csrc/fusion_head_train_bwd.cu"   # backward sweeps
 REPLACES = "mocopci_tpu/ops/pallas/fusion_head_train.py:319"
 REPLACES_BWD = "mocopci_tpu/ops/pallas/fusion_head_train.py:408"   # backward sweeps
 
 WIDTHS = (4, 64, 64, 128)
-BLOCKS = 264          # two per SM of an H100; fixes every summation order
+BLOCKS = 264          # forward sweeps: two per SM of an H100
+BWD_BLOCKS = 132      # backward sweeps: one 8-warp block per SM
+# (fixed grids: each fixes its summation order)
 _OFF = (0, 64, 128)   # each layer's column in the kernel's (F, 2, 256) stat rows
 _MAX_SMEM = 227 * 1024
 
@@ -73,6 +78,23 @@ def fusion_head_train_bwd_plain(x, params, n_groups, eps, d_o):
         return torch.autograd.grad(o, leaves, d_o)
 
 
+def _fwd_smem(F: int) -> int:
+    """Bytes of shared memory of the largest forward sweep: the packed
+    parameters, the (F, 2, 256) stat rows and 4 warps' (F, 2, 128) group sums."""
+    return (13312 + 2 * F * 256 + 4 * F * 2 * 128) * 4
+
+
+def _bwd_smem(F: int) -> int:
+    """Bytes of the largest backward sweep: the vectors (1024 floats), the
+    weights with padded rows split into TF32 parts (three planes of 13312 in
+    sweep 4; (hi, lo) pairs in sweeps 5-7, 25600), the stat and [Sa | Sb] rows,
+    8 warps' group sums (128 wide in sweep 4, 64 in 5-6) and, in sweeps 5-7,
+    two (128, 72) pair tiles."""
+    sweep4 = 3 * 13312 + 8 * F * 2 * 128
+    sweep56 = 25600 + 8 * F * 2 * 64 + 2 * 128 * 72
+    return (1024 + 4 * F * 256 + max(sweep4, sweep56)) * 4
+
+
 def _check(x, params, n_groups):
     _lib.check_cuda("fusion_head_train x", x, torch.float32, 3)
     for i, (t, want) in enumerate(zip(params, _param_shapes())):
@@ -83,16 +105,14 @@ def _check(x, params, n_groups):
     G, C, P = x.shape
     if C != 4 or G % n_groups:
         raise ValueError(f"fusion_head_train: x {tuple(x.shape)} with {n_groups} groups")
-    smem = (13312 + 4 * n_groups * 256 + 4 * n_groups * 2 * 128 + 64 * 128 + 128
-            + 192 * 129) * 4
-    if smem > _MAX_SMEM:
+    if max(_fwd_smem(n_groups), _bwd_smem(n_groups)) > _MAX_SMEM:
         raise ValueError(f"fusion_head_train kernel: {n_groups} groups exceed shared memory")
     return G, P
 
 
 def _sweep(name, mode, x, packed, stats, extra, out, F, n_red):
     G, _, P = x.shape
-    nblk = BLOCKS
+    nblk = BLOCKS if mode < 4 else BWD_BLOCKS
     red = torch.empty(max(n_red, 1), dtype=torch.float32, device=x.device)
     partial = torch.empty(nblk * max(n_red, 1), dtype=torch.float32, device=x.device)
     out_ptr = out.data_ptr() if out is not None else 0
@@ -129,13 +149,16 @@ def fusion_head_train_bwd(x, params, n_groups, packed, stats, d_o):
     G, P = _check(x, params, n_groups)
     F = n_groups
     bsum = torch.zeros((F, 2, 256), dtype=torch.float32, device=x.device)
+    # each pair's routing (channel-max and ReLU masks, tie count), written by
+    # the first backward sweep and read by the others
+    route = torch.empty(G * P * 8, dtype=torch.int32, device=x.device)
     grads = [None] * 12
     dW = {}
     for layer, mode in ((2, 4), (1, 5), (0, 6)):
         C = WIDTHS[layer + 1]
         n_red = F * 2 * C + (0 if mode == 4 else WIDTHS[layer + 2] * C + WIDTHS[layer + 2])
-        red = _sweep("fusion_head_train_bwd", mode, x, packed, stats, (bsum, d_o), None, F,
-                     n_red)
+        red = _sweep("fusion_head_train_bwd", mode, x, packed, stats, (bsum, d_o, route), None,
+                     F, n_red)
         a, b_ = red[:F * 2 * C].view(F, 2, C).unbind(1)       # Σ dpre, Σ dpre·zh per group
         gamma = params[4 * layer + 2]
         c0 = _OFF[layer]
@@ -149,7 +172,7 @@ def fusion_head_train_bwd(x, params, n_groups, packed, stats, d_o):
             Cin, Cout = WIDTHS[nxt], WIDTHS[nxt + 1]
             dW[nxt] = (rest[:Cin * Cout].view(Cin, Cout), rest[Cin * Cout:])
     dx = torch.empty_like(x)
-    red = _sweep("fusion_head_train_bwd", 7, x, packed, stats, (bsum, d_o), dx, F,
+    red = _sweep("fusion_head_train_bwd", 7, x, packed, stats, (bsum, d_o, route), dx, F,
                  4 * 64 + 64)
     dW[0] = (red[:256].view(4, 64), red[256:])
     for layer in range(3):

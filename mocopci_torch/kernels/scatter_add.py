@@ -46,7 +46,7 @@ def scatter_add(v: torch.Tensor, idx: torch.Tensor, n_rows: int,
     if idx.shape != (G, S):
         raise ValueError(f"scatter_add: idx {tuple(idx.shape)} for values {tuple(v.shape)}")
     out = torch.empty((G, n_rows, C), dtype=torch.float32, device=v.device)
-    work = torch.zeros(G * (3 * n_rows + 1 + 2 * S), dtype=torch.int32, device=v.device)
+    work = torch.empty(G * (3 * n_rows + 1 + S) + 1, dtype=torch.int32, device=v.device)
     _lib.launch("scatter_add", v.data_ptr(), idx.data_ptr(), out.data_ptr(), work.data_ptr(),
                 G, S, C, n_rows, int(planes), _lib.stream(v))
     return out

@@ -13,15 +13,13 @@ import numpy as np
 import pytest
 
 from mocopci_tpu import ops as jops
-from mocopci_tpu.config import tiny_model_config as jax_tiny
 from mocopci_tpu.data import NLDriveDataset as JaxNLDrive
 from mocopci_tpu.data import batches as jax_batches
-from mocopci_tpu.models import MoCoPCI as JaxMoCoPCI
 from mocopci_torch import MoCoPCI, interpolate, tiny_model_config
 from mocopci_torch.bridge import params_from_jax
 from mocopci_torch.data import NLDriveDataset, batches
 from mocopci_torch.training import eval_step
-from tests.torch_parity import approx_knn, init_jax  # noqa: F401  (fixture)
+from tests.torch_parity import approx_knn, tiny_model_variables  # noqa: F401  (fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 NPOINTS = 128
@@ -30,11 +28,7 @@ NPOINTS = 128
 @pytest.fixture(scope="module")
 def tiny():
     """Port and JAX tiny models with the same weights, and the JAX output."""
-    rng = np.random.default_rng(0)
-    x1 = rng.normal(size=(1, NPOINTS, 3)).astype(np.float32)
-    x2 = (x1 + 0.05 * rng.normal(size=x1.shape)).astype(np.float32)
-    jm = JaxMoCoPCI(jax_tiny(NPOINTS))
-    variables = init_jax(jm, rng, x1, x2)
+    jm, x1, x2, variables = tiny_model_variables(NPOINTS)
     want = np.asarray(jax.jit(lambda v, a, b: jm.apply(v, a, b, train=False)["out"])(
         variables, x1, x2))
     model = MoCoPCI(tiny_model_config(NPOINTS), device="cpu")

@@ -12,20 +12,15 @@ import pytest
 import torch
 
 from mocopci_tpu.config import ModelConfig as JaxModelConfig
-from mocopci_tpu.config import tiny_model_config as jax_tiny
 from mocopci_tpu.models import MoCoPCI as JaxMoCoPCI
 from mocopci_torch import MoCoPCI, ModelConfig, interpolate, tiny_model_config
 from mocopci_torch.bridge import params_from_jax
-from tests.torch_parity import exact_knn, init_jax  # noqa: F401  (fixture)
+from tests.torch_parity import exact_knn, tiny_model_variables  # noqa: F401  (fixture)
 
 
 def test_tiny_eval_forward_matches_jax():
     npoints = 128
-    rng = np.random.default_rng(0)
-    x1 = rng.normal(size=(1, npoints, 3)).astype(np.float32)
-    x2 = (x1 + 0.05 * rng.normal(size=x1.shape)).astype(np.float32)
-    jm = JaxMoCoPCI(jax_tiny(npoints))
-    variables = init_jax(jm, rng, x1, x2)
+    jm, x1, x2, variables = tiny_model_variables(npoints)
     want = np.asarray(jax.jit(lambda v, a, b: jm.apply(v, a, b, train=False)["out"])(
         variables, x1, x2))
     model = MoCoPCI(tiny_model_config(npoints), device="cpu")

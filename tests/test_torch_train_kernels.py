@@ -46,6 +46,30 @@ def test_scatter_add_matches_bucket_scatter_with_dropped_indices(planes):
     assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("L", [65, 4097])
+def test_scatter_add_plain_sums_each_row_in_ascending_source_order(L):
+    """The order the card kernel is held to bit for bit in its card sweep
+    (``tests/test_torch_card_scatter.py``): one row takes L sources among
+    about 20 a row and about 0.5 a row; each row is the float32
+    sum of its sources in ascending position (numpy's unbuffered ``add.at``),
+    -1 and >= N targets are dropped, and rows with no source are exactly 0."""
+    rng = np.random.default_rng(L)
+    for N in (512, 20000):
+        flat = np.concatenate([np.full(L, 3), rng.integers(4, N, size=10000),
+                               np.tile([-1, N, N + 7], 10)]).astype(np.int32)
+        idx = np.stack([rng.permutation(flat) for _ in range(2)])
+        G, S = idx.shape
+        for planes, C in ((False, 3), (True, 5)):
+            v = _np(rng, *((G, C, S) if planes else (G, S, C)), scale=np.exp(2 * rng.normal()))
+            rows = v.transpose(0, 2, 1) if planes else v
+            want = np.zeros((G, N, C), np.float32)
+            for g in range(G):
+                keep = (idx[g] >= 0) & (idx[g] < N)
+                np.add.at(want[g], idx[g][keep], rows[g][keep])
+            got = kernels.scatter_add(t(v), t(idx), N, planes=planes).numpy()
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_gather_backward_takes_the_kernel_where_jax_does():
     rng = np.random.default_rng(1)
     for (B, S, C, N) in ((1, 32768, 3, 256), (1, 40000, 64, 2048), (1, 100, 3, 256)):

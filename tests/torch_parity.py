@@ -5,6 +5,7 @@ Inputs and weights are made with numpy, run through the JAX module on the CPU
 ``mocopci_torch.bridge``, both in the kNN mode a module's fixture sets.
 """
 import contextlib
+import functools
 
 import jax
 import numpy as np
@@ -72,6 +73,22 @@ def init_jax(module, rng, *args, **kwargs):
     """``jax.jit(module.init)`` on numpy inputs, then perturbed numpy variables."""
     v = jax.jit(lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs))(*args)
     return perturb(v, rng)
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_model_variables(npoints):
+    """The JAX ``MoCoPCI`` at ``tiny_model_config(npoints)``, one frame pair
+    (seed 0) and its perturbed variables: built once per test process and
+    shared by the modules that hold the tiny eval forward against it (its
+    ``init`` trace is the larger part of their time).  Read-only."""
+    from mocopci_tpu.config import tiny_model_config
+    from mocopci_tpu.models import MoCoPCI
+
+    rng = np.random.default_rng(0)
+    x1 = rng.normal(size=(1, npoints, 3)).astype(np.float32)
+    x2 = (x1 + 0.05 * rng.normal(size=x1.shape)).astype(np.float32)
+    jm = MoCoPCI(tiny_model_config(npoints))
+    return jm, x1, x2, init_jax(jm, rng, x1, x2)
 
 
 def load(torch_module, variables):
