@@ -91,6 +91,23 @@ def median_ms(fn, reps=REPS) -> float:
     return float(np.median(times))
 
 
+def device_us(fn, reps=REPS) -> float:
+    """Mean device time of one call of ``fn`` in µs, every kernel it launches
+    summed, over ``reps`` calls under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and ops / ``peak``."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
@@ -383,15 +400,52 @@ def check_train_kernels(kernels, cfg, dev, rows):
     want = attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do)
     same = bits_equal(got, attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed,
                                                                sc, rate))
-    log(f"attention_train bwd repeat bit-equal {same}")
-    if not same:
-        raise SystemExit("attention_train_bwd: a run did not repeat its bits")
+    # the rate-0 kernel (the EICrossformer's calls: no keep factor, no hash)
+    out0, lse0 = attention_train.attention_train_fwd(q, k, vv, seed, sc, 0.0)
+    got0 = attention_train.attention_train_bwd(q, k, vv, out0, lse0, do, seed, sc, 0.0)
+    same0 = bits_equal(got0, attention_train.attention_train_bwd(q, k, vv, out0, lse0, do, seed,
+                                                                 sc, 0.0))
+    err0 = err_of(got0, attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, 0.0, do))
+    log(f"attention_train bwd {tuple(q.shape)}: repeat bit-equal {same}; at rate 0 "
+        f"max_abs_err {err0:.3e}, repeat bit-equal {same0}")
+    if not (same and same0) or err0 > 1e-4:
+        raise SystemExit("attention_train_bwd: a run did not repeat its bits, or rate 0 "
+                         "disagrees")
     add_row(rows, "attention_train_bwd", attention_train.SOURCE, attention_train.REPLACES_BWD,
             lambda: attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate),
             lambda: attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do),
             None, (8 * q.numel() + Ga * n1) * F32, Ga * n1 * n1 * (10.0 * D + 6),
             err_of(got, want), 1e-4)
-    del q, k, vv, do, out, lse, got, want
+    # the wide route at the same shape, beside it (the backward before the one pass)
+    attention_train.MAX_BWD_D, max_bwd_d = 0, attention_train.MAX_BWD_D
+    try:
+        wide_ms = median_ms(lambda: attention_train.attention_train_bwd(q, k, vv, out, lse, do,
+                                                                        seed, sc, rate))
+    finally:
+        attention_train.MAX_BWD_D = max_bwd_d
+    log(f"attention_train bwd {tuple(q.shape)}: the wide route takes {wide_ms:.4f} ms")
+    del q, k, vv, do, out, lse, got, want, out0, lse0, got0
+
+    # attention_train, the wide route (D > 64): CrossFrameBlock at L3, 4 heads
+    # of the full width c3 over both input frames, (B*2*4, n3, c3)
+    Gw, n3 = B * 2 * 4, cfg.pyramid[2]
+    q, k, vv, do = rnd(Gw, n3, c3), rnd(Gw, n3, c3), rnd(Gw, n3, c3), rnd(Gw, n3, c3)
+    sc = c3 ** -0.5
+    out, lse = attention_train.attention_train_fwd(q, k, vv, seed, sc, rate)
+    got = attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate)
+    same = bits_equal(got, attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed,
+                                                               sc, rate))
+    log(f"attention_train bwd wide {tuple(q.shape)}: repeat bit-equal {same}")
+    if not same:
+        raise SystemExit("attention_train_bwd_wide: a run did not repeat its bits")
+    add_row(rows, "attention_train_bwd_wide", attention_train.SOURCE,
+            attention_train.REPLACES_BWD,
+            lambda: attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate),
+            lambda: attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do),
+            None, (8 * q.numel() + Gw * n3) * F32, Gw * n3 * n3 * (10.0 * c3 + 6),
+            err_of(got, attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do)),
+            1e-4)
+    del q, k, vv, do, out, lse, got
 
     # cross_tail backward: bid / fe at up_1, G x n1 queries, K = flow_nei;
     # the rows' gradient compared after its scatter (ties split differently)
@@ -580,14 +634,25 @@ def check_op_kernels(kernels, cfg, dev, rows):
             f"repeat bit-equal {same}")
         if not same or errs[(S, n_out)] > 1e-4:
             raise SystemExit("onehot_scatter: a run did not repeat its bits, or it disagrees")
+        fl = (ix.long() + torch.arange(G, device=dev)[:, None] * n_out).reshape(-1)
+        vl = v.reshape(-1, 3)
+
+        def launch(v=v, ix=ix, n_out=n_out):
+            return scatter_onehot.onehot_scatter_rows(v, ix, n_out)
+
+        def library(fl=fl, vl=vl, n_out=n_out):
+            return torch.zeros(G * n_out, 3, device=dev).index_add_(0, fl, vl)
+
+        log(f"onehot_scatter ({G}, {S}, 3) -> {n_out}: CUDA-event ms kernel "
+            f"{median_ms(launch):.4f} index_add_ {median_ms(library):.4f}; device us "
+            f"(torch.profiler) kernel {device_us(launch):.3f} index_add_ "
+            f"{device_us(library):.3f}")
         if S == n0:
-            rows_v, ix_big = v, ix
-    flat = (ix_big.long() + torch.arange(G, device=dev)[:, None] * n_small).reshape(-1)
+            rows_v, ix_big, fl_big, vl_big = v, ix, fl, vl
     add_row(rows, "onehot_scatter", scatter_onehot.SOURCE, scatter_onehot.REPLACES,
             lambda: scatter_onehot.onehot_scatter_rows(rows_v, ix_big, n_small),
             lambda: scatter_onehot.onehot_scatter_rows_plain(rows_v, ix_big, n_small),
-            lambda: torch.zeros(G * n_small, 3, device=dev).index_add_(
-                0, flat, rows_v.reshape(-1, 3)),
+            lambda: torch.zeros(G * n_small, 3, device=dev).index_add_(0, fl_big, vl_big),
             (rows_v.numel() + G * 3 * n_small) * F32 + ix_big.numel() * I32,
             1.0 * rows_v.numel(), errs[(n0, n_small)], 1e-4)
 
@@ -860,7 +925,7 @@ def run_eval(kernels, cfg, dataset, dev, model, cpu_model):
 # the kernels one train step launches in the default (approx) kNN mode
 TRAIN_KERNELS = ("fps", "knn_approx", "cross_tail", "cross_tail_bwd", "transformer_tail",
                  "transformer_tail_bwd", "attention_train_fwd", "attention_train_bwd",
-                 "fusion_pair_planes", "fusion_head_train_fwd", "fusion_head_train_bwd",
+                 "attention_train_bwd_wide", "fusion_pair_planes", "fusion_head_train_fwd", "fusion_head_train_bwd",
                  "chamfer_pair", "scatter_add")
 TRAIN_STEPS = 6
 ZERO_GRAD_LEAVES = {f"estimator.fusion_conv{i}.bias" for i in range(3)}
@@ -909,9 +974,52 @@ def run_train(kernels, cfg, dev):
     log(f"train: ModelConfig() B=2 step median {step_ms:.3f} ms over the last "
         f"{len(times) - 1} (first {times[0]:.1f} ms, min {min(times[1:]):.3f}, max "
         f"{max(times[1:]):.3f}), peak memory {peak / 2**20:.1f} MiB")
-    busy = profile(lambda: train_step(state, steps[0], rng), "train step")
+    busy = profile_attention_calls(lambda: train_step(state, steps[0], rng))
     return launches, {"step_ms": step_ms, "step_ms_all": times, "peak_mib": peak / 2**20,
                       "loss": [a["loss"] for a in auxes], **busy}
+
+
+ATTENTION_BWD_SYMBOLS = ("attention_train_bwd_dot_kernel", "attention_train_bwd_kernel",
+                         "attention_train_bwd_dq_kernel", "attention_train_dkv_kernel",
+                         "attention_train_dq_kernel")
+
+
+def profile_attention_calls(step):
+    """One profiled train step (``profile``), with each train attention
+    backward logged: (G, N, M, D, rate), its route and the device ms of its
+    kernels (3 on the one-pass route, 2 on the wide one), in call order."""
+    from torch.autograd import DeviceType
+
+    attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
+    calls = []
+    bwd = attention_train.attention_train_bwd
+
+    def recorded(q, k, v, out, lse, dout, seed, scale, rate):
+        calls.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2], rate))
+        return bwd(q, k, v, out, lse, dout, seed, scale, rate)
+
+    def per_call(prof):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and any(sym in e.name for sym in ATTENTION_BWD_SYMBOLS))
+        total = 0.0
+        for shape in calls:
+            n = 3 if shape[3] <= attention_train.MAX_BWD_D else 2
+            ms = sum(end - start for start, end in spans[:n]) / 1e3
+            spans = spans[n:]
+            total += ms
+            log(f"train attention bwd (G, N, M, D, rate) {shape}: "
+                f"{'one-pass' if n == 3 else 'wide'} route, device ms {ms:.4f}")
+        log(f"train attention bwd: {len(calls)} calls, device ms {total:.4f}; kernels not "
+            f"matched to a call {len(spans)}")
+        if not calls:
+            raise SystemExit("profile: the train step called no attention backward")
+
+    attention_train.attention_train_bwd = recorded
+    try:
+        return profile(step, "train step", per_call)
+    finally:
+        attention_train.attention_train_bwd = bwd
 
 
 def run_train_parity(kernels, dev):
@@ -1017,8 +1125,11 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
                   "fusion_pair_kernel": "fusion_pair",
                   "scatter_add_": "scatter_add",     # every kernel of scatter_add.cu
                   "attention_train_fwd_kernel": "attention_train_fwd",
-                  "attention_train_dkv_kernel": "attention_train_bwd",
-                  "attention_train_dq_kernel": "attention_train_bwd",
+                  "attention_train_bwd_dot_kernel": "attention_train_bwd",
+                  "attention_train_bwd_kernel": "attention_train_bwd",
+                  "attention_train_bwd_dq_kernel": "attention_train_bwd",
+                  "attention_train_dkv_kernel": "attention_train_bwd_wide",
+                  "attention_train_dq_kernel": "attention_train_bwd_wide",
                   "cross_tail_bwd_kernel": "cross_tail_bwd",
                   "transformer_tail_bwd_kernel": "transformer_tail_bwd",
                   "fusion_pair_planes_kernel": "fusion_pair_planes",
@@ -1031,10 +1142,11 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
                   "pair_planes_bwd_kernel": "pair_planes_bwd"}
 
 
-def profile(fn, what: str) -> dict:
+def profile(fn, what: str, trace=None) -> dict:
     """One call of ``fn`` under torch.profiler: device time per port kernel, the
     rest (PyTorch's own kernels) by name, and the device's busy share of the
-    profiled wall time (the profiler's own overhead inflates the wall)."""
+    profiled wall time (the profiler's own overhead inflates the wall);
+    ``trace(prof)``, when given, reads the profile further."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1059,6 +1171,8 @@ def profile(fn, what: str) -> dict:
     if device_ms == 0.0:
         log(f"profile {what}: the profiler recorded no device time; breakdown not measured")
         return {"profile": "not measured"}
+    if trace is not None:
+        trace(prof)
     log(f"profile {what}: device busy {device_ms:.3f} ms of {wall_ms:.3f} ms profiled wall "
         f"({100 * device_ms / wall_ms:.1f}%)")
     log(f"profile {what}: port kernels ms " + json.dumps(
@@ -1120,7 +1234,7 @@ def main() -> int:
     home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair")}
     home.update({name: ("ops", name) for name in OPS_KERNELS if name != "chamfer_pair"})
     home.update({name: ("train", name) for name in TRAIN_KERNELS
-                 if name.endswith(("_bwd", "_fwd")) or name in ("scatter_add",
+                 if name.endswith(("_bwd", "_fwd", "_wide")) or name in ("scatter_add",
                                                                   "fusion_pair_planes")})
     for r in rows:
         path, counter = home.get(r["name"], ("slice_approx", r["name"]))

@@ -14,13 +14,17 @@
 //             stay in shared memory (as csrc/attention.cu), the keep factor is
 //             applied to the numerators, and the row's log-sum-exp is written
 //             for the backward;
-//   backward  dk/dv: one block per (group, key tile) looping over query
-//             chunks; dq: one block per (group, query tile) looping over key
-//             chunks.  Both rebuild the pair quantities P = exp(l - lse),
-//             P*keep and P*(keep*(do.v) - do.out) for a (chunk x tile) in
-//             shared memory, then accumulate their rows in registers in a
-//             fixed order.  Every output element has one owner thread, so no
-//             atomics and the result repeats bit for bit.
+//   backward, head dims D <= 64: one pass over the pairs, each pair's logit,
+//             do.v, exp and keep factor computed once (see the block comment
+//             above attention_train_bwd_kernel), no hash at rate 0;
+//   backward, D > 64 (the "wide" route): dk/dv: one block per (group, key
+//             tile) looping over query chunks; dq: one block per (group, query
+//             tile) looping over key chunks.  Both rebuild the pair quantities
+//             P = exp(l - lse), P*keep and P*(keep*(do.v) - do.out) for a
+//             (chunk x tile) in shared memory, then accumulate their rows in
+//             registers in a fixed order.
+// Every output element is summed in a fixed order by one owner, with no
+// atomics, so the result repeats bit for bit.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -306,6 +310,329 @@ __global__ void __launch_bounds__(kThreads) attention_train_dq_kernel(
 // rows per tile so that tile * D <= kThreads * kOwn accumulators
 inline int tile_rows(int D) { return max(1, min(128, kThreads * kOwn / 2 / D)); }
 
+// ---- backward for head dims D <= 64: one pass over the pairs ----
+//
+// prologue  dot[g, i] = do_i . out_i, once per query row.
+// main      one block per (group, tile of TK = 64 keys), 256 threads, looping
+//           over chunks of 128 queries (q, do, lse, dot), double-buffered in
+//           shared memory by cp.async.  D is padded to DP (8, 16, 32 or 64)
+//           with zeros.  Thread (s, j, l) holds head dims [l*DT, (l+1)*DT) of
+//           key j in registers (k, v and its dk, dv sums; LPK lanes a key) and
+//           takes query split s of each chunk.  For each of its queries it
+//           computes the pair's logit, do.v, exp and keep factor once (the
+//           LPK lanes add their partial dots by shuffles), reading q and do as
+//           float4 broadcasts, adds P*keep*do into dv and dS*q into dk, and
+//           writes dS = P*(keep*(do.v) - dot) into the chunk's (query x key)
+//           tile in shared memory.  The block then multiplies that tile by
+//           its keys (a thread owns QM queries x 4 dims, keys in ascending
+//           order) into dq_part[g, key tile, i, :].  At the end the query
+//           splits' dk, dv are added in split order.  Without dropout the keep
+//           factor is left out (it is exactly 1 there), so no hash runs.
+// epilogue  dq = scale * the sum of dq_part over the key tiles, in tile order.
+// Every pair costs about 5*D FMAs, against 10*D FMAs, two exps and two hashes
+// in the wide route, and no FMA reads more than one operand from shared memory.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdKeys = 64;      // keys per block
+constexpr int kBwdQ = 128;        // queries per chunk
+constexpr int kMaxBwdD = 64;
+
+template <int DP>
+struct BwdTile {
+  static constexpr int LPK = DP <= 16 ? 1 : DP / 16;   // lanes per key
+  static constexpr int DT = DP / LPK;                   // head dims per lane
+  static constexpr int TK = kBwdKeys;
+  static constexpr int QS = kBwdThreads / (TK * LPK);   // query splits of a chunk
+  static constexpr int QM = DP / 8;                     // dq product: queries per thread
+  static constexpr int LDS = TK + 4;                    // row stride of the dS tile
+  // [2][128][DP] q, [2][128][DP] do, [2][128] lse, [2][128] dot, [128][LDS] dS, [TK][DP] k
+  static constexpr int smem_floats = 4 * kBwdQ * DP + 4 * kBwdQ + kBwdQ * LDS + TK * DP;
+  static_assert(QS >= 1 && (kBwdQ / QM) * (DP / 4) == kBwdThreads, "tile shape");
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest has landed (for this thread's copies)
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Queues the copies of query rows [i0, i0 + 128) (cut at N): q and do into
+// [128][DP] tiles (the padded dims are not written), lse and dot.
+template <int DP>
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ qg,
+                                            const float* __restrict__ dog,
+                                            const float* __restrict__ lg,
+                                            const float* __restrict__ tg, int i0, int N, int D,
+                                            float* qs, float* dos, float* ls, float* ts) {
+  const int rows = min(kBwdQ, N - i0);
+  if ((D & 3) == 0) {
+    const int D4 = D >> 2;
+    for (int e = threadIdx.x; e < rows * D4; e += kBwdThreads) {
+      const int r = e / D4, c = (e - r * D4) << 2;
+      const size_t src = static_cast<size_t>(i0 + r) * D + c;
+      cp_async16(qs + r * DP + c, qg + src);
+      cp_async16(dos + r * DP + c, dog + src);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * D; e += kBwdThreads) {
+      const int r = e / D, c = e - r * D;
+      const size_t src = static_cast<size_t>(i0 + r) * D + c;
+      cp_async4(qs + r * DP + c, qg + src);
+      cp_async4(dos + r * DP + c, dog + src);
+    }
+  }
+  for (int e = threadIdx.x; e < rows; e += kBwdThreads) {
+    cp_async4(ls + e, lg + i0 + e);
+    cp_async4(ts + e, tg + i0 + e);
+  }
+}
+
+// dot[r] = do_r . out_r over rows r < rows (the backward's per-row constant)
+__global__ void __launch_bounds__(256) attention_train_bwd_dot_kernel(
+    const float* __restrict__ out, const float* __restrict__ dout, float* __restrict__ dot,
+    int rows, int D) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* o = out + static_cast<size_t>(r) * D;
+  const float* d = dout + static_cast<size_t>(r) * D;
+  float acc = 0.f;
+  for (int c = 0; c < D; ++c) acc = fmaf(d[c], o[c], acc);
+  dot[r] = acc;
+}
+
+template <int DP, bool DROP>
+__global__ void __launch_bounds__(kBwdThreads) attention_train_bwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ lse, const float* __restrict__ dot, const float* __restrict__ dout,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq_part, int N, int M,
+    int D, float scale, const int* __restrict__ seed, int thr, float kscale) {
+  using T = BwdTile<DP>;
+  constexpr int TK = T::TK, LPK = T::LPK, DT = T::DT, QS = T::QS, QM = T::QM, LDS = T::LDS;
+  constexpr int QPS = kBwdQ / QS;                 // queries of a chunk per split
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                                 // [2][kBwdQ][DP]
+  float* dos = qs + 2 * kBwdQ * DP;               // [2][kBwdQ][DP]
+  float* ls = dos + 2 * kBwdQ * DP;               // [2][kBwdQ]
+  float* ts = ls + 2 * kBwdQ;                     // [2][kBwdQ]
+  float* dst = ts + 2 * kBwdQ;                    // [kBwdQ][LDS]
+  float* ks = dst + kBwdQ * LDS;                  // [TK][DP]
+  const int tid = threadIdx.x;
+  const int l = tid % LPK, j = (tid / LPK) % TK, s = tid / (LPK * TK);
+  const int g = blockIdx.y, kt = blockIdx.x;
+  const int jg = kt * TK + j;
+  const bool key_ok = jg < M;
+  uint32_t gseed = 0u;
+  if (DROP) gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
+  const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
+  const float* qg = q + gq;
+  const float* dog = dout + gq;
+  const float* lg = lse + static_cast<size_t>(g) * N;
+  const float* tg = dot + static_cast<size_t>(g) * N;
+  const int nchunks = (N + kBwdQ - 1) / kBwdQ;
+  stage_chunk<DP>(qg, dog, lg, tg, 0, N, D, qs, dos, ls, ts);
+  cp_async_commit();
+
+  float kr[DT], vr[DT], ak[DT], av[DT];
+#pragma unroll
+  for (int e = 0; e < DT; ++e) {
+    const int d = l * DT + e;
+    const bool ok = key_ok && d < D;
+    kr[e] = ok ? k[gk + static_cast<size_t>(jg) * D + d] : 0.f;
+    vr[e] = ok ? v[gk + static_cast<size_t>(jg) * D + d] : 0.f;
+    ak[e] = av[e] = 0.f;
+    if (s == 0) ks[j * DP + d] = kr[e];
+  }
+  if (D < DP) {       // the padded dims of both buffers stay zero (cp.async skips them)
+    for (int e = tid; e < 2 * kBwdQ * (DP - D); e += kBwdThreads) {
+      const int r = e / (DP - D), c = D + (e - r * (DP - D));
+      qs[r * DP + c] = 0.f;
+      dos[r * DP + c] = 0.f;
+    }
+  }
+
+  const int dg = tid % (DP / 4), qg4 = tid / (DP / 4);    // the dq product's tile
+  for (int c = 0; c < nchunks; ++c) {
+    const int b = c & 1, i0 = c * kBwdQ;
+    if (c + 1 < nchunks) {
+      const int nb = b ^ 1;
+      stage_chunk<DP>(qg, dog, lg, tg, i0 + kBwdQ, N, D, qs + nb * kBwdQ * DP,
+                      dos + nb * kBwdQ * DP, ls + nb * kBwdQ, ts + nb * kBwdQ);
+    }
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();        // chunk c has landed; the dq product of c - 1 is done
+    const float* qb = qs + b * kBwdQ * DP + l * DT;
+    const float* db = dos + b * kBwdQ * DP + l * DT;
+    const float* lb = ls + b * kBwdQ;
+    const float* tb = ts + b * kBwdQ;
+    const int i_end = min((s + 1) * QPS, N - i0);
+#pragma unroll 2
+    for (int i = s * QPS; i < i_end; ++i) {
+      float qi[DT], di[DT];
+#pragma unroll
+      for (int e = 0; e < DT; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(qb + i * DP + e);
+        const float4 o = *reinterpret_cast<const float4*>(db + i * DP + e);
+        qi[e] = a.x, qi[e + 1] = a.y, qi[e + 2] = a.z, qi[e + 3] = a.w;
+        di[e] = o.x, di[e + 1] = o.y, di[e + 2] = o.z, di[e + 3] = o.w;
+      }
+      float lo = 0.f, da = 0.f;
+#pragma unroll
+      for (int e = 0; e < DT; ++e) {
+        lo = fmaf(qi[e], kr[e], lo);
+        da = fmaf(di[e], vr[e], da);
+      }
+#pragma unroll
+      for (int off = LPK / 2; off > 0; off >>= 1) {
+        lo += __shfl_xor_sync(0xffffffffu, lo, off);
+        da += __shfl_xor_sync(0xffffffffu, da, off);
+      }
+      const float P = key_ok ? expf(lo * scale - lb[i]) : 0.f;
+      float pd = P, dsv;
+      if (DROP) {
+        const float kf = keep_factor(gseed, i0 + i, jg, thr, kscale);
+        pd = P * kf;
+        dsv = P * (da * kf - tb[i]);
+      } else {
+        dsv = P * (da - tb[i]);
+      }
+      if (l == 0) dst[i * LDS + j] = dsv;
+#pragma unroll
+      for (int e = 0; e < DT; ++e) {
+        av[e] = fmaf(pd, di[e], av[e]);
+        ak[e] = fmaf(dsv, qi[e], ak[e]);
+      }
+    }
+    __syncthreads();        // the chunk's dS tile is complete
+    float acc[QM][4];
+#pragma unroll
+    for (int m = 0; m < QM; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+#pragma unroll 4
+    for (int jj = 0; jj < TK; jj += 4) {
+      float4 kk[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        kk[u] = *reinterpret_cast<const float4*>(ks + (jj + u) * DP + 4 * dg);
+#pragma unroll
+      for (int m = 0; m < QM; ++m) {
+        const float4 w = *reinterpret_cast<const float4*>(dst + (qg4 * QM + m) * LDS + jj);
+        const float ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[m][0] = fmaf(ws[u], kk[u].x, acc[m][0]);
+          acc[m][1] = fmaf(ws[u], kk[u].y, acc[m][1]);
+          acc[m][2] = fmaf(ws[u], kk[u].z, acc[m][2]);
+          acc[m][3] = fmaf(ws[u], kk[u].w, acc[m][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < QM; ++m) {
+      const int i = i0 + qg4 * QM + m;
+      if (i < N) {
+        float* dst_q = dq_part + ((static_cast<size_t>(g) * gridDim.x + kt) * N + i) * DP + 4 * dg;
+        *reinterpret_cast<float4*>(dst_q) = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+      }
+    }
+  }
+
+  if (QS > 1) {             // add the query splits' sums in split order
+    constexpr int KL = TK * LPK;
+    float* red = sm;        // [QS - 1][2 * DT][KL], over the query buffers
+    const int kl = tid % KL;
+    __syncthreads();
+    if (s > 0) {
+#pragma unroll
+      for (int e = 0; e < DT; ++e) {
+        red[((s - 1) * 2 * DT + e) * KL + kl] = ak[e];
+        red[((s - 1) * 2 * DT + DT + e) * KL + kl] = av[e];
+      }
+    }
+    __syncthreads();
+    if (s == 0) {
+      for (int r = 0; r < QS - 1; ++r) {
+#pragma unroll
+        for (int e = 0; e < DT; ++e) {
+          ak[e] += red[(r * 2 * DT + e) * KL + kl];
+          av[e] += red[(r * 2 * DT + DT + e) * KL + kl];
+        }
+      }
+    }
+  }
+  if (s == 0 && key_ok) {
+#pragma unroll
+    for (int e = 0; e < DT; ++e) {
+      const int d = l * DT + e;
+      if (d < D) {
+        dk[gk + static_cast<size_t>(jg) * D + d] = ak[e] * scale;
+        dv[gk + static_cast<size_t>(jg) * D + d] = av[e];
+      }
+    }
+  }
+}
+
+// dq[g, i, d] = scale * sum over the key tiles of dq_part[g, t, i, d], in tile order
+__global__ void __launch_bounds__(256) attention_train_bwd_dq_kernel(
+    const float* __restrict__ part, float* __restrict__ dq, int G, int KT, int N, int D, int DP,
+    float scale) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<size_t>(G) * N * D) return;
+  const int d = static_cast<int>(e % D);
+  const size_t row = e / D;                       // g * N + i
+  const size_t g = row / N, i = row - g * N;
+  const float* p = part + (g * KT * N + i) * DP + d;
+  float acc = 0.f;
+  for (int t = 0; t < KT; ++t) acc += p[static_cast<size_t>(t) * N * DP];
+  dq[e] = acc * scale;
+}
+
+template <int DP, bool DROP>
+cudaError_t launch_bwd(const float* q, const float* k, const float* v, const float* lse,
+                       const float* dot, const float* dout, float* dk, float* dv, float* part,
+                       int G, int N, int M, int D, float scale, const int* seed, int thr,
+                       float kscale, cudaStream_t st) {
+  const size_t smem = BwdTile<DP>::smem_floats * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(attention_train_bwd_kernel<DP, DROP>, smem);
+  if (err != cudaSuccess) return err;
+  attention_train_bwd_kernel<DP, DROP>
+      <<<dim3(mocopci::ceil_div(M, BwdTile<DP>::TK), G), kBwdThreads, smem, st>>>(
+          q, k, v, lse, dot, dout, dk, dv, part, N, M, D, scale, seed, thr, kscale);
+  return cudaGetLastError();
+}
+
+template <bool DROP>
+cudaError_t launch_bwd_dp(int DP, const float* q, const float* k, const float* v,
+                          const float* lse, const float* dot, const float* dout, float* dk,
+                          float* dv, float* part, int G, int N, int M, int D, float scale,
+                          const int* seed, int thr, float kscale, cudaStream_t st) {
+  switch (DP) {
+    case 8:
+      return launch_bwd<8, DROP>(q, k, v, lse, dot, dout, dk, dv, part, G, N, M, D, scale,
+                                 seed, thr, kscale, st);
+    case 16:
+      return launch_bwd<16, DROP>(q, k, v, lse, dot, dout, dk, dv, part, G, N, M, D, scale,
+                                  seed, thr, kscale, st);
+    case 32:
+      return launch_bwd<32, DROP>(q, k, v, lse, dot, dout, dk, dv, part, G, N, M, D, scale,
+                                  seed, thr, kscale, st);
+    default:
+      return launch_bwd<64, DROP>(q, k, v, lse, dot, dout, dk, dv, part, G, N, M, D, scale,
+                                  seed, thr, kscale, st);
+  }
+}
+
 }  // namespace
 
 // q (G, N, D), k/v (G, M, D) -> out (G, N, D), lse (G, N); M <= 4096; seed: one
@@ -325,13 +652,15 @@ MOCOPCI_API int mocopci_attention_train_fwd(const float* q, const float* k, cons
   return cudaGetLastError();
 }
 
-// Saved forward (q, k, v, out, lse) and dout (G, N, D) -> dq, dk, dv.  D <= 1024.
-MOCOPCI_API int mocopci_attention_train_bwd(const float* q, const float* k, const float* v,
-                                            const float* out, const float* lse,
-                                            const float* dout, float* dq, float* dk, float* dv,
-                                            int G, int N, int M, int D, float scale,
-                                            const int* seed, int thr, float kscale,
-                                            void* stream) {
+// The wide route: saved forward (q, k, v, out, lse) and dout (G, N, D) -> dq,
+// dk, dv for any D <= 2048 (taken for D > 64).
+MOCOPCI_API int mocopci_attention_train_bwd_wide(const float* q, const float* k,
+                                                 const float* v, const float* out,
+                                                 const float* lse,
+                                                 const float* dout, float* dq, float* dk,
+                                                 float* dv, int G, int N, int M, int D,
+                                                 float scale, const int* seed, int thr,
+                                                 float kscale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = tile_rows(D);
   const size_t smem_kv =
@@ -349,5 +678,37 @@ MOCOPCI_API int mocopci_attention_train_bwd(const float* q, const float* k, cons
   if (err != cudaSuccess) return err;
   attention_train_dq_kernel<<<dim3(mocopci::ceil_div(N, T), G), kThreads, smem_q, st>>>(
       q, k, v, out, lse, dout, dq, N, M, D, T, scale, seed, thr, kscale);
+  return cudaGetLastError();
+}
+
+// The one-pass route, D <= 64: the saved forward and dout -> dq, dk, dv.
+// work: f32 scratch of G * ceil(M / 64) * N * DP + G * N entries, DP the padded
+// head dim (8, 16, 32 or 64): the dq partials, then the rows' dot = do . out.
+// Dropout off (thr 0, kscale 1) takes the kernel without the keep factor.
+MOCOPCI_API int mocopci_attention_train_bwd(const float* q, const float* k, const float* v,
+                                            const float* out, const float* lse,
+                                            const float* dout, float* dq, float* dk, float* dv,
+                                            float* work, int G, int N, int M, int D,
+                                            float scale, const int* seed, int thr, float kscale,
+                                            void* stream) {
+  if (D < 1 || D > kMaxBwdD) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int DP = D <= 8 ? 8 : D <= 16 ? 16 : D <= 32 ? 32 : 64;
+  const int KT = mocopci::ceil_div(M, kBwdKeys);
+  float* part = work;
+  float* dot = work + static_cast<size_t>(G) * KT * N * DP;
+  const int rows = G * N;
+  attention_train_bwd_dot_kernel<<<mocopci::ceil_div(rows, 256), 256, 0, st>>>(out, dout, dot,
+                                                                               rows, D);
+  MOCOPCI_CHECK_LAUNCH();
+  const bool drop = thr > 0 || kscale != 1.f;
+  cudaError_t err = drop ? launch_bwd_dp<true>(DP, q, k, v, lse, dot, dout, dk, dv, part, G, N,
+                                                M, D, scale, seed, thr, kscale, st)
+                         : launch_bwd_dp<false>(DP, q, k, v, lse, dot, dout, dk, dv, part, G,
+                                                 N, M, D, scale, seed, thr, kscale, st);
+  if (err != cudaSuccess) return err;
+  const size_t E = static_cast<size_t>(G) * N * D;
+  attention_train_bwd_dq_kernel<<<static_cast<unsigned>((E + 255) / 256), 256, 0, st>>>(
+      part, dq, G, KT, N, D, DP, scale);
   return cudaGetLastError();
 }

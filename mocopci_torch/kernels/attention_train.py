@@ -6,6 +6,12 @@ kernel's counter hash (``_keep_mask`` :46-64), a pure function of (seed,
 group, row, column), rebuilt bit for bit by the forward kernel, the backward
 kernel and the twin; the twin computes it in int64 masked to 32 bits, as
 PyTorch has little uint32 arithmetic.  Operations bound it.
+
+The backward has two routes, each its own counted entry point: head dims
+D <= ``MAX_BWD_D`` take ``attention_train_bwd`` (one pass over the pairs, each
+pair computed once; a dot prologue and a dq epilogue), wider heads (the
+``CrossFrameBlock``'s D = 256) take ``attention_train_bwd_wide`` (a dk/dv
+kernel and a dq kernel, each rebuilding the pairs).
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ REPLACES_BWD = "mocopci_tpu/ops/pallas/attention_train.py:206"  # backward palla
 
 MAX_SEQ = 4096
 MAX_D = 2048
+MAX_BWD_D = 64      # the one-pass backward's widest head (csrc kMaxBwdD)
+BWD_KEYS = 64       # its keys per block (csrc kBwdKeys): dq partials per key tile
 _M32 = 0xFFFFFFFF
 
 
@@ -108,18 +116,31 @@ def attention_train_fwd(q, k, v, seed, scale, rate):
     return out, lse
 
 
+def _padded_dim(D: int) -> int:
+    """The one-pass backward's head dim: D padded with zeros to 8, 16, 32 or 64."""
+    return next(p for p in (8, 16, 32, 64) if D <= p)
+
+
 def attention_train_bwd(q, k, v, out, lse, dout, seed, scale, rate):
-    """Kernel backward: (dq, dk, dv) on the card."""
+    """Kernel backward: (dq, dk, dv) on the card, by the one-pass route for
+    D <= MAX_BWD_D and the wide route above."""
     _check(q, k, v)
     _check_seed(seed, q)
     _lib.check_cuda("attention_train dout", dout, torch.float32, 3)
     G, N, D = q.shape
+    M = k.shape[1]
     thr, kscale = dropout_constants(rate)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _lib.launch("attention_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), G, N, k.shape[1], D, float(scale), seed.data_ptr(), thr,
-                kscale, _lib.stream(q))
+    ptrs = [t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv)]
+    if D > MAX_BWD_D:
+        _lib.launch("attention_train_bwd_wide", *ptrs, G, N, M, D, float(scale),
+                    seed.data_ptr(), thr, kscale, _lib.stream(q))
+    else:
+        # the dq partials (G, key tiles, N, padded D), then dot (G, N)
+        work = torch.empty(G * -(-M // BWD_KEYS) * N * _padded_dim(D) + G * N,
+                           dtype=torch.float32, device=q.device)
+        _lib.launch("attention_train_bwd", *ptrs, work.data_ptr(), G, N, M, D, float(scale),
+                    seed.data_ptr(), thr, kscale, _lib.stream(q))
     return dq, dk, dv
 
 

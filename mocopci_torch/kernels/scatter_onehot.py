@@ -20,7 +20,6 @@ SOURCE = "mocopci_torch/csrc/scatter_onehot.cu"
 REPLACES = "mocopci_tpu/ops/pallas/scatter.py:63"
 
 TO = TS = 512   # the TPU kernel's output and source tiles
-CHUNK = 1024    # sources per block of the kernel (partial planes above it)
 
 
 def _check_tiles(S: int, out_size: int) -> None:
@@ -37,7 +36,8 @@ def onehot_scatter_rows_plain(v: torch.Tensor, idx: torch.Tensor, out_size: int)
 
 
 def onehot_scatter_rows(v: torch.Tensor, idx: torch.Tensor, out_size: int) -> torch.Tensor:
-    """The kernel on CUDA, the twin on the CPU."""
+    """The kernel on CUDA (one launch, the output its only allocation), the
+    twin on the CPU."""
     if _lib.dispatch_device(v, idx) == "cpu":
         return onehot_scatter_rows_plain(v, idx, out_size)
     _lib.check_cuda("onehot_scatter v", v, torch.float32, 3)
@@ -47,9 +47,6 @@ def onehot_scatter_rows(v: torch.Tensor, idx: torch.Tensor, out_size: int) -> to
         raise ValueError(f"onehot_scatter_rows: v {tuple(v.shape)}, idx {tuple(idx.shape)}")
     _check_tiles(S, out_size)
     out = torch.empty((G, 3, out_size), dtype=torch.float32, device=v.device)
-    chunks = -(-S // CHUNK)
-    work = torch.empty((chunks * G * 3 * out_size if chunks > 1 else 1,), dtype=torch.float32,
-                       device=v.device)
-    _lib.launch("onehot_scatter", v.data_ptr(), idx.data_ptr(), out.data_ptr(), work.data_ptr(),
-                G, S, out_size, _lib.stream(v))
+    _lib.launch("onehot_scatter", v.data_ptr(), idx.data_ptr(), out.data_ptr(), G, S, out_size,
+                _lib.stream(v))
     return out

@@ -228,21 +228,42 @@ def test_scatter_add_kernel_matches_twin_and_repeats(card, planes):
     assert _bits_equal(got, kernels.scatter_add(v, idx, N, planes=planes))
 
 
-def test_attention_train_kernel_matches_twin(card):
-    from mocopci_torch.kernels.attention_train import attention_train_bwd_plain
+@pytest.mark.parametrize("rate", [0.05, 0.0])
+@pytest.mark.parametrize("G,N,M,D", [
+    (300, 20, 40, 8),      # G >= 256: the hash's group mixing
+    (4, 100, 300, 16),
+    (2, 2048, 2048, 8),    # Multi_Frame_Att's L1 sequence
+    (3, 333, 517, 16),     # N, M not multiples of the query chunk or key tile
+    (3, 333, 517, 32),
+    (2, 129, 70, 6),       # D % 4 != 0, padded to 8
+    (2, 100, 130, 64),
+    (2, 33, 64, 256),      # the wide route
+])
+def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
+    """Output and gradients against the plain version, the backward's bits
+    repeated, and the backward's route (one pass up to D = 64, wide above)
+    counted."""
+    from mocopci_torch.kernels.attention_train import (MAX_BWD_D, attention_train_bwd,
+                                                       attention_train_bwd_plain,
+                                                       attention_train_fwd)
 
     g = torch.Generator().manual_seed(11)
-    for G, N, M, D in ((300, 20, 40, 8), (4, 100, 300, 16), (2, 33, 64, 256)):
-        q, k, v, do = (_x(g, G, L, D).to(card) for L in (N, M, M, N))
-        seed = torch.tensor([-987654], dtype=torch.int32, device=card)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = kernels.attention_train(*leaves, seed, D ** -0.5, 0.05)
-        out.backward(do)
-        want = kernels.attention_train_plain(q, k, v, -987654, D ** -0.5, 0.05)
-        torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=1e-4)
-        for leaf, w in zip(leaves, attention_train_bwd_plain(q, k, v, -987654, D ** -0.5,
-                                                             0.05, do)):
-            torch.testing.assert_close(leaf.grad, w, atol=1e-4, rtol=1e-4)
+    q, k, v, do = (_x(g, G, L, D).to(card) for L in (N, M, M, N))
+    seed = torch.tensor([-987654], dtype=torch.int32, device=card)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launches()
+    out = kernels.attention_train(*leaves, seed, D ** -0.5, rate)
+    out.backward(do)
+    route = "attention_train_bwd" if D <= MAX_BWD_D else "attention_train_bwd_wide"
+    assert kernels.LAUNCHES[route] == 1, kernels.LAUNCHES
+    want = kernels.attention_train_plain(q, k, v, -987654, D ** -0.5, rate)
+    torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=1e-4)
+    for leaf, w in zip(leaves, attention_train_bwd_plain(q, k, v, -987654, D ** -0.5, rate, do)):
+        torch.testing.assert_close(leaf.grad, w, atol=1e-4, rtol=1e-4)
+    o, lse = attention_train_fwd(q, k, v, seed, D ** -0.5, rate)
+    again = attention_train_bwd(q, k, v, o, lse, do, seed, D ** -0.5, rate)
+    for leaf, a in zip(leaves, again):
+        assert _bits_equal(leaf.grad, a)
 
 
 def test_cross_tail_bwd_kernel_matches_twin_with_ties(card):
@@ -383,8 +404,8 @@ def test_forward_only_kernels_refuse_grad(card):
 # the kernels one train step launches (exact kNN mode)
 TRAIN_KERNELS = {"fps", "knn", "cross_tail", "cross_tail_bwd", "transformer_tail",
                  "transformer_tail_bwd", "attention_train_fwd", "attention_train_bwd",
-                 "fusion_pair_planes", "fusion_head_train_fwd", "fusion_head_train_bwd",
-                 "chamfer_pair", "scatter_add"}
+                 "attention_train_bwd_wide", "fusion_pair_planes", "fusion_head_train_fwd",
+                 "fusion_head_train_bwd", "chamfer_pair", "scatter_add"}
 
 
 def test_tiny_train_step_on_card_matches_cpu(card):
@@ -453,15 +474,24 @@ def test_select_min_k_kernel_equals_twin(card, R, L, k, with_idx):
     assert torch.equal(kernels.select_min_k(vals, i, k), kernels.select_min_k_plain(vals, i, k))
 
 
-@pytest.mark.parametrize("G,S,N", [(3, 8192, 64), (3, 64, 8192), (2, 1024, 512), (2, 2560, 96)])
-def test_onehot_scatter_kernel_matches_twin_and_repeats(card, G, S, N):
+@pytest.mark.parametrize("G,S,N,dropped", [
+    (3, 8192, 64, False), (3, 64, 8192, False), (2, 1024, 512, False), (2, 2560, 96, False),
+    (2, 16384, 64, False),   # 8 blocks of 2048 sources in a cluster
+    (2, 4096, 512, True),    # every target out of range: all zero
+])
+def test_onehot_scatter_kernel_matches_twin_and_repeats(card, G, S, N, dropped):
     g = torch.Generator().manual_seed(21)
     v = _x(g, G, S, 3).to(card)
-    idx = torch.randint(-5, N + 5, (G, S), generator=g, dtype=torch.int32).to(card)
+    idx = torch.randint(-5, N + 5, (G, S), generator=g, dtype=torch.int32)
+    if dropped:
+        idx = torch.where(idx % 2 == 0, -1 - idx.abs(), N + idx.abs())
+    idx = idx.to(card)
     got = kernels.onehot_scatter_rows(v, idx, N)
     torch.testing.assert_close(got, kernels.onehot_scatter_rows_plain(v, idx, N),
                                atol=1e-5, rtol=1e-5)
     assert _bits_equal(got, kernels.onehot_scatter_rows(v, idx, N))
+    if dropped:
+        assert not got.any()
 
 
 def test_build_pair_planes_kernels_match_twin(card):
