@@ -28,7 +28,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma_tf32.cuh"
 
 namespace {
 
@@ -314,45 +313,45 @@ inline int tile_rows(int D) { return max(1, min(128, kThreads * kOwn / 2 / D)); 
 // ---- backward for head dims D <= 64: one pass over the pairs ----
 //
 // prologue  dot[g, i] = do_i . out_i, once per query row.
-// main      one block per (group, tile of 64 keys), 4 warps of 16 keys each,
-//           looping over chunks of 64 queries (q, do, lse, dot),
-//           double-buffered in shared memory by cp.async.  D is padded to DP
-//           (8, 16, 32 or 64) with zeros.  The five products run on the
-//           tensor cores, mma.sync m16n8k8 at float32 grade (3xTF32,
-//           csrc/mma_tf32.cuh); for each 8 queries a warp forms its
-//           (16 keys x 8 queries) tiles of
-//             S^T = K Q^T and dP^T = V dO^T          (k over the head dims),
-//           then per pair, on the CUDA cores and once each, P = exp(scale S -
-//           lse), the keep factor, P*keep and dS = P*(keep*dP - dot), and
-//             dV += (P keep)^T dO and dK += dS^T Q    (k over the 8 queries).
-//           The accumulator fragments of S^T, dP^T serve as the A operands of
-//           the last two as they are: the k index t <-> query 2t, t + 4 <->
-//           2t + 1, and the B operands (dO, Q) are read in that order.  dS^T
-//           also goes to a (query x key) tile in shared memory; after the
-//           chunk, warp w multiplies its 16 queries of that tile by the
-//           block's keys, dq_part[g, key tile, i, :] = dS K (k over the keys
-//           in ascending order).  The K and V fragments are split once per
-//           block (up to DP = 32).  Without dropout the keep factor is left
-//           out (it is exactly 1 there), so no hash runs.
+// main      one block per (group, tile of TK = 64 keys), 256 threads, looping
+//           over chunks of 128 queries (q, do, lse, dot), double-buffered in
+//           shared memory by cp.async.  D is padded to DP (8, 16, 32 or 64)
+//           with zeros.  Thread (s, j, l) holds head dims [l*DT, (l+1)*DT) of
+//           key j in registers (k, v and its dk, dv sums; LPK lanes a key) and
+//           takes query split s of each chunk.  For each of its queries it
+//           computes the pair's logit, do.v, exp and keep factor once (the
+//           LPK lanes add their partial dots by shuffles), reading q and do as
+//           float4 broadcasts, adds P*keep*do into dv and dS*q into dk, and
+//           writes dS = P*(keep*(do.v) - dot) into the chunk's (query x key)
+//           tile in shared memory.  The block then multiplies that tile by
+//           its keys (a thread owns QM queries x 4 dims, keys in ascending
+//           order) into dq_part[g, key tile, i, :].  At the end the query
+//           splits' dk, dv are added in split order.  Without dropout the keep
+//           factor is left out (it is exactly 1 there), so no hash runs.
 // epilogue  dq = scale * the sum of dq_part over the key tiles, in tile order.
-// Each pair's logit, dP, exp and keep factor are computed once, against
-// twice (with twice the FMAs) in the wide route.
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdKeys = 16 * kBwdWarps;   // keys per block
-constexpr int kBwdQ = 16 * kBwdWarps;      // queries per chunk: 16 a warp in the dq product
+// Every pair costs about 5*D FMAs and one exp2 (P = 2^(log2(e) (scale l -
+// lse))), against 10*D FMAs, two exps and two hashes in the wide route, and no
+// FMA reads more than one operand from shared memory.  (The five products on
+// the tensor cores instead, mma.sync at float32 grade (3xTF32) with 16 or 32
+// keys a warp, ran 10-25% slower on an H100 at (80, 2048, 2048, 8): at D = 8
+// the per-pair exp, hash and fragment splits outweigh the FMAs they save.)
+constexpr int kBwdThreads = 256;
+constexpr int kBwdKeys = 64;      // keys per block
+constexpr int kBwdQ = 128;        // queries per chunk
 constexpr int kMaxBwdD = 64;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DP>
 struct BwdTile {
-  static constexpr int KS = DP / 8;                     // 8-wide steps of the head dims
-  static constexpr int LDQ = DP + 4;                    // q/do rows: conflict-free fragments
-  static constexpr int LDK = DP + (40 - DP % 32) % 32;  // k rows (= 8 mod 32)
-  static constexpr int LDS = kBwdKeys + 4;              // dS rows
-  static constexpr bool kSplitOnce = DP <= 32;          // K, V fragments split once a block
-  // [2][kBwdQ][LDQ] q, the same for do, [2][kBwdQ] lse, dot, [kBwdQ][LDS] dS, [kBwdKeys][LDK] k
-  static constexpr int smem_floats =
-      4 * kBwdQ * LDQ + 4 * kBwdQ + kBwdQ * LDS + kBwdKeys * LDK;
+  static constexpr int LPK = DP <= 16 ? 1 : DP / 16;   // lanes per key
+  static constexpr int DT = DP / LPK;                   // head dims per lane
+  static constexpr int TK = kBwdKeys;
+  static constexpr int QS = kBwdThreads / (TK * LPK);   // query splits of a chunk
+  static constexpr int QM = DP / 8;                     // dq product: queries per thread
+  static constexpr int LDS = TK + 4;                    // row stride of the dS tile
+  // [2][128][DP] q, [2][128][DP] do, [2][128] lse, [2][128] dot, [128][LDS] dS, [TK][DP] k
+  static constexpr int smem_floats = 4 * kBwdQ * DP + 4 * kBwdQ + kBwdQ * LDS + TK * DP;
+  static_assert(QS >= 1 && (kBwdQ / QM) * (DP / 4) == kBwdThreads, "tile shape");
 };
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -374,10 +373,9 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Queues the copies of query rows [i0, i0 + kBwdQ) (cut at N): q and do into
-// [kBwdQ][LD] tiles, lse and dot; the tiles' rows past N are zeroed (the
-// products read them).
-template <int DP, int LD>
+// Queues the copies of query rows [i0, i0 + 128) (cut at N): q and do into
+// [128][DP] tiles (the padded dims are not written), lse and dot.
+template <int DP>
 __device__ __forceinline__ void stage_chunk(const float* __restrict__ qg,
                                             const float* __restrict__ dog,
                                             const float* __restrict__ lg,
@@ -389,25 +387,20 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ qg,
     for (int e = threadIdx.x; e < rows * D4; e += kBwdThreads) {
       const int r = e / D4, c = (e - r * D4) << 2;
       const size_t src = static_cast<size_t>(i0 + r) * D + c;
-      cp_async16(qs + r * LD + c, qg + src);
-      cp_async16(dos + r * LD + c, dog + src);
+      cp_async16(qs + r * DP + c, qg + src);
+      cp_async16(dos + r * DP + c, dog + src);
     }
   } else {
     for (int e = threadIdx.x; e < rows * D; e += kBwdThreads) {
       const int r = e / D, c = e - r * D;
       const size_t src = static_cast<size_t>(i0 + r) * D + c;
-      cp_async4(qs + r * LD + c, qg + src);
-      cp_async4(dos + r * LD + c, dog + src);
+      cp_async4(qs + r * DP + c, qg + src);
+      cp_async4(dos + r * DP + c, dog + src);
     }
   }
   for (int e = threadIdx.x; e < rows; e += kBwdThreads) {
     cp_async4(ls + e, lg + i0 + e);
     cp_async4(ts + e, tg + i0 + e);
-  }
-  for (int e = rows * DP + threadIdx.x; e < kBwdQ * DP; e += kBwdThreads) {
-    const int r = e / DP, c = e - r * DP;
-    qs[r * LD + c] = 0.f;
-    dos[r * LD + c] = 0.f;
   }
 }
 
@@ -431,23 +424,21 @@ __global__ void __launch_bounds__(kBwdThreads) attention_train_bwd_kernel(
     float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq_part, int N, int M,
     int D, float scale, const int* __restrict__ seed, int thr, float kscale) {
   using T = BwdTile<DP>;
-  using mocopci::FragA;
-  using mocopci::FragB;
-  using mocopci::mma_3xtf32;
-  constexpr int KS = T::KS, LDQ = T::LDQ, LDK = T::LDK, LDS = T::LDS;
+  constexpr int TK = T::TK, LPK = T::LPK, DT = T::DT, QS = T::QS, QM = T::QM, LDS = T::LDS;
+  constexpr int QPS = kBwdQ / QS;                 // queries of a chunk per split
   extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                                 // [2][kBwdQ][LDQ]
-  float* dos = qs + 2 * kBwdQ * LDQ;              // [2][kBwdQ][LDQ]
-  float* ls = dos + 2 * kBwdQ * LDQ;              // [2][kBwdQ]
+  float* qs = sm;                                 // [2][kBwdQ][DP]
+  float* dos = qs + 2 * kBwdQ * DP;               // [2][kBwdQ][DP]
+  float* ls = dos + 2 * kBwdQ * DP;               // [2][kBwdQ]
   float* ts = ls + 2 * kBwdQ;                     // [2][kBwdQ]
-  float* dsm = ts + 2 * kBwdQ;                    // [kBwdQ][LDS]  dS of the chunk
-  float* ks = dsm + kBwdQ * LDS;                  // [kBwdKeys][LDK]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  float* dst = ts + 2 * kBwdQ;                    // [kBwdQ][LDS]
+  float* ks = dst + kBwdQ * LDS;                  // [TK][DP]
+  const int tid = threadIdx.x;
+  const int l = tid % LPK, j = (tid / LPK) % TK, s = tid / (LPK * TK);
   const int g = blockIdx.y, kt = blockIdx.x;
-  const int kw = warp * 16;                       // the warp's first key in the tile
-  const int ja = kt * kBwdKeys + kw + gid;        // this lane's two keys: ja, ja + 8
-  const bool oka = ja < M, okb = ja + 8 < M;
+  const int jg = kt * TK + j;
+  const bool key_ok = jg < M;
+  const float c2 = scale * kLog2e;                // P = 2^(c2 l - log2(e) lse)
   uint32_t gseed = 0u;
   if (DROP) gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
   const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
@@ -456,164 +447,143 @@ __global__ void __launch_bounds__(kBwdThreads) attention_train_bwd_kernel(
   const float* lg = lse + static_cast<size_t>(g) * N;
   const float* tg = dot + static_cast<size_t>(g) * N;
   const int nchunks = (N + kBwdQ - 1) / kBwdQ;
-  stage_chunk<DP, LDQ>(qg, dog, lg, tg, 0, N, D, qs, dos, ls, ts);
+  stage_chunk<DP>(qg, dog, lg, tg, 0, N, D, qs, dos, ls, ts);
   cp_async_commit();
+
+  float kr[DT], vr[DT], ak[DT], av[DT];
+#pragma unroll
+  for (int e = 0; e < DT; ++e) {
+    const int d = l * DT + e;
+    const bool ok = key_ok && d < D;
+    kr[e] = ok ? k[gk + static_cast<size_t>(jg) * D + d] : 0.f;
+    vr[e] = ok ? v[gk + static_cast<size_t>(jg) * D + d] : 0.f;
+    ak[e] = av[e] = 0.f;
+    if (s == 0) ks[j * DP + d] = kr[e];
+  }
   if (D < DP) {       // the padded dims of both buffers stay zero (cp.async skips them)
     for (int e = tid; e < 2 * kBwdQ * (DP - D); e += kBwdThreads) {
       const int r = e / (DP - D), c = D + (e - r * (DP - D));
-      qs[r * LDQ + c] = 0.f;
-      dos[r * LDQ + c] = 0.f;
+      qs[r * DP + c] = 0.f;
+      dos[r * DP + c] = 0.f;
     }
   }
 
-  // the key tile in shared memory (zero past M and D), then this warp's
-  // A fragments of K and V: a0 (gid, t), a1 (gid + 8, t), a2 (gid, t + 4), a3 (gid + 8, t + 4)
-  for (int e = tid; e < kBwdKeys * DP; e += kBwdThreads) {
-    const int r = e / DP, c = e - r * DP, jg = kt * kBwdKeys + r;
-    ks[r * LDK + c] = jg < M && c < D ? k[gk + static_cast<size_t>(jg) * D + c] : 0.f;
-  }
-  auto key_val = [&](const float* src, int jg, int c) {
-    return jg < M && c < D ? src[gk + static_cast<size_t>(jg) * D + c] : 0.f;
-  };
-  float kraw[KS][4], vraw[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    const int c = 8 * s + tig;
-    kraw[s][0] = key_val(k, ja, c), kraw[s][1] = key_val(k, ja + 8, c);
-    kraw[s][2] = key_val(k, ja, c + 4), kraw[s][3] = key_val(k, ja + 8, c + 4);
-    vraw[s][0] = key_val(v, ja, c), vraw[s][1] = key_val(v, ja + 8, c);
-    vraw[s][2] = key_val(v, ja, c + 4), vraw[s][3] = key_val(v, ja + 8, c + 4);
-  }
-  FragA kf[T::kSplitOnce ? KS : 1], vf[T::kSplitOnce ? KS : 1];
-  if (T::kSplitOnce) {
-#pragma unroll
-    for (int s = 0; s < KS; ++s) kf[s].set(kraw[s]), vf[s].set(vraw[s]);
-  }
-  float adk[KS][4], adv[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[s][e] = adv[s][e] = 0.f;
-
+  const int dg = tid % (DP / 4), qg4 = tid / (DP / 4);    // the dq product's tile
   for (int c = 0; c < nchunks; ++c) {
     const int b = c & 1, i0 = c * kBwdQ;
     if (c + 1 < nchunks) {
       const int nb = b ^ 1;
-      stage_chunk<DP, LDQ>(qg, dog, lg, tg, i0 + kBwdQ, N, D, qs + nb * kBwdQ * LDQ,
-                           dos + nb * kBwdQ * LDQ, ls + nb * kBwdQ, ts + nb * kBwdQ);
+      stage_chunk<DP>(qg, dog, lg, tg, i0 + kBwdQ, N, D, qs + nb * kBwdQ * DP,
+                      dos + nb * kBwdQ * DP, ls + nb * kBwdQ, ts + nb * kBwdQ);
     }
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();        // chunk c has landed; the dq product of c - 1 is done
-    const float* qb = qs + b * kBwdQ * LDQ;
-    const float* db = dos + b * kBwdQ * LDQ;
+    const float* qb = qs + b * kBwdQ * DP + l * DT;
+    const float* db = dos + b * kBwdQ * DP + l * DT;
     const float* lb = ls + b * kBwdQ;
     const float* tb = ts + b * kBwdQ;
-    const int nq = min(kBwdQ, N - i0);
-    for (int q0 = 0; q0 < nq; q0 += 8) {
-      float sacc[4] = {0.f, 0.f, 0.f, 0.f}, pacc[4] = {0.f, 0.f, 0.f, 0.f};
+    const int i_end = min((s + 1) * QPS, N - i0);
+#pragma unroll 2
+    for (int i = s * QPS; i < i_end; ++i) {
+      float qi[DT], di[DT];
 #pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        const float* qr = qb + (q0 + gid) * LDQ + 8 * s + tig;
-        const float* dr = db + (q0 + gid) * LDQ + 8 * s + tig;
-        FragB bq, bd;
-        bq.set(qr[0], qr[4]);
-        bd.set(dr[0], dr[4]);
-        if (T::kSplitOnce) {
-          mma_3xtf32(sacc, kf[s], bq);
-          mma_3xtf32(pacc, vf[s], bd);
-        } else {
-          FragA a;
-          a.set(kraw[s]);
-          mma_3xtf32(sacc, a, bq);
-          a.set(vraw[s]);
-          mma_3xtf32(pacc, a, bd);
-        }
+      for (int e = 0; e < DT; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(qb + i * DP + e);
+        const float4 o = *reinterpret_cast<const float4*>(db + i * DP + e);
+        qi[e] = a.x, qi[e + 1] = a.y, qi[e + 2] = a.z, qi[e + 3] = a.w;
+        di[e] = o.x, di[e + 1] = o.y, di[e + 2] = o.z, di[e + 3] = o.w;
       }
-      // element e: key ja + 8 * (e >> 1), query q0 + 2 tig + (e & 1)
-      const int qa = q0 + 2 * tig;
-      const float2 l2 = *reinterpret_cast<const float2*>(lb + qa);
-      const float2 t2 = *reinterpret_cast<const float2*>(tb + qa);
-      const bool qva = qa < nq, qvb = qa + 1 < nq;
-      float pd[4], dsv[4];
+      float lo = 0.f, da = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = ((e & 1) ? qvb : qva) && ((e >> 1) ? okb : oka);
-        const float le = (e & 1) ? l2.y : l2.x, te = (e & 1) ? t2.y : t2.x;
-        const float P = ok ? expf(sacc[e] * scale - le) : 0.f;
-        if (DROP) {
-          const float kf_e = keep_factor(gseed, i0 + qa + (e & 1), ja + 8 * (e >> 1), thr, kscale);
-          pd[e] = P * kf_e;
-          dsv[e] = ok ? P * (pacc[e] * kf_e - te) : 0.f;
-        } else {
-          pd[e] = P;
-          dsv[e] = ok ? P * (pacc[e] - te) : 0.f;
-        }
-      }
-      dsm[qa * LDS + kw + gid] = dsv[0];
-      dsm[(qa + 1) * LDS + kw + gid] = dsv[1];
-      dsm[qa * LDS + kw + gid + 8] = dsv[2];
-      dsm[(qa + 1) * LDS + kw + gid + 8] = dsv[3];
-      // A fragments with k index t <-> query 2t, t + 4 <-> query 2t + 1
-      FragA ap, as;
-      {
-        const float pa[4] = {pd[0], pd[2], pd[1], pd[3]};
-        const float sa[4] = {dsv[0], dsv[2], dsv[1], dsv[3]};
-        ap.set(pa);
-        as.set(sa);
+      for (int e = 0; e < DT; ++e) {
+        lo = fmaf(qi[e], kr[e], lo);
+        da = fmaf(di[e], vr[e], da);
       }
 #pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        const float* dr = db + qa * LDQ + 8 * s + gid;
-        const float* qr = qb + qa * LDQ + 8 * s + gid;
-        FragB bo, bq;
-        bo.set(dr[0], dr[LDQ]);
-        bq.set(qr[0], qr[LDQ]);
-        mma_3xtf32(adv[s], ap, bo);
-        mma_3xtf32(adk[s], as, bq);
+      for (int off = LPK / 2; off > 0; off >>= 1) {
+        lo += __shfl_xor_sync(0xffffffffu, lo, off);
+        da += __shfl_xor_sync(0xffffffffu, da, off);
+      }
+      const float P = key_ok ? exp2f(fmaf(lo, c2, -lb[i] * kLog2e)) : 0.f;
+      float pd = P, dsv;
+      if (DROP) {
+        const float kf = keep_factor(gseed, i0 + i, jg, thr, kscale);
+        pd = P * kf;
+        dsv = P * (da * kf - tb[i]);
+      } else {
+        dsv = P * (da - tb[i]);
+      }
+      if (l == 0) dst[i * LDS + j] = dsv;
+#pragma unroll
+      for (int e = 0; e < DT; ++e) {
+        av[e] = fmaf(pd, di[e], av[e]);
+        ak[e] = fmaf(dsv, qi[e], ak[e]);
       }
     }
     __syncthreads();        // the chunk's dS tile is complete
-    // dq_part rows [16 warp, 16 warp + 16) of the chunk: dS (16 x 64 keys) K (64 x DP)
-    float adq[KS][4];
+    float acc[QM][4];
 #pragma unroll
-    for (int s = 0; s < KS; ++s) adq[s][0] = adq[s][1] = adq[s][2] = adq[s][3] = 0.f;
-    const int m0 = 16 * warp;
-#pragma unroll 2
-    for (int kk = 0; kk < kBwdKeys; kk += 8) {
-      const float* d0 = dsm + (m0 + gid) * LDS + kk + tig;
-      const float a4[4] = {d0[0], d0[8 * LDS], d0[4], d0[8 * LDS + 4]};
-      FragA a;
-      a.set(a4);
+    for (int m = 0; m < QM; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+#pragma unroll 4
+    for (int jj = 0; jj < TK; jj += 4) {
+      float4 kk[4];
 #pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        const float* kr = ks + (kk + tig) * LDK + 8 * s + gid;
-        FragB bk;
-        bk.set(kr[0], kr[4 * LDK]);
-        mma_3xtf32(adq[s], a, bk);
+      for (int u = 0; u < 4; ++u)
+        kk[u] = *reinterpret_cast<const float4*>(ks + (jj + u) * DP + 4 * dg);
+#pragma unroll
+      for (int m = 0; m < QM; ++m) {
+        const float4 w = *reinterpret_cast<const float4*>(dst + (qg4 * QM + m) * LDS + jj);
+        const float ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[m][0] = fmaf(ws[u], kk[u].x, acc[m][0]);
+          acc[m][1] = fmaf(ws[u], kk[u].y, acc[m][1]);
+          acc[m][2] = fmaf(ws[u], kk[u].z, acc[m][2]);
+          acc[m][3] = fmaf(ws[u], kk[u].w, acc[m][3]);
+        }
       }
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + m0 + gid + 8 * h;
+    for (int m = 0; m < QM; ++m) {
+      const int i = i0 + qg4 * QM + m;
       if (i < N) {
-        float* dst_q = dq_part + ((static_cast<size_t>(g) * gridDim.x + kt) * N + i) * DP + 2 * tig;
-#pragma unroll
-        for (int s = 0; s < KS; ++s)
-          *reinterpret_cast<float2*>(dst_q + 8 * s) = make_float2(adq[s][2 * h], adq[s][2 * h + 1]);
+        float* dst_q = dq_part + ((static_cast<size_t>(g) * gridDim.x + kt) * N + i) * DP + 4 * dg;
+        *reinterpret_cast<float4*>(dst_q) = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
       }
     }
   }
 
-  // dK, dV: c0 (key ja, dim 2 tig), c1 (ja, 2 tig + 1), c2 (ja + 8, 2 tig), c3 (ja + 8, 2 tig + 1)
+  if (QS > 1) {             // add the query splits' sums in split order
+    constexpr int KL = TK * LPK;
+    float* red = sm;        // [QS - 1][2 * DT][KL], over the query buffers
+    const int kl = tid % KL;
+    __syncthreads();
+    if (s > 0) {
 #pragma unroll
-  for (int s = 0; s < KS; ++s) {
+      for (int e = 0; e < DT; ++e) {
+        red[((s - 1) * 2 * DT + e) * KL + kl] = ak[e];
+        red[((s - 1) * 2 * DT + DT + e) * KL + kl] = av[e];
+      }
+    }
+    __syncthreads();
+    if (s == 0) {
+      for (int r = 0; r < QS - 1; ++r) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int jg = ja + 8 * (e >> 1), d = 8 * s + 2 * tig + (e & 1);
-      if (jg < M && d < D) {
-        dk[gk + static_cast<size_t>(jg) * D + d] = adk[s][e] * scale;
-        dv[gk + static_cast<size_t>(jg) * D + d] = adv[s][e];
+        for (int e = 0; e < DT; ++e) {
+          ak[e] += red[(r * 2 * DT + e) * KL + kl];
+          av[e] += red[(r * 2 * DT + DT + e) * KL + kl];
+        }
+      }
+    }
+  }
+  if (s == 0 && key_ok) {
+#pragma unroll
+    for (int e = 0; e < DT; ++e) {
+      const int d = l * DT + e;
+      if (d < D) {
+        dk[gk + static_cast<size_t>(jg) * D + d] = ak[e] * scale;
+        dv[gk + static_cast<size_t>(jg) * D + d] = av[e];
       }
     }
   }
@@ -643,7 +613,7 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const flo
   cudaError_t err = mocopci::allow_smem(attention_train_bwd_kernel<DP, DROP>, smem);
   if (err != cudaSuccess) return err;
   attention_train_bwd_kernel<DP, DROP>
-      <<<dim3(mocopci::ceil_div(M, kBwdKeys), G), kBwdThreads, smem, st>>>(
+      <<<dim3(mocopci::ceil_div(M, BwdTile<DP>::TK), G), kBwdThreads, smem, st>>>(
           q, k, v, lse, dot, dout, dk, dv, part, N, M, D, scale, seed, thr, kscale);
   return cudaGetLastError();
 }
