@@ -312,18 +312,31 @@ def bits_equal(a, b) -> bool:
 
 
 def time_chamfer_vjp(kernels, pc1, pc2, what):
-    """The Chamfer VJP's time (CUDA events, through autograd) beside its bound:
+    """The Chamfer VJP's time (CUDA events, through autograd) beside its plain
+    version's (the same VJP with the scatters' plain versions) and its bound:
     the two differences, the two cotangents and the two indices read, the
     two gradients written."""
+    chamfer_mod = importlib.import_module("mocopci_torch.kernels.chamfer_pair")
     leaves = [pc1.clone().requires_grad_(), pc2.clone().requires_grad_()]
     d12, d21 = kernels.chamfer_pair(*leaves)
     loss = d12.sum() + d21.sum()
-    ms = median_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
+
+    def vjp():
+        return torch.autograd.grad(loss, leaves, retain_graph=True)
+
+    ms = median_ms(vjp)
+    scatters = chamfer_mod.scatter_add, chamfer_mod.onehot_scatter_rows
+    chamfer_mod.scatter_add = kernels.scatter_add_plain
+    chamfer_mod.onehot_scatter_rows = kernels.onehot_scatter_rows_plain
+    try:
+        plain_ms = median_ms(vjp, 5)
+    finally:
+        chamfer_mod.scatter_add, chamfer_mod.onehot_scatter_rows = scatters
     G, N, M = pc1.shape[0], pc1.shape[1], pc2.shape[1]
     b_ms, b_by = bound(G * (N + M) * (3 + 1 + 3) * F32 + G * (N + M) * I32, 6.0 * G * (N + M))
     log(f"chamfer_pair bwd {what} {tuple(pc1.shape)} x {tuple(pc2.shape)}: ms {ms:.4f} "
-        f"bound_ms {b_ms:.5f} ({b_by})")
-    return {"ms": ms, "bound_ms": b_ms}
+        f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms}
 
 
 def check_train_kernels(kernels, cfg, dev, rows):

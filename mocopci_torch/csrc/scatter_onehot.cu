@@ -11,8 +11,8 @@
 // written once); the one-hot work is O(S * out) compares, as on the TPU, which
 // is small at the sizes that reach it (one cloud under 256 points).  Design:
 // one launch, no scratch in device memory.  A thread-block cluster of up to 8
-// blocks per (group, output tile of up to 512 columns) splits the sources
-// into chunks of at least 1024, one chunk a block.  The block stages 512
+// blocks per (group, output tile of 32 to 512 columns, narrower for more
+// sources) splits the sources into chunks of at least 1024, one a block.  The block stages 512
 // sources (targets and rows) at a time in shared memory.  A column has 512 /
 // C threads when the tile is C columns wide (C rounded up to 32): slice i of
 // the threads walks the i-th part of each staged step in ascending order,
@@ -104,10 +104,13 @@ __global__ void __launch_bounds__(kThreads) onehot_scatter_kernel(
 // v (G, S, 3) f32 rows, idx (G, S) int32 -> out (G, 3, n_out) f32; one launch.
 MOCOPCI_API int mocopci_onehot_scatter(const float* v, const int* idx, float* out, int G, int S,
                                        int n_out, void* stream) {
-  const int cols = min(kThreads, mocopci::ceil_div(n_out, 32) * 32);
   const int chunks = min(kCluster, mocopci::ceil_div(S, kChunk));
   // whole staging steps a block: chunks of 1024 up to 8192 sources
   const int per_block = mocopci::ceil_div(S, chunks * kSrc) * kSrc;
+  // tiles narrow enough (down to 32 columns) that a thread walks about 32 of
+  // its block's sources
+  const int walk = max(32, mocopci::ceil_div(kThreads * 32, min(S, per_block)) / 32 * 32);
+  const int cols = min(min(kThreads, walk), mocopci::ceil_div(n_out, 32) * 32);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(mocopci::ceil_div(n_out, cols), G, chunks);
   config.blockDim = dim3(kThreads);
