@@ -21,7 +21,8 @@ Phases, each fatal on failure:
      ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
   6. the train path: ``create_train_state`` at ``ModelConfig()`` (seed 0) and
      6 ``train_step``s at B=2 on synthetic pairs (finite losses, launches,
-     median step time of the last 5, peak memory, one profiled step); one
+     median step time of the last 5, peak memory, one profiled step with
+     each train attention backward's shape, route and device ms); one
      step at ``tiny_model_config(4096)`` on the card against the CPU (loss
      components within rel 1e-4, the whole gradient within rel L2 1e-3, each
      leaf within 5e-2: see ``run_train_parity``);
@@ -36,8 +37,12 @@ Phases, each fatal on failure:
 The train kernels (scatter-add, train attention forward and backward, the two
 tails' backwards, the train fusion head forward and backward, the fusion
 planes) are checked in phase 3 at the train step's shapes, each run twice to
-show it repeats its bits; the op kernels (select_min_k, the one-hot scatter,
-the pair planes' rows forward and backward) at the shapes of phase 7.
+show it repeats its bits; the attention backward on both its routes (one
+pass up to head dim 64, with and without dropout; the wide route at the
+CrossFrameBlock's 256).  The op kernels (select_min_k, the one-hot scatter,
+the pair planes' rows forward and backward) at the shapes of phase 7; the
+one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
+by CUDA events and by device time under torch.profiler.
 Every path runs with the launch counts set to 0 just before it and read just
 after; every kernel must launch on at least one path.
 Exits non-zero, printing no result, without a card or without the package.
@@ -992,11 +997,6 @@ def run_train(kernels, cfg, dev):
                       "loss": [a["loss"] for a in auxes], **busy}
 
 
-ATTENTION_BWD_SYMBOLS = ("attention_train_bwd_dot_kernel", "attention_train_bwd_kernel",
-                         "attention_train_bwd_dq_kernel", "attention_train_dkv_kernel",
-                         "attention_train_dq_kernel")
-
-
 def profile_attention_calls(step):
     """One profiled train step (``profile``), with each train attention
     backward logged: (G, N, M, D, rate), its route and the device ms of its
@@ -1012,9 +1012,10 @@ def profile_attention_calls(step):
         return bwd(q, k, v, out, lse, dout, seed, scale, rate)
 
     def per_call(prof):
+        symbols = [k for k, v in KERNEL_SYMBOLS.items() if v.startswith("attention_train_bwd")]
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                        if e.device_type == DeviceType.CUDA
-                       and any(sym in e.name for sym in ATTENTION_BWD_SYMBOLS))
+                       and any(sym in e.name for sym in symbols))
         total = 0.0
         for shape in calls:
             n = 3 if shape[3] <= attention_train.MAX_BWD_D else 2
