@@ -96,9 +96,10 @@ def median_ms(fn, reps=REPS) -> float:
     return float(np.median(times))
 
 
-def device_us(fn, reps=REPS) -> float:
+def device_us(fn, reps=REPS):
     """Mean device time of one call of ``fn`` in µs, every kernel it launches
-    summed, over ``reps`` calls under torch.profiler."""
+    summed, over ``reps`` calls under torch.profiler; "not measured" when the
+    profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -109,8 +110,9 @@ def device_us(fn, reps=REPS) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / reps
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA) / reps
+    return f"{us:.3f}" if us > 0 else "not measured"
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
@@ -663,8 +665,7 @@ def check_op_kernels(kernels, cfg, dev, rows):
 
         log(f"onehot_scatter ({G}, {S}, 3) -> {n_out}: CUDA-event ms kernel "
             f"{median_ms(launch):.4f} index_add_ {median_ms(library):.4f}; device us "
-            f"(torch.profiler) kernel {device_us(launch):.3f} index_add_ "
-            f"{device_us(library):.3f}")
+            f"(torch.profiler) kernel {device_us(launch)} index_add_ {device_us(library)}")
         if S == n0:
             rows_v, ix_big, fl_big, vl_big = v, ix, fl, vl
     add_row(rows, "onehot_scatter", scatter_onehot.SOURCE, scatter_onehot.REPLACES,
