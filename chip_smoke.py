@@ -2,14 +2,16 @@
 """Drive the PyTorch/CUDA port of MoCoPCI on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py --parent TREE   # and another checkout's kernels beside
 
 Phases, each fatal on failure:
   1. probe: the card's name and power limit, torch / CUDA / nvcc versions;
   2. build every kernel from ``mocopci_torch/csrc`` (one nvcc per source);
   3. each kernel against its plain PyTorch twin on the card, at the shapes of
      the main path, with median times (CUDA events) and the least time the
-     card could take (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
-     whichever is larger; H100 SXM data sheet);
+     card could take (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32,
+     or for products on the tensor cores at float32 grade over 495 / 3
+     TFLOP/s, whichever is larger; H100 SXM data sheet);
   4. the forward, once per kNN mode (approx, the default, then exact):
      ``interpolate`` at the production ``ModelConfig()`` on 3 synthetic frame
      pairs, the launch counts read, the Chamfer distance to the same model
@@ -38,8 +40,12 @@ The train kernels (scatter-add, train attention forward and backward, the two
 tails' backwards, the train fusion head forward and backward, the fusion
 planes) are checked in phase 3 at the train step's shapes, each run twice to
 show it repeats its bits; the attention backward on both its routes (one
-pass up to head dim 64, with and without dropout; the wide route at the
-CrossFrameBlock's 256).  The op kernels (select_min_k, the one-hot scatter,
+pass up to head dim 64 and the wide route at the CrossFrameBlock's 256,
+each with and without dropout, beside SDPA's float32 backward without
+dropout).  With ``--parent TREE`` (another checkout, for example the parent
+commit unpacked with ``git archive``) that tree's train fusion head forward
+and attention backward wide route are built alone and timed beside this
+tree's at the same shapes.  The op kernels (select_min_k, the one-hot scatter,
 the pair planes' rows forward and backward) at the shapes of phase 7; the
 one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
 by CUDA events and by device time under torch.profiler.
@@ -346,10 +352,78 @@ def time_chamfer_vjp(kernels, pc1, pc2, what):
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms}
 
 
-def check_train_kernels(kernels, cfg, dev, rows):
+def build_parent(tree):
+    """Start building another checkout's train fusion head forward sweeps and
+    train attention kernels (its ``fusion_head_train_fwd.cu``,
+    ``attention_train.cu`` and ``common.cu``) into a library of their own;
+    returns a function that waits for the build and gives a :class:`Parent`."""
+    from mocopci_torch.kernels import _lib
+
+    csrc = os.path.join(tree, "mocopci_torch", "csrc")
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent",
+                       "libparent.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-I", csrc, "-o", out,
+           *(os.path.join(csrc, f) for f in ("fusion_head_train_fwd.cu", "attention_train.cu",
+                                               "common.cu"))]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log_, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"the parent's kernels did not build:\n{log_}")
+        return Parent(out)
+    return finish
+
+
+class Parent:
+    """Another checkout's train fusion head forward (its four sweeps on a grid
+    of ``blocks``) and attention backward wide route, called through their C
+    entry points (the signatures of the tree before the wide route took a
+    work buffer)."""
+
+    def __init__(self, path, blocks=264):
+        import ctypes
+
+        from mocopci_torch.kernels import _lib
+
+        self.lib, self.blocks = ctypes.CDLL(path), blocks
+        self.lib.mocopci_fusion_head_train_fwd.argtypes = _lib.SIGNATURES["fusion_head_train_fwd"]
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib.mocopci_attention_train_bwd_wide.argtypes = [P] * 9 + [I] * 4 + [F, P, I, F, P]
+
+    def fusion_head_train_fwd(self, fht, x, params, F):
+        """This tree's wrapper with its launches sent to the other library."""
+        from mocopci_torch.kernels import _lib
+
+        def launch(name, *args):
+            if getattr(self.lib, f"mocopci_{name}")(*args):
+                raise RuntimeError(f"the parent's {name} failed")
+
+        saved = _lib.launch, fht.BLOCKS
+        _lib.launch, fht.BLOCKS = launch, self.blocks
+        try:
+            return fht.fusion_head_train_fwd(x, params, F)
+        finally:
+            _lib.launch, fht.BLOCKS = saved
+
+    def attention_train_bwd_wide(self, at, q, k, v, out, lse, dout, seed, scale, rate):
+        G, N, D = q.shape
+        thr, kscale = at.dropout_constants(rate)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        if self.lib.mocopci_attention_train_bwd_wide(
+                *(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv)), G, N,
+                k.shape[1], D, float(scale), seed.data_ptr(), thr, kscale,
+                torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the parent's attention_train_bwd_wide failed")
+        return dq, dk, dv
+
+
+def check_train_kernels(kernels, cfg, dev, rows, parent=None):
     """The train kernels against their plain versions at the train step's
     shapes (B=2, the 3 frames folded into the batch: G = 6), each repeated
-    once to show it returns the same bits."""
+    once to show it returns the same bits; ``parent`` (a :class:`Parent`),
+    when given, timed beside the two kernels it holds."""
     from mocopci_torch.config import TrainConfig
 
     (attention_train, cross_tail, fusion_head_train, fusion_pair, scatter_add,
@@ -376,6 +450,13 @@ def check_train_kernels(kernels, cfg, dev, rows):
         """Largest abs error of each tensor over max(1, its largest value)."""
         return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
                    for g, w in zip(got, want))
+
+    def sdpa_bwd(q, k, v, do, sc):
+        """SDPA's float32 backward without dropout (autograd of one call): the
+        library yardstick of both attention backward routes."""
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=sc)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
     # scatter_add: the fusion planes' backward, (G, 3, N*2k) -> N rows; then
     # the 8192 Chamfer VJP of the loss (5 pairs x B*F = 30 groups, C = 3)
@@ -434,8 +515,8 @@ def check_train_kernels(kernels, cfg, dev, rows):
     add_row(rows, "attention_train_bwd", attention_train.SOURCE, attention_train.REPLACES_BWD,
             lambda: attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate),
             lambda: attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do),
-            None, (8 * q.numel() + Ga * n1) * F32, Ga * n1 * n1 * (10.0 * D + 6),
-            err_of(got, want), 1e-4)
+            sdpa_bwd(q, k, vv, do, sc), (8 * q.numel() + Ga * n1) * F32,
+            Ga * n1 * n1 * (10.0 * D + 6), err_of(got, want), 1e-4)
     # the wide route at the same shape, beside it (the backward before the one pass)
     attention_train.MAX_BWD_D, max_bwd_d = 0, attention_train.MAX_BWD_D
     try:
@@ -455,17 +536,35 @@ def check_train_kernels(kernels, cfg, dev, rows):
     got = attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate)
     same = bits_equal(got, attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed,
                                                                sc, rate))
-    log(f"attention_train bwd wide {tuple(q.shape)}: repeat bit-equal {same}")
-    if not same:
-        raise SystemExit("attention_train_bwd_wide: a run did not repeat its bits")
+    out0, lse0 = attention_train.attention_train_fwd(q, k, vv, seed, sc, 0.0)
+    got0 = attention_train.attention_train_bwd(q, k, vv, out0, lse0, do, seed, sc, 0.0)
+    same0 = bits_equal(got0, attention_train.attention_train_bwd(q, k, vv, out0, lse0, do, seed,
+                                                                 sc, 0.0))
+    err0 = err_of(got0, attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, 0.0, do))
+    log(f"attention_train bwd wide {tuple(q.shape)}: repeat bit-equal {same}; at rate 0 "
+        f"max_abs_err {err0:.3e}, repeat bit-equal {same0}")
+    if not (same and same0) or err0 > 1e-4:
+        raise SystemExit("attention_train_bwd_wide: a run did not repeat its bits, or rate 0 "
+                         "disagrees")
+    # the bound: the five products (10 D flops a pair) on the tensor cores at
+    # float32 grade
     add_row(rows, "attention_train_bwd_wide", attention_train.SOURCE,
             attention_train.REPLACES_BWD,
             lambda: attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate),
             lambda: attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do),
-            None, (8 * q.numel() + Gw * n3) * F32, Gw * n3 * n3 * (10.0 * c3 + 6),
+            sdpa_bwd(q, k, vv, do, sc), (8 * q.numel() + Gw * n3) * F32,
+            Gw * n3 * n3 * 10.0 * c3,
             err_of(got, attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do)),
-            1e-4)
-    del q, k, vv, do, out, lse, got
+            1e-4, peak=PEAK_3XTF32_FLOPS)
+    if parent is not None:
+        def parent_wide():
+            return parent.attention_train_bwd_wide(attention_train, q, k, vv, out, lse, do, seed,
+                                                   sc, rate)
+        gap = err_of(parent_wide(), got)
+        log(f"attention_train bwd wide {tuple(q.shape)}: the parent's kernels "
+            f"{median_ms(parent_wide):.4f} ms against {rows[-1]['ms']:.4f} ms here (the "
+            f"results differ by {gap:.3e})")
+    del q, k, vv, do, out, lse, got, out0, lse0, got0
 
     # cross_tail backward: bid / fe at up_1, G x n1 queries, K = flow_nei;
     # the rows' gradient compared after its scatter (ties split differently)
@@ -535,7 +634,6 @@ def check_train_kernels(kernels, cfg, dev, rows):
                    rnd(c, scale=0.1)]
         cin = c
     products = 2.0 * (4 * c1 + c1 * c1 + c1 * c2)     # the chain's products per pair
-    chain = products + 8 * (2 * c1 + c2)
     o, stats, (packed, st) = fusion_head_train.fusion_head_train_fwd(planes, params, F)
     want_o, want_stats = fusion_head_train.fusion_head_train_plain(planes, params, F)
     o2, stats2, _ = fusion_head_train.fusion_head_train_fwd(planes, params, F)
@@ -545,11 +643,21 @@ def check_train_kernels(kernels, cfg, dev, rows):
         f"{err_stats:.3e}")
     if not same or err_stats > 1e-3:
         raise SystemExit("fusion_head_train_fwd: stats disagree or a run did not repeat")
+    # the bound: one chain's products on the tensor cores at float32 grade
     add_row(rows, "fusion_head_train_fwd", fusion_head_train.SOURCE, fusion_head_train.REPLACES,
             lambda: fusion_head_train.fusion_head_train_fwd(planes, params, F),
             lambda: fusion_head_train.fusion_head_train_plain(planes, params, F), None,
-            (planes.numel() + o.numel() + packed.numel()) * F32, G * P * chain,
-            float((o - want_o).abs().max()), 1e-3, reps=5)
+            (planes.numel() + o.numel() + packed.numel()) * F32, G * P * products,
+            float((o - want_o).abs().max()), 1e-3, reps=5, peak=PEAK_3XTF32_FLOPS)
+    if parent is not None:
+        def parent_fwd():
+            return parent.fusion_head_train_fwd(fusion_head_train, planes, params, F)
+        po, pstats, _ = parent_fwd()
+        gap = rel_err([po, *[t for s in pstats for t in s]], [o, *[t for s in stats for t in s]])
+        log(f"fusion_head_train fwd {tuple(planes.shape)}: the parent's sweeps "
+            f"{median_ms(parent_fwd, 5):.4f} ms against {rows[-1]['ms']:.4f} ms here (o and "
+            f"stats differ by {gap:.3e} over max(1, |value|))")
+        del po, pstats
     # the gradient follows the channel max and the ReLU kinks; where the top
     # two channels are within 1e-4 relative, or a hidden pre-activation within
     # 1e-4 of 0, kernel and twin (sums in another order) may route it
@@ -1001,7 +1109,8 @@ def run_train(kernels, cfg, dev):
 def profile_attention_calls(step):
     """One profiled train step (``profile``), with each train attention
     backward logged: (G, N, M, D, rate), its route and the device ms of its
-    kernels (3 on the one-pass route, 2 on the wide one), in call order."""
+    3 kernels (the dot pass, the route's main kernel, the dq pass), in call
+    order."""
     from torch.autograd import DeviceType
 
     attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
@@ -1019,12 +1128,12 @@ def profile_attention_calls(step):
                        and any(sym in e.name for sym in symbols))
         total = 0.0
         for shape in calls:
-            n = 3 if shape[3] <= attention_train.MAX_BWD_D else 2
-            ms = sum(end - start for start, end in spans[:n]) / 1e3
-            spans = spans[n:]
+            ms = sum(end - start for start, end in spans[:3]) / 1e3
+            spans = spans[3:]
             total += ms
             log(f"train attention bwd (G, N, M, D, rate) {shape}: "
-                f"{'one-pass' if n == 3 else 'wide'} route, device ms {ms:.4f}")
+                f"{'one-pass' if shape[3] <= attention_train.MAX_BWD_D else 'wide'} route, "
+                f"device ms {ms:.4f}")
         log(f"train attention bwd: {len(calls)} calls, device ms {total:.4f}; kernels not "
             f"matched to a call {len(spans)}")
         if not calls:
@@ -1140,15 +1249,16 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
                   "fusion_pair_kernel": "fusion_pair",
                   "scatter_add_": "scatter_add",     # every kernel of scatter_add.cu
                   "attention_train_fwd_kernel": "attention_train_fwd",
-                  "attention_train_bwd_dot_kernel": "attention_train_bwd",
+                  "attention_train_bwd_dot_kernel": "attention_train_bwd dot and dq passes "
+                                                    "(both routes)",
                   "attention_train_bwd_kernel": "attention_train_bwd",
-                  "attention_train_bwd_dq_kernel": "attention_train_bwd",
-                  "attention_train_dkv_kernel": "attention_train_bwd_wide",
-                  "attention_train_dq_kernel": "attention_train_bwd_wide",
+                  "attention_train_bwd_dq_kernel": "attention_train_bwd dot and dq passes "
+                                                   "(both routes)",
+                  "attention_train_bwd_wide_kernel": "attention_train_bwd_wide",
                   "cross_tail_bwd_kernel": "cross_tail_bwd",
                   "transformer_tail_bwd_kernel": "transformer_tail_bwd",
                   "fusion_pair_planes_kernel": "fusion_pair_planes",
-                  "fusion_head_train_kernel": "fusion_head_train_fwd",
+                  "fusion_head_fwd_kernel": "fusion_head_train_fwd",
                   "fusion_head_bwd_kernel": "fusion_head_train_bwd",
                   "reduce_partials_kernel": "block partial sums (tails, fusion_head_train)",
                   "select_min_k_kernel": "select_min_k",
@@ -1199,6 +1309,13 @@ def profile(fn, what: str, trace=None) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="TREE",
+                    help="another checkout whose train fusion head forward and attention "
+                         "backward wide route are timed beside this tree's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1221,13 +1338,15 @@ def main() -> int:
         f" | triton {importlib.util.find_spec('triton') is not None}")
 
     t0 = time.perf_counter()
+    finish_parent = build_parent(args.parent) if args.parent else None
     _lib.load()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    parent = finish_parent() if finish_parent else None
     dev = resolve_device("cuda")
     cfg = ModelConfig()
     dataset = SyntheticInterpolationDataset(length=3, num_points=cfg.npoints, seed=0)
     rows = check_kernels(kernels, cfg, dataset, dev)
-    check_train_kernels(kernels, cfg, dev, rows)
+    check_train_kernels(kernels, cfg, dev, rows, parent)
     check_op_kernels(kernels, cfg, dev, rows)
     torch.cuda.empty_cache()
     model = MoCoPCI(cfg, device=dev, seed=0)

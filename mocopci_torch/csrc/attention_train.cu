@@ -17,24 +17,20 @@
 //   backward, head dims D <= 64: one pass over the pairs, each pair's logit,
 //             do.v, exp and keep factor computed once (see the block comment
 //             above attention_train_bwd_kernel), no hash at rate 0;
-//   backward, D > 64 (the "wide" route): dk/dv: one block per (group, key
-//             tile) looping over query chunks; dq: one block per (group, query
-//             tile) looping over key chunks.  Both rebuild the pair quantities
-//             P = exp(l - lse), P*keep and P*(keep*(do.v) - do.out) for a
-//             (chunk x tile) in shared memory, then accumulate their rows in
-//             registers in a fixed order.
+//   backward, D > 64 (the "wide" route): one pass over the pairs as well,
+//             its five products on the tensor cores at float32 grade (see the
+//             block comment above attention_train_bwd_wide_kernel).
 // Every output element is summed in a fixed order by one owner, with no
 // atomics, so the result repeats bit for bit.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTQ = 8;        // forward query tile
-constexpr int kChunk = 64;    // backward: rows of the looped-over operand per step
-constexpr int kOwn = 8;       // backward: max accumulator elements per thread
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -138,178 +134,6 @@ __global__ void __launch_bounds__(kThreads) attention_train_fwd_kernel(
   }
 }
 
-// Loads rows [r0, r0 + n) of a (L, D) operand into dst [n][ld], zero past L.
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int r0, int n, int L,
-                                          int D, float* dst, int ld) {
-  for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
-    const int r = e / D, c = e - (e / D) * D;
-    dst[r * ld + c] = r0 + r < L ? src[static_cast<size_t>(r0) * D + e] : 0.f;
-  }
-}
-
-// Per-row backward constants of query rows [i0, i0 + n): lse and dot = do . out.
-__device__ __forceinline__ void load_row_stats(const float* __restrict__ lse_g,
-                                               const float* __restrict__ out_g,
-                                               const float* dos, int i0, int n, int N, int D,
-                                               float* ls, float* dot) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float acc = 0.f, l = 0.f;
-    if (i0 + i < N) {
-      const float* o = out_g + static_cast<size_t>(i0 + i) * D;
-      for (int d = 0; d < D; ++d) acc = fmaf(dos[i * D + d], o[d], acc);
-      l = lse_g[i0 + i];
-    }
-    dot[i] = acc;
-    ls[i] = l;
-  }
-}
-
-// For query rows i < ni (global i0 + i) and key rows j < nj (global j0 + j):
-//   PD[i][j] = P * keep,  DL[i][j] = P * (keep * (do_i . v_j) - dot_i),
-// with P = exp(scale * q_i . k_j - lse_i); zero outside the (N, M) range.
-// Neighbouring threads take neighbouring j, so the k / v tiles are stored
-// with a row stride of D + 1: their loads then fall in distinct banks.
-__device__ void pair_tile(const float* qs, const float* dos, const float* ks, const float* vs,
-                          const float* ls, const float* dot, int ni, int nj, int i0, int j0,
-                          int N, int M, int D, float scale, uint32_t gseed, int thr,
-                          float kscale, float* PD, float* DL, int ld) {
-  const int ldk = D + 1;
-  for (int p = threadIdx.x; p < ni * nj; p += blockDim.x) {
-    const int i = p / nj, j = p - (p / nj) * nj;
-    float pd = 0.f, dl = 0.f;
-    if (i0 + i < N && j0 + j < M) {
-      float l = 0.f, da = 0.f;
-      for (int d = 0; d < D; ++d) {
-        l = fmaf(qs[i * D + d], ks[j * ldk + d], l);
-        da = fmaf(dos[i * D + d], vs[j * ldk + d], da);
-      }
-      const float P = expf(l * scale - ls[i]);
-      const float kf = keep_factor(gseed, i0 + i, j0 + j, thr, kscale);
-      pd = P * kf;
-      dl = P * (da * kf - dot[i]);
-    }
-    if (PD != nullptr) PD[i * ld + j] = pd;
-    DL[i * ld + j] = dl;
-  }
-}
-
-// dk, dv for a tile of TK keys, looping over all queries in chunks.
-__global__ void __launch_bounds__(kThreads) attention_train_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ out, const float* __restrict__ lse, const float* __restrict__ dout,
-    float* __restrict__ dk, float* __restrict__ dv, int N, int M, int D, int TK, float scale,
-    const int* __restrict__ seed, int thr, float kscale) {
-  extern __shared__ float sm[];
-  float* ks = sm;                       // [TK][D + 1]
-  float* vs = ks + TK * (D + 1);        // [TK][D + 1]
-  float* qs = vs + TK * (D + 1);        // [kChunk][D]
-  float* dos = qs + kChunk * D;         // [kChunk][D]
-  float* ls = dos + kChunk * D;         // [kChunk]
-  float* dot = ls + kChunk;             // [kChunk]
-  float* PD = dot + kChunk;             // [kChunk][TK + 1]
-  float* DL = PD + kChunk * (TK + 1);   // [kChunk][TK + 1]
-  const int g = blockIdx.y;
-  const int j0 = blockIdx.x * TK;
-  const int tid = threadIdx.x;
-  const uint32_t gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
-  const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
-  load_rows(k + gk, j0, TK, M, D, ks, D + 1);
-  load_rows(v + gk, j0, TK, M, D, vs, D + 1);
-  float adk[kOwn], adv[kOwn];
-#pragma unroll
-  for (int u = 0; u < kOwn; ++u) adk[u] = adv[u] = 0.f;
-  const int E = TK * D;
-  for (int i0 = 0; i0 < N; i0 += kChunk) {
-    __syncthreads();
-    load_rows(q + gq, i0, kChunk, N, D, qs, D);
-    load_rows(dout + gq, i0, kChunk, N, D, dos, D);
-    __syncthreads();
-    load_row_stats(lse + static_cast<size_t>(g) * N, out + gq, dos, i0, kChunk, N, D, ls, dot);
-    __syncthreads();
-    pair_tile(qs, dos, ks, vs, ls, dot, kChunk, TK, i0, j0, N, M, D, scale, gseed, thr, kscale,
-              PD, DL, TK + 1);
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kOwn; ++u) {
-      const int e = tid + u * kThreads;
-      if (e < E) {
-        const int j = e / D, d = e - (e / D) * D;
-        float a = adk[u], b = adv[u];
-        for (int i = 0; i < kChunk; ++i) {
-          b = fmaf(PD[i * (TK + 1) + j], dos[i * D + d], b);
-          a = fmaf(DL[i * (TK + 1) + j], qs[i * D + d], a);
-        }
-        adk[u] = a;
-        adv[u] = b;
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kOwn; ++u) {
-    const int e = tid + u * kThreads;
-    if (e < E && j0 + e / D < M) {
-      dk[gk + static_cast<size_t>(j0) * D + e] = adk[u] * scale;
-      dv[gk + static_cast<size_t>(j0) * D + e] = adv[u];
-    }
-  }
-}
-
-// dq for a tile of TQ queries, looping over all keys in chunks.
-__global__ void __launch_bounds__(kThreads) attention_train_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ out, const float* __restrict__ lse, const float* __restrict__ dout,
-    float* __restrict__ dq, int N, int M, int D, int TQ, float scale,
-    const int* __restrict__ seed, int thr, float kscale) {
-  extern __shared__ float sm[];
-  float* qs = sm;                       // [TQ][D]
-  float* dos = qs + TQ * D;             // [TQ][D]
-  float* ls = dos + TQ * D;             // [TQ]
-  float* dot = ls + TQ;                 // [TQ]
-  float* ks = dot + TQ;                 // [kChunk][D + 1]
-  float* vs = ks + kChunk * (D + 1);    // [kChunk][D + 1]
-  float* DL = vs + kChunk * (D + 1);    // [TQ][kChunk + 1]
-  const int g = blockIdx.y;
-  const int i0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x;
-  const uint32_t gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
-  const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
-  load_rows(q + gq, i0, TQ, N, D, qs, D);
-  load_rows(dout + gq, i0, TQ, N, D, dos, D);
-  __syncthreads();
-  load_row_stats(lse + static_cast<size_t>(g) * N, out + gq, dos, i0, TQ, N, D, ls, dot);
-  float adq[kOwn];
-#pragma unroll
-  for (int u = 0; u < kOwn; ++u) adq[u] = 0.f;
-  const int E = TQ * D;
-  for (int j0 = 0; j0 < M; j0 += kChunk) {
-    __syncthreads();
-    load_rows(k + gk, j0, kChunk, M, D, ks, D + 1);
-    load_rows(v + gk, j0, kChunk, M, D, vs, D + 1);
-    __syncthreads();
-    pair_tile(qs, dos, ks, vs, ls, dot, TQ, kChunk, i0, j0, N, M, D, scale, gseed, thr, kscale,
-              nullptr, DL, kChunk + 1);
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kOwn; ++u) {
-      const int e = tid + u * kThreads;
-      if (e < E) {
-        const int i = e / D, d = e - (e / D) * D;
-        float a = adq[u];
-        for (int j = 0; j < kChunk; ++j) a = fmaf(DL[i * (kChunk + 1) + j], ks[j * (D + 1) + d], a);
-        adq[u] = a;
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kOwn; ++u) {
-    const int e = tid + u * kThreads;
-    if (e < E && i0 + e / D < N) dq[gq + static_cast<size_t>(i0) * D + e] = adq[u] * scale;
-  }
-}
-
-// rows per tile so that tile * D <= kThreads * kOwn accumulators
-inline int tile_rows(int D) { return max(1, min(128, kThreads * kOwn / 2 / D)); }
-
 // ---- backward for head dims D <= 64: one pass over the pairs ----
 //
 // prologue  dot[g, i] = do_i . out_i, once per query row.
@@ -330,8 +154,7 @@ inline int tile_rows(int D) { return max(1, min(128, kThreads * kOwn / 2 / D)); 
 //           factor is left out (it is exactly 1 there), so no hash runs.
 // epilogue  dq = scale * the sum of dq_part over the key tiles, in tile order.
 // Every pair costs about 5*D FMAs and one exp2 (P = 2^(log2(e) (scale l -
-// lse))), against 10*D FMAs, two exps and two hashes in the wide route, and no
-// FMA reads more than one operand from shared memory.  (The five products on
+// lse))), and no FMA reads more than one operand from shared memory.  (The five products on
 // the tensor cores instead, mma.sync at float32 grade (3xTF32) with 16 or 32
 // keys a warp, ran 10-25% slower on an H100 at (80, 2048, 2048, 8): at D = 8
 // the per-pair exp, hash and fragment splits outweigh the FMAs they save.)
@@ -639,6 +462,336 @@ cudaError_t launch_bwd_dp(int DP, const float* q, const float* k, const float* v
   }
 }
 
+// ---- backward for head dims D > 64 (the wide route): one pass on the tensor cores ----
+//
+// prologue  dot[g, i] = do_i . out_i, once per query row (the kernel above).
+// main      one block per (group, tile of 32 keys, slice of 256 head dims),
+//           16 warps, looping over chunks of 16 queries (q and do of the
+//           slice, lse, dot), double-buffered in shared memory by cp.async.
+//           The block's keys' k and v rows of its slice sit in shared memory
+//           split into (hi, lo) TF32 pairs; every product runs on mma.sync
+//           m16n8k8 at float32 grade (3xTF32, mma_tf32.cuh).  For each chunk:
+//             S = q k^T and dP = do v^T (16 x 32): warp (k half, S or dP,
+//               n-tile) sums its half of the head dims, the halves added
+//               in order after a shared-memory pass;
+//             each pair's P = 2^(log2(e) (scale S - lse)), its keep factor
+//               and dS = P (keep dP - dot) once, stored as (hi, lo) pairs;
+//             dv += (P keep)^T do and dk += dS^T q: warp w keeps the 32
+//               keys x its 16 head dims of both in registers;
+//             dq_part[g, key tile, i, :] = dS k over the block's keys.
+//           Head dims past the slice (D > 256: a block per slice of dk, dv
+//           and dq) enter S and dP from global memory, so every slice
+//           recomputes them over the whole D.  Without dropout the keep
+//           factor is left out, so no hash runs.
+// epilogue  dq = scale * the sum of dq_part over the key tiles, in tile order.
+// Every pair's five products (5 D MACs) run once, on the tensor cores; its
+// exp and hash once.  Each output element has one owner summing in a fixed
+// order, so the result repeats bit for bit.
+constexpr int kWWarps = 16;
+constexpr int kWThreads = 32 * kWWarps;
+constexpr int kWKeys = 32;                 // keys per block
+constexpr int kWQ = 16;                    // queries per chunk
+constexpr int kWD = 256;                   // head dims per block (its slice)
+constexpr int kWDW = kWD / kWWarps;        // a warp's head dims of dk, dv, dq
+constexpr int kWNT = kWDW / 8;             // ... in n-tiles
+constexpr int kLdKV = kWD + 4;             // (hi, lo) pairs a k / v row
+constexpr int kLdQ = kWD + 4;              // floats a q / do row
+constexpr int kLdS = kWKeys + 8;           // floats an S / dP row
+constexpr int kLdP = kWKeys + 4;           // (hi, lo) pairs a P keep / dS row
+static_assert(kWQ * kWKeys == kWThreads, "one pair a thread");
+constexpr size_t kWideSmem =
+    (2 * kWKeys * kLdKV * 2 + 4 * kWQ * kLdQ + 4 * kWQ + 4 * kWQ * kLdS + 2 * kWQ * kLdP * 2) *
+    sizeof(float);
+
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Queues the copies of query rows [i0, i0 + 16): head dims [d0, d0 + W) of q
+// and do into [16][kLdQ] tiles (the dims from W on are not written), lse and
+// dot; rows past N are filled with zeros.
+__device__ __forceinline__ void stage_wide(const float* __restrict__ qg,
+                                           const float* __restrict__ dog,
+                                           const float* __restrict__ lg,
+                                           const float* __restrict__ tg, int i0, int N, int D,
+                                           int d0, int W, float* qs, float* dos, float* ls,
+                                           float* ts) {
+  if ((D & 3) == 0) {
+    const int W4 = W >> 2;
+    for (int e = threadIdx.x; e < kWQ * W4; e += kWThreads) {
+      const int r = e / W4, c = (e - r * W4) << 2;
+      const bool ok = i0 + r < N;
+      const size_t src = ok ? static_cast<size_t>(i0 + r) * D + d0 + c : 0;
+      cp_async16z(qs + r * kLdQ + c, qg + src, ok);
+      cp_async16z(dos + r * kLdQ + c, dog + src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kWQ * W; e += kWThreads) {
+      const int r = e / W, c = e - r * W;
+      const bool ok = i0 + r < N;
+      const size_t src = ok ? static_cast<size_t>(i0 + r) * D + d0 + c : 0;
+      cp_async4z(qs + r * kLdQ + c, qg + src, ok);
+      cp_async4z(dos + r * kLdQ + c, dog + src, ok);
+    }
+  }
+  for (int e = threadIdx.x; e < kWQ; e += kWThreads) {
+    const bool ok = i0 + e < N;
+    cp_async4z(ls + e, lg + (ok ? i0 + e : 0), ok);
+    cp_async4z(ts + e, tg + (ok ? i0 + e : 0), ok);
+  }
+}
+
+__device__ __forceinline__ void frag_of_pairs(mocopci::FragA& fa, uint2 a0, uint2 a1, uint2 a2,
+                                              uint2 a3) {
+  fa.hi[0] = a0.x, fa.lo[0] = a0.y;
+  fa.hi[1] = a1.x, fa.lo[1] = a1.y;
+  fa.hi[2] = a2.x, fa.lo[2] = a2.y;
+  fa.hi[3] = a3.x, fa.lo[3] = a3.y;
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(kWThreads, 1) attention_train_bwd_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ lse, const float* __restrict__ dot, const float* __restrict__ dout,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq_part, int N, int M,
+    int D, float scale, const int* __restrict__ seed, int thr, float kscale) {
+  extern __shared__ __align__(16) float sm[];
+  uint2* kt_s = reinterpret_cast<uint2*>(sm);                     // [kWKeys][kLdKV] k
+  uint2* vt_s = kt_s + kWKeys * kLdKV;                            // [kWKeys][kLdKV] v
+  float* qd = reinterpret_cast<float*>(vt_s + kWKeys * kLdKV);    // [2][q, do][kWQ][kLdQ]
+  float* lt = qd + 4 * kWQ * kLdQ;                                // [2][lse, dot][kWQ]
+  float* sdp = lt + 4 * kWQ;                                      // [k half][S, dP][kWQ][kLdS]
+  uint2* pds = reinterpret_cast<uint2*>(sdp + 4 * kWQ * kLdS);    // [P keep, dS][kWQ][kLdP]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kt = blockIdx.x, g = blockIdx.y;
+  const int j0 = kt * kWKeys, d0 = blockIdx.z * kWD, W = min(kWD, D - d0);
+  const float c2 = scale * kLog2e;
+  uint32_t gseed = 0u;
+  if (DROP) gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
+  const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
+  const float* qg = q + gq;
+  const float* dog = dout + gq;
+  const float* lg = lse + static_cast<size_t>(g) * N;
+  const float* tg = dot + static_cast<size_t>(g) * N;
+  const int nchunks = (N + kWQ - 1) / kWQ;
+  stage_wide(qg, dog, lg, tg, 0, N, D, d0, W, qd, qd + kWQ * kLdQ, lt, lt + kWQ);
+  cp_async_commit();
+
+  // the block's k and v rows of its slice, split once; zero past M and W
+  for (int e = tid; e < kWKeys * kWD; e += kWThreads) {
+    const int r = e / kWD, c = e - r * kWD;
+    const bool ok = j0 + r < M && c < W;
+    const size_t src = gk + static_cast<size_t>(j0 + r) * D + d0 + c;
+    uint2 a, b;
+    mocopci::split_tf32(ok ? k[src] : 0.f, a.x, a.y);
+    mocopci::split_tf32(ok ? v[src] : 0.f, b.x, b.y);
+    kt_s[r * kLdKV + c] = a;
+    vt_s[r * kLdKV + c] = b;
+  }
+  if (W < kWD) {      // the dims past the slice stay zero in both buffers
+    for (int e = tid; e < 4 * kWQ * (kWD - W); e += kWThreads) {
+      const int r = e / (kWD - W);
+      qd[r * kLdQ + W + (e - r * (kWD - W))] = 0.f;
+    }
+  }
+
+  // S / dP product: this warp's k half, operand (0: S = q k^T, 1: dP = do v^T)
+  // and n-tile of keys; its k-steps of the slice, then of the other dims
+  const int khalf = warp >> 3, op = (warp >> 2) & 1, snt = warp & 3;
+  const int ks_own = (W + 7) >> 3, ks_mid = (ks_own + 1) >> 1;
+  const int ks_lo = khalf ? ks_mid : 0, ks_hi = khalf ? ks_own : ks_mid;
+  const uint2* bsrc = (op ? vt_s : kt_s) + (snt * 8 + gid) * kLdKV + tig;
+  const float* gA = (op ? dog : qg);
+  const float* gB = (op ? v : k) + gk;
+  const int jB = j0 + snt * 8 + gid;
+  // the dk / dv / dq products: this warp's head dims [wd, wd + kWDW) of the slice
+  const int wd = warp * kWDW;
+  const bool has_dims = wd < W;
+  float adk[2][kWNT][4], adv[2][kWNT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < kWNT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) adk[m][n][r] = adv[m][n][r] = 0.f;
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int b = c & 1, i0 = c * kWQ;
+    cp_async_wait0();
+    __syncthreads();        // chunk c has landed; every warp is done with chunk c - 1
+    if (c + 1 < nchunks) {
+      float* nb = qd + (b ^ 1) * 2 * kWQ * kLdQ;
+      float* nl = lt + (b ^ 1) * 2 * kWQ;
+      stage_wide(qg, dog, lg, tg, i0 + kWQ, N, D, d0, W, nb, nb + kWQ * kLdQ, nl, nl + kWQ);
+      cp_async_commit();
+    }
+    const float* qb = qd + b * 2 * kWQ * kLdQ;
+    const float* db = qb + kWQ * kLdQ;
+    const float* lb = lt + b * 2 * kWQ;
+    const float* tb = lb + kWQ;
+
+    {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* a = (op ? db : qb) + gid * kLdQ + tig;
+#pragma unroll 4
+      for (int ks = ks_lo; ks < ks_hi; ++ks) {
+        const float* ak = a + ks * 8;
+        mocopci::FragA fa;
+        fa.set({ak[0], ak[8 * kLdQ], ak[4], ak[8 * kLdQ + 4]});
+        const uint2 b0 = bsrc[ks * 8], b1 = bsrc[ks * 8 + 4];
+        mocopci::FragB fb;
+        fb.hi[0] = b0.x, fb.lo[0] = b0.y, fb.hi[1] = b1.x, fb.lo[1] = b1.y;
+        mocopci::mma_3xtf32(acc, fa, fb);
+      }
+      // head dims outside the slice (D > kWD), read from global memory: the
+      // k halves take alternate k-steps
+      for (int ks = khalf; D > kWD && ks < (D + 7) >> 3; ks += 2) {
+        const int dd = ks * 8;
+        if (dd >= d0 && dd < d0 + kWD) continue;
+        float av[4], bv[2];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = i0 + gid + 8 * (r & 1), col = dd + tig + 4 * (r >> 1);
+          av[r] = i < N && col < D ? gA[static_cast<size_t>(i) * D + col] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int col = dd + tig + 4 * r;
+          bv[r] = jB < M && col < D ? gB[static_cast<size_t>(jB) * D + col] : 0.f;
+        }
+        mocopci::FragA fa;
+        fa.set(av);
+        mocopci::FragB fb;
+        fb.set(bv[0], bv[1]);
+        mocopci::mma_3xtf32(acc, fa, fb);
+      }
+      float* out_s = sdp + (khalf * 2 + op) * kWQ * kLdS + gid * kLdS + snt * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(out_s) = make_float2(acc[0], acc[1]);
+      *reinterpret_cast<float2*>(out_s + 8 * kLdS) = make_float2(acc[2], acc[3]);
+    }
+    __syncthreads();        // S and dP of the chunk are complete
+
+    {                       // one pair a thread: P keep and dS, split
+      const int i = tid / kWKeys, j = tid - i * kWKeys;
+      const float* s0 = sdp + i * kLdS + j;
+      const float S = s0[0] + s0[2 * kWQ * kLdS];
+      const float dP = s0[kWQ * kLdS] + s0[3 * kWQ * kLdS];
+      const int ig = i0 + i, jg = j0 + j;
+      const float P = ig < N && jg < M ? exp2f(fmaf(S, c2, -lb[i] * kLog2e)) : 0.f;
+      float pd = P, dsv;
+      if (DROP) {
+        const float kf = keep_factor(gseed, ig, jg, thr, kscale);
+        pd = P * kf;
+        dsv = P * (dP * kf - tb[i]);
+      } else {
+        dsv = P * (dP - tb[i]);
+      }
+      uint2 hp, hs;
+      mocopci::split_tf32(pd, hp.x, hp.y);
+      mocopci::split_tf32(dsv, hs.x, hs.y);
+      pds[i * kLdP + j] = hp;
+      pds[kWQ * kLdP + i * kLdP + j] = hs;
+    }
+    __syncthreads();        // the chunk's P keep and dS are complete
+
+    if (has_dims) {
+      const uint2* pk = pds;
+      const uint2* dsp = pds + kWQ * kLdP;
+      // dv += (P keep)^T do, dk += dS^T q: keys are the M, queries the K
+#pragma unroll
+      for (int ks = 0; ks < kWQ / 8; ++ks) {
+        mocopci::FragA fp[2], fs[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int a = (ks * 8 + tig) * kLdP + m * 16 + gid;
+          frag_of_pairs(fp[m], pk[a], pk[a + 8], pk[a + 4 * kLdP], pk[a + 4 * kLdP + 8]);
+          frag_of_pairs(fs[m], dsp[a], dsp[a + 8], dsp[a + 4 * kLdP], dsp[a + 4 * kLdP + 8]);
+        }
+#pragma unroll
+        for (int n = 0; n < kWNT; ++n) {
+          const int o = (ks * 8 + tig) * kLdQ + wd + n * 8 + gid;
+          mocopci::FragB fo, fq;
+          fo.set(db[o], db[o + 4 * kLdQ]);
+          fq.set(qb[o], qb[o + 4 * kLdQ]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mocopci::mma_3xtf32(adv[m][n], fp[m], fo);
+            mocopci::mma_3xtf32(adk[m][n], fs[m], fq);
+          }
+        }
+      }
+      // dq_part = dS k over the block's keys: queries the M, keys the K
+      float aq[kWNT][4];
+#pragma unroll
+      for (int n = 0; n < kWNT; ++n) aq[n][0] = aq[n][1] = aq[n][2] = aq[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kWKeys / 8; ++ks) {
+        const int a = gid * kLdP + ks * 8 + tig;
+        mocopci::FragA fa;
+        frag_of_pairs(fa, dsp[a], dsp[a + 8 * kLdP], dsp[a + 4], dsp[a + 8 * kLdP + 4]);
+#pragma unroll
+        for (int n = 0; n < kWNT; ++n) {
+          const uint2* kb = kt_s + (ks * 8 + tig) * kLdKV + wd + n * 8 + gid;
+          const uint2 b0 = kb[0], b1 = kb[4 * kLdKV];
+          mocopci::FragB fb;
+          fb.hi[0] = b0.x, fb.lo[0] = b0.y, fb.hi[1] = b1.x, fb.lo[1] = b1.y;
+          mocopci::mma_3xtf32(aq[n], fa, fb);
+        }
+      }
+      float* part = dq_part + ((static_cast<size_t>(g) * gridDim.x + kt) * N) * D + d0;
+#pragma unroll
+      for (int n = 0; n < kWNT; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = i0 + gid + 8 * (r >> 1), col = wd + n * 8 + 2 * tig + (r & 1);
+          if (i < N && col < W) part[static_cast<size_t>(i) * D + col] = aq[n][r];
+        }
+    }
+  }
+
+  if (has_dims) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < kWNT; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = j0 + m * 16 + gid + 8 * (r >> 1), col = wd + n * 8 + 2 * tig + (r & 1);
+          if (j < M && col < W) {
+            const size_t o = gk + static_cast<size_t>(j) * D + d0 + col;
+            dk[o] = adk[m][n][r] * scale;
+            dv[o] = adv[m][n][r];
+          }
+        }
+  }
+}
+
+template <bool DROP>
+cudaError_t launch_bwd_wide(const float* q, const float* k, const float* v, const float* lse,
+                            const float* dot, const float* dout, float* dk, float* dv,
+                            float* part, int G, int N, int M, int D, float scale,
+                            const int* seed, int thr, float kscale, cudaStream_t st) {
+  cudaError_t err = mocopci::allow_smem(attention_train_bwd_wide_kernel<DROP>, kWideSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(mocopci::ceil_div(M, kWKeys), G, mocopci::ceil_div(D, kWD));
+  attention_train_bwd_wide_kernel<DROP><<<grid, kWThreads, kWideSmem, st>>>(
+      q, k, v, lse, dot, dout, dk, dv, part, N, M, D, scale, seed, thr, kscale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q (G, N, D), k/v (G, M, D) -> out (G, N, D), lse (G, N); M <= 4096; seed: one
@@ -658,32 +811,34 @@ MOCOPCI_API int mocopci_attention_train_fwd(const float* q, const float* k, cons
   return cudaGetLastError();
 }
 
-// The wide route: saved forward (q, k, v, out, lse) and dout (G, N, D) -> dq,
-// dk, dv for any D <= 2048 (taken for D > 64).
+// The wide route, D > 64: the saved forward (q, k, v, out, lse) and dout ->
+// dq, dk, dv for any D <= 2048.  work: f32 scratch of G * ceil(M / 32) * N * D
+// + G * N entries: the dq partials, then the rows' dot = do . out.  Dropout
+// off (thr 0, kscale 1) takes the kernel without the keep factor.
 MOCOPCI_API int mocopci_attention_train_bwd_wide(const float* q, const float* k,
                                                  const float* v, const float* out,
-                                                 const float* lse,
-                                                 const float* dout, float* dq, float* dk,
-                                                 float* dv, int G, int N, int M, int D,
-                                                 float scale, const int* seed, int thr,
-                                                 float kscale, void* stream) {
+                                                 const float* lse, const float* dout, float* dq,
+                                                 float* dk, float* dv, float* work, int G, int N,
+                                                 int M, int D, float scale, const int* seed,
+                                                 int thr, float kscale, void* stream) {
+  if (D < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = tile_rows(D);
-  const size_t smem_kv =
-      (2 * static_cast<size_t>(T) * (D + 1) + 2 * kChunk * static_cast<size_t>(D) + 2 * kChunk +
-       2 * kChunk * static_cast<size_t>(T + 1)) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(attention_train_dkv_kernel, smem_kv);
-  if (err != cudaSuccess) return err;
-  attention_train_dkv_kernel<<<dim3(mocopci::ceil_div(M, T), G), kThreads, smem_kv, st>>>(
-      q, k, v, out, lse, dout, dk, dv, N, M, D, T, scale, seed, thr, kscale);
+  const int KT = mocopci::ceil_div(M, kWKeys);
+  float* part = work;
+  float* dot = work + static_cast<size_t>(G) * KT * N * D;
+  const int rows = G * N;
+  attention_train_bwd_dot_kernel<<<mocopci::ceil_div(rows, 256), 256, 0, st>>>(out, dout, dot,
+                                                                               rows, D);
   MOCOPCI_CHECK_LAUNCH();
-  const size_t smem_q =
-      (2 * static_cast<size_t>(T) * D + 2 * T + 2 * kChunk * static_cast<size_t>(D + 1) +
-       static_cast<size_t>(T) * (kChunk + 1)) * sizeof(float);
-  err = mocopci::allow_smem(attention_train_dq_kernel, smem_q);
+  const bool drop = thr > 0 || kscale != 1.f;
+  cudaError_t err = drop ? launch_bwd_wide<true>(q, k, v, lse, dot, dout, dk, dv, part, G, N, M,
+                                                 D, scale, seed, thr, kscale, st)
+                         : launch_bwd_wide<false>(q, k, v, lse, dot, dout, dk, dv, part, G, N,
+                                                  M, D, scale, seed, thr, kscale, st);
   if (err != cudaSuccess) return err;
-  attention_train_dq_kernel<<<dim3(mocopci::ceil_div(N, T), G), kThreads, smem_q, st>>>(
-      q, k, v, out, lse, dout, dq, N, M, D, T, scale, seed, thr, kscale);
+  const size_t E = static_cast<size_t>(G) * N * D;
+  attention_train_bwd_dq_kernel<<<static_cast<unsigned>((E + 255) / 256), 256, 0, st>>>(
+      part, dq, G, KT, N, D, D, scale);
   return cudaGetLastError();
 }
 

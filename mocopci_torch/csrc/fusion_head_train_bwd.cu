@@ -53,10 +53,6 @@ constexpr int kLdW3 = kC3 + 8;
 constexpr int kPlane = kC1 * kLdW2 + kC2 * kLdW3;
 constexpr int kLdS2 = kC2 + 4;          // sweeps 5-7: (hi, lo) TF32 pairs, padded
 constexpr int kLdS3 = kC3 + 4;
-constexpr int kVec = OW2;               // W1 b1 g1 e1, then b2 g2 e2, b3 g3 e3
-constexpr int SB2 = kVec, SG2 = SB2 + kC2, SE2 = SG2 + kC2;
-constexpr int SB3 = SE2 + kC2, SG3 = SB3 + kC3, SE3 = SG3 + kC3;
-constexpr int kVecAll = SE3 + kC3;
 
 // words of the shared weights, split once per block into TF32 parts: three
 // planes in sweep 4, (hi, lo) pairs in sweeps 5-7
@@ -188,20 +184,6 @@ __device__ __forceinline__ void stage_rows(float* T, const float (&c)[NC][4], bo
     *reinterpret_cast<float2*>(r0 + nt * 8) = v0 ? make_float2(q[0], q[1]) : make_float2(0.f, 0.f);
     *reinterpret_cast<float2*>(r0 + 8 * kLdT + nt * 8) =
         v1 ? make_float2(q[2], q[3]) : make_float2(0.f, 0.f);
-  }
-}
-
-// Per-group sums of (a, b) for column col: this thread's two rows, then the
-// 8 row pairs of the warp (lane bits 2-4), added to the warp's shared row.
-__device__ __forceinline__ void group_acc(float a, float b, float* row, int GW, int col) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  if ((threadIdx.x & 31) < 4) {
-    row[col] += a;
-    row[GW + col] += b;
   }
 }
 

@@ -7,11 +7,11 @@ group, row, column), rebuilt bit for bit by the forward kernel, the backward
 kernel and the twin; the twin computes it in int64 masked to 32 bits, as
 PyTorch has little uint32 arithmetic.  Operations bound it.
 
-The backward has two routes, each its own counted entry point: head dims
-D <= ``MAX_BWD_D`` take ``attention_train_bwd`` (one pass over the pairs, each
-pair computed once; a dot prologue and a dq epilogue), wider heads (the
-``CrossFrameBlock``'s D = 256) take ``attention_train_bwd_wide`` (a dk/dv
-kernel and a dq kernel, each rebuilding the pairs).
+The backward has two routes, each its own counted entry point, both one pass
+over the pairs (each pair computed once) between a dot prologue and a dq
+epilogue: head dims D <= ``MAX_BWD_D`` take ``attention_train_bwd`` (FMAs),
+wider heads (the ``CrossFrameBlock``'s D = 256) ``attention_train_bwd_wide``
+(the five products on the tensor cores at float32 grade).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ MAX_SEQ = 4096
 MAX_D = 2048
 MAX_BWD_D = 64      # the one-pass backward's widest head (csrc kMaxBwdD)
 BWD_KEYS = 64       # its keys per block (csrc kBwdKeys): dq partials per key tile
+WIDE_KEYS = 32      # the wide route's keys per block (csrc kWKeys)
 _M32 = 0xFFFFFFFF
 
 
@@ -132,15 +133,14 @@ def attention_train_bwd(q, k, v, out, lse, dout, seed, scale, rate):
     thr, kscale = dropout_constants(rate)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = [t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv)]
-    if D > MAX_BWD_D:
-        _lib.launch("attention_train_bwd_wide", *ptrs, G, N, M, D, float(scale),
-                    seed.data_ptr(), thr, kscale, _lib.stream(q))
-    else:
-        # the dq partials (G, key tiles, N, padded D), then dot (G, N)
-        work = torch.empty(G * -(-M // BWD_KEYS) * N * _padded_dim(D) + G * N,
-                           dtype=torch.float32, device=q.device)
-        _lib.launch("attention_train_bwd", *ptrs, work.data_ptr(), G, N, M, D, float(scale),
-                    seed.data_ptr(), thr, kscale, _lib.stream(q))
+    wide = D > MAX_BWD_D
+    # the dq partials (G, key tiles, N, D, padded on the one-pass route), then dot (G, N)
+    keys, dp = (WIDE_KEYS, D) if wide else (BWD_KEYS, _padded_dim(D))
+    work = torch.empty(G * -(-M // keys) * N * dp + G * N, dtype=torch.float32,
+                       device=q.device)
+    _lib.launch("attention_train_bwd_wide" if wide else "attention_train_bwd", *ptrs,
+                work.data_ptr(), G, N, M, D, float(scale), seed.data_ptr(), thr, kscale,
+                _lib.stream(q))
     return dq, dk, dv
 
 

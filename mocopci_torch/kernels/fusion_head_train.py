@@ -1,4 +1,4 @@
-"""Train-mode fusion head: CUDA ``csrc/fusion_head_train.cuh`` and its plain twin.
+"""Train-mode fusion head: CUDA ``csrc/fusion_head_train_{fwd,bwd}.cu`` and its plain twin.
 
 Replaces ``mocopci_tpu/ops/pallas/fusion_head_train.py``: ``fusion_head_train``
 (:319) with its stats (:356), output (:371) and backward (:408) sweeps.  Per
@@ -9,9 +9,9 @@ statistics.  The kernel recomputes the layer chain in every sweep and stores
 no (G, C, P) activation; its group and weight sums are reduced in a fixed
 order.  The kernel forms the variance as E[z²] − mean² (in float64 on the
 host, from float32 sums, as the TPU kernel does in float32); the twin as the
-mean of squared deviations, as JAX's CPU path.  Operations bound it.  The
-forward sweeps run on FMAs; the backward sweeps run their products on the
-tensor cores at float32 grade (``SOURCE_BWD``).
+mean of squared deviations, as JAX's CPU path.  Operations bound it.  Both
+the forward sweeps (``SOURCE``) and the backward sweeps (``SOURCE_BWD``) run
+their products on the tensor cores at float32 grade.
 """
 from __future__ import annotations
 
@@ -19,15 +19,14 @@ import torch
 
 from mocopci_torch.kernels import _lib
 
-SOURCE = "mocopci_torch/csrc/fusion_head_train.cuh"  # forward sweeps, entry _fwd.cu
+SOURCE = "mocopci_torch/csrc/fusion_head_train_fwd.cu"   # forward sweeps
 SOURCE_BWD = "mocopci_torch/csrc/fusion_head_train_bwd.cu"   # backward sweeps
 REPLACES = "mocopci_tpu/ops/pallas/fusion_head_train.py:319"
 REPLACES_BWD = "mocopci_tpu/ops/pallas/fusion_head_train.py:408"   # backward sweeps
 
 WIDTHS = (4, 64, 64, 128)
-BLOCKS = 264          # forward sweeps: two per SM of an H100
-BWD_BLOCKS = 132      # backward sweeps: one 8-warp block per SM
-# (fixed grids: each fixes its summation order)
+BLOCKS = 132          # every sweep: one 8-warp block per SM of an H100 (a fixed
+                      # grid, which fixes the summation order)
 _OFF = (0, 64, 128)   # each layer's column in the kernel's (F, 2, 256) stat rows
 _MAX_SMEM = 227 * 1024
 
@@ -79,9 +78,11 @@ def fusion_head_train_bwd_plain(x, params, n_groups, eps, d_o):
 
 
 def _fwd_smem(F: int) -> int:
-    """Bytes of shared memory of the largest forward sweep: the packed
-    parameters, the (F, 2, 256) stat rows and 4 warps' (F, 2, 128) group sums."""
-    return (13312 + 2 * F * 256 + 4 * F * 2 * 128) * 4
+    """Bytes of shared memory of the largest forward sweep (sweep 2): the
+    vectors (1024 floats), W2 and W3 with padded rows split into (hi, lo) TF32
+    pairs (25088), the (F, 2, 256) stat rows and 8 warps' (F, 2, 128) group
+    sums."""
+    return (1024 + 25088 + 2 * F * 256 + 8 * F * 2 * 128) * 4
 
 
 def _bwd_smem(F: int) -> int:
@@ -112,13 +113,12 @@ def _check(x, params, n_groups):
 
 def _sweep(name, mode, x, packed, stats, extra, out, F, n_red):
     G, _, P = x.shape
-    nblk = BLOCKS if mode < 4 else BWD_BLOCKS
     red = torch.empty(max(n_red, 1), dtype=torch.float32, device=x.device)
-    partial = torch.empty(nblk * max(n_red, 1), dtype=torch.float32, device=x.device)
+    partial = torch.empty(BLOCKS * max(n_red, 1), dtype=torch.float32, device=x.device)
     out_ptr = out.data_ptr() if out is not None else 0
     _lib.launch(name, x.data_ptr(), packed.data_ptr(), stats.data_ptr(),
                 *(t.data_ptr() for t in extra), out_ptr, partial.data_ptr(), red.data_ptr(),
-                mode, G, F, P, nblk, _lib.stream(x))
+                mode, G, F, P, BLOCKS, _lib.stream(x))
     return red
 
 

@@ -2,6 +2,7 @@
 """Build the port's kernels on one GPU and check and time the train kernels.
 
     python3 scripts/torch_kernel_timing.py [--ptxas SOURCE ...] [--other TREE]
+                                           [--parent TREE] [--skip-scatter]
 
 A short card run for work on one kernel, instead of the whole
 ``chip_smoke.py``: it prints the card's name and power limit, compiles the
@@ -10,8 +11,10 @@ shared memory and spills of each kernel; by default ``scatter_add.cu`` and
 ``fusion_head_train_bwd.cu``) beside the library build, then runs
 ``chip_smoke.check_train_kernels``: every train kernel against its plain
 version at the B=2 train step's shapes, twice for bit-equal repeats, with its
-time, its plain version's, the library call's and its bound.  Then the
-scatter-add on the inputs of one train step at ``ModelConfig()``, B=2: the
+time, its plain version's, the library call's and its bound (with
+``--parent``, another checkout's train fusion head forward and attention
+backward wide route beside this tree's, as ``chip_smoke.py --parent``).  Then
+the scatter-add on the inputs of one train step at ``ModelConfig()``, B=2: the
 device time of each of its shapes, beside one ``index_add_`` and, with
 ``--other``, beside the ``scatter_add.cu`` of another checkout (for example
 the parent commit unpacked with ``git archive`` into ``outputs/``), whose
@@ -213,6 +216,11 @@ def main() -> int:
                     help="leave out chip_smoke.check_train_kernels")
     ap.add_argument("--other", metavar="TREE",
                     help="a checkout whose scatter_add.cu is timed beside this one's")
+    ap.add_argument("--parent", metavar="TREE",
+                    help="a checkout whose fusion head forward and attention backward wide "
+                         "route are timed beside this one's")
+    ap.add_argument("--skip-scatter", action="store_true",
+                    help="leave out the scatter-add on the train step's inputs")
     ap.add_argument("--skip-fusion-head", action="store_true",
                     help="leave out the backward sweeps' profile")
     args = ap.parse_args()
@@ -227,8 +235,10 @@ def main() -> int:
     print(chip_smoke.card_line(), flush=True)
     t0 = time.perf_counter()
     procs = ptxas_report(args.ptxas)
+    finish_parent = chip_smoke.build_parent(args.parent) if args.parent else None
     _lib.load()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    parent = finish_parent() if finish_parent else None
     failed = False
     for name, proc in procs:
         log, _ = proc.communicate()
@@ -241,8 +251,9 @@ def main() -> int:
     dev = torch.device("cuda")
     rows = []
     if not args.skip_train:
-        chip_smoke.check_train_kernels(kernels, ModelConfig(), dev, rows)
-    scatter_on_the_step(dev, other_scatter(args.other) if args.other else None)
+        chip_smoke.check_train_kernels(kernels, ModelConfig(), dev, rows, parent)
+    if not args.skip_scatter:
+        scatter_on_the_step(dev, other_scatter(args.other) if args.other else None)
     if not args.skip_fusion_head:
         profile_fusion_head_bwd(dev)
     for r in rows:

@@ -238,6 +238,10 @@ def test_scatter_add_kernel_matches_twin_and_repeats(card, planes):
     (2, 129, 70, 6),       # D % 4 != 0, padded to 8
     (2, 100, 130, 64),
     (2, 33, 64, 256),      # the wide route
+    (16, 256, 256, 256),   # its train step shape (CrossFrameBlock at L3)
+    (3, 100, 77, 70),      # D not a multiple of 8
+    (2, 70, 130, 128),
+    (1, 40, 50, 512),      # more head dims than a block holds: two slices
 ])
 def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
     """Output and gradients against the plain version, the backward's bits
@@ -341,6 +345,25 @@ def test_fusion_head_train_kernels_match_twin(card):
     want = fusion_head_train_bwd_plain(x, params, 3, 1e-3, d_o)
     for i, (leaf, w) in enumerate(zip(leaves, want)):
         torch.testing.assert_close(leaf.grad, w, atol=1e-3, rtol=1e-3, msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("F", [1, 3])
+def test_fusion_head_train_fwd_ragged_tiles_match_twin_and_repeat(card, F):
+    """The forward sweeps at P = 5000 (no multiple of a tile) with F groups:
+    o and each layer's (mean, var) against the plain version, and a second
+    run equal bit for bit."""
+    fht = importlib.import_module("mocopci_torch.kernels.fusion_head_train")
+    g = torch.Generator().manual_seed(18)
+    x, params = _fusion_head_inputs(g, card)
+    o, stats, _ = fht.fusion_head_train_fwd(x, params, F)
+    want_o, want_stats = fht.fusion_head_train_plain(x, params, F)
+    torch.testing.assert_close(o, want_o, atol=1e-4, rtol=1e-4)
+    for (m, v), (wm, wv) in zip(stats, want_stats):
+        torch.testing.assert_close(m, wm, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(v, wv, atol=1e-5, rtol=1e-3)
+    o2, stats2, _ = fht.fusion_head_train_fwd(x, params, F)
+    assert _bits_equal(o, o2)
+    assert all(_bits_equal(a, b) for s1, s2 in zip(stats, stats2) for a, b in zip(s1, s2))
 
 
 def test_fusion_head_train_bwd_ragged_tiles_match_twin_and_repeat(card):
