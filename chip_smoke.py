@@ -372,25 +372,33 @@ def build_parent(tree):
         log_, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"the parent's kernels did not build:\n{log_}")
-        return Parent(out)
+        return Parent(tree, out)
     return finish
 
 
 class Parent:
-    """Another checkout's train fusion head forward (its four sweeps on a grid
-    of ``blocks``) and attention backward wide route, called through their C
-    entry points (the signatures of the tree before the wide route took a
-    work buffer)."""
+    """Another checkout's train fusion head forward (its four sweeps on that
+    tree's grid, ``BLOCKS``) and attention backward wide route, called through
+    their C entry points; the wide route with a work buffer where that tree's
+    entry takes one (``WIDE_KEYS`` keys a block)."""
 
-    def __init__(self, path, blocks=264):
+    def __init__(self, tree, path):
         import ctypes
 
         from mocopci_torch.kernels import _lib
 
-        self.lib, self.blocks = ctypes.CDLL(path), blocks
+        def number(rel, pattern):
+            with open(os.path.join(tree, "mocopci_torch", "kernels", rel)) as f:
+                m = re.search(pattern, f.read(), re.M)
+            return int(m.group(1)) if m else None
+
+        self.lib = ctypes.CDLL(path)
+        self.blocks = number("fusion_head_train.py", r"^BLOCKS = (\d+)")
+        n_ptr = number("_lib.py", r'"attention_train_bwd_wide": \[_P\] \* (\d+)')
+        self.wide_keys = number("attention_train.py", r"^WIDE_KEYS = (\d+)") if n_ptr == 10 else None
         self.lib.mocopci_fusion_head_train_fwd.argtypes = _lib.SIGNATURES["fusion_head_train_fwd"]
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.mocopci_attention_train_bwd_wide.argtypes = [P] * 9 + [I] * 4 + [F, P, I, F, P]
+        self.lib.mocopci_attention_train_bwd_wide.argtypes = [P] * n_ptr + [I] * 4 + [F, P, I, F, P]
 
     def fusion_head_train_fwd(self, fht, x, params, F):
         """This tree's wrapper with its launches sent to the other library."""
@@ -409,11 +417,14 @@ class Parent:
 
     def attention_train_bwd_wide(self, at, q, k, v, out, lse, dout, seed, scale, rate):
         G, N, D = q.shape
+        M = k.shape[1]
         thr, kscale = at.dropout_constants(rate)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        work = [] if self.wide_keys is None else [torch.empty(
+            G * -(-M // self.wide_keys) * N * D + G * N, device=q.device)]
         if self.lib.mocopci_attention_train_bwd_wide(
-                *(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv)), G, N,
-                k.shape[1], D, float(scale), seed.data_ptr(), thr, kscale,
+                *(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, *work)), G, N, M,
+                D, float(scale), seed.data_ptr(), thr, kscale,
                 torch.cuda.current_stream().cuda_stream):
             raise RuntimeError("the parent's attention_train_bwd_wide failed")
         return dq, dk, dv

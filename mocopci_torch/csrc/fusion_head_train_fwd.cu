@@ -9,19 +9,19 @@
 //
 // Bound on the H100: operations.  The four sweeps run about 57k flops of
 // products per pair (z2 = h1 W2 in sweeps 1-3, z3 = h2 W3 in sweeps 2-3)
-// against 16 bytes of HBM per pair and sweep.  Design: the products on
-// mma.sync m16n8k8 TF32 at float32 grade (3xTF32: hi and lo parts, three
-// products a step; mma_tf32.cuh), as the backward's sweeps 5-7
-// (fusion_head_train_bwd.cu).  A warp owns 16 pairs, the M of the product;
-// 8 warps a block, one block per SM, a fixed grid of blocks striding over
-// tiles of 128 pairs.  W2 and W3 are split once per block into (hi, lo)
-// pairs in shared memory, with rows padded so that the 16 lanes of a
-// fragment load's phase fall in distinct banks.  Layer 1 (K = 4) runs on
-// FMAs.  An activation stays in its accumulator fragments: n-tile ks of it
-// is the next product's A fragment of k-step ks with its channels taken in
-// the order (2 tig, 2 tig + 1) of the fragment, so W's rows are read in that
-// order and no shuffle moves it.  BN, ReLU and the channel max run on the
-// fragments.  Each thread keeps its columns' (sum z, sum z^2) in registers
+// against 16 bytes of HBM per pair and sweep.  Design: the products on the
+// warpgroup tensor-core instruction (wgmma m64nNk8, TF32) at float32 grade
+// (3xTF32: hi and lo parts, three products a k-step; mma_tf32.cuh).  A
+// warpgroup owns 64 pairs, the M of the product, each warp 16 of them; two
+// warpgroups a block, one block per SM, a fixed grid of blocks striding over
+// tiles of 128 pairs.  W2 and W3 are the B operands: split once per block
+// into hi and lo planes in shared memory, K-major in 128-byte core
+// matrices.  Layer 1 (K = 4) runs on FMAs.  An activation stays in
+// registers as accumulator fragments: n-tile ks of it is the next product's
+// A fragment of k-step ks with its channels taken in the order (2 tig,
+// 2 tig + 1) of the fragment, so the B planes hold W's rows in that order
+// and no shuffle moves the activation.  BN, ReLU and the channel max run on
+// the fragments.  Each thread keeps its columns' (sum z, sum z^2) in registers
 // while the block's tiles stay in one group, and adds them into per-warp
 // shared rows (shuffles over lane bits 2-4) when the group changes; the
 // warps' rows, then the blocks' partials (a second kernel) are summed in a
@@ -31,15 +31,25 @@
 
 namespace {
 
-constexpr int kFWarps = 8;
+constexpr int kFWarps = 8;              // two warpgroups
 constexpr int kFThreads = 32 * kFWarps;
 constexpr int kFTile = 16 * kFWarps;    // pairs per block step
-constexpr int kLdF2 = kC2 + 2;          // (hi, lo) pairs a row: 4 ld = 8 words (mod 32)
-constexpr int kLdF3 = kC3 + 2;
+// a B plane of K = 64 input channels: 16 core matrices along K, 128 bytes
+// each, then the next 8 output channels
+constexpr uint32_t kLbo = 128, kSbo = 16 * 128;
 
-// floats of the split weights a sweep needs: none, W2, or W2 and W3
+// floats of the split weights a sweep needs: none, W2, or W2 and W3 (hi and
+// lo planes each)
 __host__ __device__ constexpr int fwd_weight_floats(int mode) {
-  return mode == 0 ? 0 : mode == 1 ? 2 * kC1 * kLdF2 : 2 * (kC1 * kLdF2 + kC2 * kLdF3);
+  return mode == 0 ? 0 : mode == 1 ? 2 * kC1 * kC2 : 2 * (kC1 * kC2 + kC2 * kC3);
+}
+
+// float offset in a B plane of weight W[c][n] (input channel c, output n):
+// k-step c / 8 holds channel 8 ks + 2 j at its k = j and 8 ks + 2 j + 1 at
+// k = 4 + j (the A fragments' order)
+__device__ __forceinline__ int b_offset(int c, int n) {
+  const int q = c & 7, k = (c & ~7) + ((q & 1) << 2) + (q >> 1);
+  return (n >> 3) * (kSbo / 4) + (k >> 2) * (kLbo / 4) + (n & 7) * 4 + (k & 3);
 }
 
 // the width of a sweep's per-group sums, and floats of its reduction (its
@@ -50,32 +60,38 @@ __host__ __device__ constexpr int group_width(int mode) {
 
 __host__ __device__ constexpr int red_size(int mode, int F) { return F * 2 * group_width(mode); }
 
-// acc[NT] += H W over K = 8 KS channels: H a 16-row activation held as
+// acc[NT] += H W over 64 channels for the warpgroup's 64 rows: H held as
 // accumulator fragments h[ks][4] (c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2,
 // c3 the same at gid + 8).  K-step ks takes n-tile ks of H as its A fragment
-// with the columns tig, tig + 4 standing for channels 8 ks + 2 tig, + 1, so
-// B's rows tig, tig + 4 are W's rows of those channels.  W: (hi, lo) TF32
-// pairs [k][ld].
-template <int NT, int KS>
-__device__ __forceinline__ void product(const float (&h)[KS][4], const uint2* W, int ld,
-                                        float (&acc)[NT][4]) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+// with the columns tig, tig + 4 standing for channels 8 ks + 2 tig, + 1
+// (b_offset); whi, wlo describe W's hi and lo planes.  Three products a
+// k-step, the two small terms first.
+template <int NT>
+__device__ __forceinline__ void product(const float (&h)[kC1 / 8][4], uint64_t whi,
+                                        uint64_t wlo, float (&acc)[NT][4]) {
+  uint32_t hi[kC1 / 8][4], lo[kC1 / 8][4];
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    mocopci::FragA fa;
-    fa.set({h[ks][0], h[ks][2], h[ks][1], h[ks][3]});
-    const uint2* w0 = W + (ks * 8 + 2 * tig) * ld + gid;
+  for (int ks = 0; ks < kC1 / 8; ++ks) {
+    const float a[4] = {h[ks][0], h[ks][2], h[ks][1], h[ks][3]};
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint2 b0 = w0[nt * 8], b1 = w0[ld + nt * 8];
-      mocopci::FragB fb;
-      fb.hi[0] = b0.x;
-      fb.lo[0] = b0.y;
-      fb.hi[1] = b1.x;
-      fb.lo[1] = b1.y;
-      mocopci::mma_3xtf32(acc[nt], fa, fb);
+    for (int i = 0; i < 4; ++i) mocopci::split_tf32(a[i], hi[ks][i], lo[ks][i]);
+  }
+  mocopci::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kC1 / 8; ++ks) {
+    const uint64_t o = ks * (2 * kLbo >> 4);     // the k-step's two core matrices
+    if constexpr (NT == 8) {
+      mocopci::wgmma_m64n64k8(acc, lo[ks], whi + o);
+      mocopci::wgmma_m64n64k8(acc, hi[ks], wlo + o);
+      mocopci::wgmma_m64n64k8(acc, hi[ks], whi + o);
+    } else {
+      mocopci::wgmma_m64n128k8(acc, lo[ks], whi + o);
+      mocopci::wgmma_m64n128k8(acc, hi[ks], wlo + o);
+      mocopci::wgmma_m64n128k8(acc, hi[ks], whi + o);
     }
   }
+  mocopci::wgmma_commit();
+  mocopci::wgmma_wait();
 }
 
 // this thread's running (sum z, sum z^2) of columns nt * 8 + 2 tig + e over
@@ -100,30 +116,29 @@ __global__ void __launch_bounds__(kFThreads, 1) fusion_head_fwd_kernel(
     int G, int F, int P) {
   constexpr int GW = group_width(MODE);
   constexpr int NS = MODE < 3 ? GW / 8 : 1;   // n-tiles of the summed layer
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(128) float sm[];
   float* vec = sm;                                                 // kVecAll
-  uint2* W2s = reinterpret_cast<uint2*>(vec + kVecAll);            // [kC1][kLdF2]
-  uint2* W3s = W2s + kC1 * kLdF2;                                  // [kC2][kLdF3]
+  uint32_t* W2s = reinterpret_cast<uint32_t*>(vec + kVecAll);      // hi, lo planes
+  uint32_t* W3s = W2s + 2 * kC1 * kC2;                             // hi, lo planes
   float* st = vec + kVecAll + fwd_weight_floats(MODE);             // [F][2][kCS] mean | rstd
   float* accw = st + F * 2 * kCS;                                  // [kFWarps][F][2][GW]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   for (int e = tid; e < kNParam; e += kFThreads) {
     const float p = params[e];
-    uint2 hl;
     if (e < OW2) {
       vec[e] = p;
     } else if (e < OB2) {
       if (MODE >= 1) {
-        mocopci::split_tf32(p, hl.x, hl.y);
-        W2s[(e - OW2) / kC2 * kLdF2 + (e - OW2) % kC2] = hl;
+        const int o = b_offset((e - OW2) / kC2, (e - OW2) % kC2);
+        mocopci::split_tf32(p, W2s[o], W2s[kC1 * kC2 + o]);
       }
     } else if (e < OW3) {
       vec[SB2 + e - OB2] = p;
     } else if (e < OB3) {
       if (MODE >= 2) {
-        mocopci::split_tf32(p, hl.x, hl.y);
-        W3s[(e - OW3) / kC3 * kLdF3 + (e - OW3) % kC3] = hl;
+        const int o = b_offset((e - OW3) / kC3, (e - OW3) % kC3);
+        mocopci::split_tf32(p, W3s[o], W3s[kC2 * kC3 + o]);
       }
     } else {
       vec[SB3 + e - OB3] = p;
@@ -131,7 +146,12 @@ __global__ void __launch_bounds__(kFThreads, 1) fusion_head_fwd_kernel(
   }
   for (int e = tid; e < F * 2 * kCS; e += kFThreads) st[e] = stats[e];
   for (int e = tid; e < kFWarps * F * 2 * GW; e += kFThreads) accw[e] = 0.f;
+  mocopci::fence_async_shared();
   __syncthreads();
+  const uint64_t w2hi = mocopci::wgmma_desc(W2s, kLbo, kSbo);
+  const uint64_t w2lo = mocopci::wgmma_desc(W2s + kC1 * kC2, kLbo, kSbo);
+  const uint64_t w3hi = mocopci::wgmma_desc(W3s, kLbo, kSbo);
+  const uint64_t w3lo = mocopci::wgmma_desc(W3s + kC2 * kC3, kLbo, kSbo);
 
   float sa[NS][2], sb[NS][2];
   auto clear = [&]() {
@@ -203,7 +223,7 @@ __global__ void __launch_bounds__(kFThreads, 1) fusion_head_fwd_kernel(
     for (int nt = 0; nt < kC2 / 8; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) h2[nt][q] = vec[SB2 + nt * 8 + 2 * tig + (q & 1)];
-    product<kC2 / 8, kC1 / 8>(h1, W2s, kLdF2, h2);
+    product(h1, w2hi, w2lo, h2);
     if constexpr (MODE == 1) {
       sum_rows(h2, v0, v1, sa, sb);
       continue;
@@ -223,7 +243,7 @@ __global__ void __launch_bounds__(kFThreads, 1) fusion_head_fwd_kernel(
     for (int nt = 0; nt < kC3 / 8; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) z3[nt][q] = vec[SB3 + nt * 8 + 2 * tig + (q & 1)];
-    product<kC3 / 8, kC2 / 8>(h2, W3s, kLdF3, z3);
+    product(h2, w3hi, w3lo, z3);
     if constexpr (MODE == 2) {
       sum_rows(z3, v0, v1, sa, sb);
       continue;

@@ -10,8 +10,9 @@ no (G, C, P) activation; its group and weight sums are reduced in a fixed
 order.  The kernel forms the variance as E[z²] − mean² (in float64 on the
 host, from float32 sums, as the TPU kernel does in float32); the twin as the
 mean of squared deviations, as JAX's CPU path.  Operations bound it.  Both
-the forward sweeps (``SOURCE``) and the backward sweeps (``SOURCE_BWD``) run
-their products on the tensor cores at float32 grade.
+the forward sweeps (``SOURCE``, warpgroup products: ``wgmma``) and the
+backward sweeps (``SOURCE_BWD``, warp products: ``mma.sync``) run their
+products on the tensor cores at float32 grade.
 """
 from __future__ import annotations
 
@@ -79,10 +80,9 @@ def fusion_head_train_bwd_plain(x, params, n_groups, eps, d_o):
 
 def _fwd_smem(F: int) -> int:
     """Bytes of shared memory of the largest forward sweep (sweep 2): the
-    vectors (1024 floats), W2 and W3 with padded rows split into (hi, lo) TF32
-    pairs (25088), the (F, 2, 256) stat rows and 8 warps' (F, 2, 128) group
-    sums."""
-    return (1024 + 25088 + 2 * F * 256 + 8 * F * 2 * 128) * 4
+    vectors (1024 floats), W2 and W3 split into hi and lo TF32 planes
+    (24576), the (F, 2, 256) stat rows and 8 warps' (F, 2, 128) group sums."""
+    return (1024 + 24576 + 2 * F * 256 + 8 * F * 2 * 128) * 4
 
 
 def _bwd_smem(F: int) -> int:

@@ -243,7 +243,8 @@ def main() -> int:
     for name, proc in procs:
         log, _ = proc.communicate()
         lines = [ln for ln in log.splitlines()
-                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln or "error" in ln]
+                 if any(w in ln for w in ("Used", "spill", "Compiling entry", "error", "warning",
+                                        "Performance"))]
         print(f"--- ptxas {name} (rc {proc.returncode})\n" + "\n".join(lines), flush=True)
         failed |= proc.returncode != 0
     if failed:
