@@ -395,7 +395,8 @@ class Parent:
         self.lib = ctypes.CDLL(path)
         self.blocks = number("fusion_head_train.py", r"^BLOCKS = (\d+)")
         n_ptr = number("_lib.py", r'"attention_train_bwd_wide": \[_P\] \* (\d+)')
-        self.wide_keys = number("attention_train.py", r"^WIDE_KEYS = (\d+)") if n_ptr == 10 else None
+        self.wide_keys = (number("attention_train.py", r"^WIDE_KEYS = (\d+)") if n_ptr == 10
+                          else None)
         self.lib.mocopci_fusion_head_train_fwd.argtypes = _lib.SIGNATURES["fusion_head_train_fwd"]
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib.mocopci_attention_train_bwd_wide.argtypes = [P] * n_ptr + [I] * 4 + [F, P, I, F, P]

@@ -123,8 +123,8 @@ def _padded_dim(D: int) -> int:
 
 
 def attention_train_bwd(q, k, v, out, lse, dout, seed, scale, rate):
-    """Kernel backward: (dq, dk, dv) on the card, by the one-pass route for
-    D <= MAX_BWD_D and the wide route above."""
+    """Kernel backward: (dq, dk, dv) on the card, by ``attention_train_bwd``
+    for D <= MAX_BWD_D and ``attention_train_bwd_wide`` above."""
     _check(q, k, v)
     _check_seed(seed, q)
     _lib.check_cuda("attention_train dout", dout, torch.float32, 3)

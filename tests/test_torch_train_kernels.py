@@ -110,6 +110,28 @@ def test_attention_train_output_and_grads_match_jax(rate):
         assert_close(leaf.grad, g, atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("rate", [0.05, 0.0])
+def test_attention_train_wide_heads_match_jax(rate):
+    """Head dims past the one-pass route's 64 (the card's wide route), and
+    not a multiple of 8: output and gradients against the Pallas kernel."""
+    rng = np.random.default_rng(3)
+    G, N, M, D, seed = 2, 24, 40, 70, 11
+    q, k, v, co = _np(rng, G, N, D), _np(rng, G, M, D), _np(rng, G, M, D), _np(rng, G, N, D)
+
+    def loss(q, k, v):
+        out = jax_attention_train(q, k, v, jnp.int32(seed), D ** -0.5, rate, True)
+        return jnp.sum(out * co), out
+
+    (_, want), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    leaves = _leaves(q, k, v)
+    out = kernels.attention_train(*leaves, torch.tensor([seed], dtype=torch.int32),
+                                  D ** -0.5, rate)
+    (out * t(co)).sum().backward()
+    assert_close(out, want, atol=1e-5, rtol=1e-5)
+    for leaf, g in zip(leaves, grads):
+        assert_close(leaf.grad, g, atol=1e-5, rtol=1e-4)
+
+
 def _cross_inputs(rng, G, M, S, K, C, C2):
     tab, base = _np(rng, G, M, C), _np(rng, G, S, C)
     w, b = _np(rng, C, C2, scale=0.2), _np(rng, C2, scale=0.1)
