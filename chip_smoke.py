@@ -17,14 +17,16 @@ Phases, each fatal on failure:
      pairs, the launch counts read, the Chamfer distance to the same model
      run with ``device="cpu"`` (the plain twins), the median forward time and
      peak memory; one profiled forward in approx mode (device time per
-     kernel, the device's busy share);
+     kernel, the device's busy share, each FPS launch's shape and device ms,
+     the SM clock before and after);
   5. the eval path: ``eval_step`` (forward, CD, EMD) on one sample, its
      metrics against the CPU's, the times of its parts, then the eval CLI
      ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
   6. the train path: ``create_train_state`` at ``ModelConfig()`` (seed 0) and
      6 ``train_step``s at B=2 on synthetic pairs (finite losses, launches,
      median step time of the last 5, peak memory, one profiled step with
-     each train attention backward's shape, route and device ms); one
+     each train attention backward's shape, route and device ms and each FPS
+     launch's shape and device ms); one
      step at ``tiny_model_config(4096)`` on the card against the CPU (loss
      components within rel 1e-4, the whole gradient within rel L2 1e-3, each
      leaf within 5e-2: see ``run_train_parity``);
@@ -42,10 +44,15 @@ planes) are checked in phase 3 at the train step's shapes, each run twice to
 show it repeats its bits; the attention backward on both its routes (one
 pass up to head dim 64 and the wide route at the CrossFrameBlock's 256,
 each with and without dropout, beside SDPA's float32 backward without
-dropout).  With ``--parent TREE`` (another checkout, for example the parent
-commit unpacked with ``git archive``) that tree's train fusion head forward
-and attention backward wide route are built alone and timed beside this
-tree's at the same shapes.  The op kernels (select_min_k, the one-hot scatter,
+dropout); the cost-volume tail's forward with its argmax against the twin's
+first argmax, and its backward from that argmax.  FPS at the train step's
+(6, 8192) -> 2048 and the encoder's pyramid (2, 8192) -> 2048/512/256/64 in
+one launch, each bit-equal to its plain version.  With ``--parent TREE``
+(another checkout, for example the parent commit unpacked with ``git
+archive``) that tree's ``cross_tail.cu``, ``fps.cu`` and ``common.cu`` are
+built alone and timed beside this tree's at the same shapes, in turns (its
+pyramid as that tree samples it: a launch a level and the gathers between,
+where it has no pyramid entry).  The op kernels (select_min_k, the one-hot scatter,
 the pair planes' rows forward and backward) at the shapes of phase 7; the
 one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
 by CUDA events and by device time under torch.profiler.
@@ -143,14 +150,33 @@ def add_row(rows, name, source, replaces, launch, plain, library, nbytes, flops,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
 
 
+def beside(parent_fn, fn, reps=REPS):
+    """The parent's call against this tree's, in turns (parent, here, here,
+    parent) by CUDA events, then each one's device µs under the profiler (no
+    host time between launches)."""
+    a, b, c, d = (median_ms(f, reps) for f in (parent_fn, fn, fn, parent_fn))
+    return (f"the parent's {a:.4f} / {d:.4f} ms against {b:.4f} / {c:.4f} ms here, in turns; "
+            f"device us {device_us(parent_fn, reps)} against {device_us(fn, reps)}")
+
+
+def fps_steps(row, npoints):
+    """The µs a step of an FPS row: its ms over the steps of its levels."""
+    row["us_per_step"] = 1e3 * row["ms"] / max(1, sum(n - 1 for n in npoints))
+    log(f"kernel {row['name']}: {row['us_per_step']:.4f} us a step over "
+        f"{sum(n - 1 for n in npoints)} steps")
+
+
 def frames(dataset, index, dev):
     inputs, _ = dataset[index]
     return [torch.from_numpy(f).to(dev) for f in inputs]
 
 
-def check_kernels(kernels, cfg, dataset, dev):
+def check_kernels(kernels, cfg, dataset, dev, parent=None):
     """Every kernel against its twin at the main path's shapes for ``cfg``;
-    returns the per-kernel JSON rows (launch counts filled in later)."""
+    returns the per-kernel JSON rows (launch counts filled in later);
+    ``parent`` (a :class:`Parent`), when given, its FPS and cost-volume tail
+    forward timed beside this tree's."""
+    from mocopci_torch.config import TrainConfig
     from mocopci_torch.ops.distance import _normalise
 
     mods = {name: importlib.import_module(f"mocopci_torch.kernels.{name}")
@@ -170,13 +196,41 @@ def check_kernels(kernels, cfg, dataset, dev):
         add_row(rows, name, module.SOURCE, module.REPLACES, launch, plain, library, nbytes,
                 flops, err, tol)
 
-    # fps: the encoder's level 0, both clouds, n0 -> n1
-    xyz = torch.stack([f[1], f[2]]).contiguous()
-    got, want = kernels.fps(xyz, n1), kernels.fps_plain(xyz, n1)
-    mism = int((got != want).sum())
-    log(f"fps {tuple(xyz.shape)} -> {n1}: index mismatches {mism}")
-    row("fps", mods["fps"], lambda: kernels.fps(xyz, n1), lambda: kernels.fps_plain(xyz, n1),
-        None, xyz.numel() * F32 + 2 * n1 * I32, 9.0 * 2 * (n1 - 1) * n0, float(mism), 0.0)
+    # fps: the refine head's and the loss's sampling in the train step, the
+    # B=2 step's 3 frames each, n0 -> refine_npoint; then the encoder's
+    # pyramid on both clouds of an eval pair, n0 -> cfg.pyramid, in one launch
+    G, npt = TrainConfig().batch_size * cfg.n_frames, cfg.refine_npoint
+    xyz = torch.stack([f[1], f[2], f[3]] * 2).contiguous()
+    mism = int((kernels.fps(xyz, npt) != kernels.fps_plain(xyz, npt)).sum())
+    log(f"fps {tuple(xyz.shape)} -> {npt}: index mismatches {mism}")
+    row("fps", mods["fps"], lambda: kernels.fps(xyz, npt),
+        lambda: kernels.fps_plain(xyz, npt), None, xyz.numel() * F32 + G * npt * I32,
+        9.0 * G * (npt - 1) * n0, float(mism), 0.0)
+    fps_steps(rows[-1], [npt])
+    pair = xyz[:2].contiguous()
+    level0 = median_ms(lambda: kernels.fps(pair, n1))
+    log(f"fps {tuple(pair.shape)} -> {n1} (the encoder's level 0 alone): {level0:.4f} ms, "
+        f"{1e3 * level0 / (n1 - 1):.4f} us a step")
+    levels = tuple(cfg.pyramid)
+    got = kernels.fps_pyramid(pair, levels)
+    mism = sum(int((a != b).sum()) for a, b in zip(got, kernels.fps_pyramid_plain(pair, levels)))
+    log(f"fps_pyramid {tuple(pair.shape)} -> {levels}: index mismatches {mism}")
+    add_row(rows, "fps_pyramid", mods["fps"].SOURCE, mods["fps"].REPLACES_PYRAMID,
+            lambda: kernels.fps_pyramid(pair, levels),
+            lambda: kernels.fps_pyramid_plain(pair, levels), None,
+            pair.numel() * F32 + 2 * sum(levels) * I32,
+            9.0 * 2 * sum((n - 1) * m for n, m in zip(levels, (n0,) + levels)), float(mism), 0.0)
+    fps_steps(rows[-1], levels)
+    if parent is not None:
+        same = all(torch.equal(a, b) for a, b in zip(parent.fps_pyramid(pair, levels), got))
+        same1 = torch.equal(parent.fps(xyz, npt), kernels.fps(xyz, npt))
+        log(f"fps_pyramid {tuple(pair.shape)} -> {levels} (indices equal {same}): "
+            + beside(lambda: parent.fps_pyramid(pair, levels),
+                     lambda: kernels.fps_pyramid(pair, levels)))
+        log(f"fps {tuple(xyz.shape)} -> {npt} (indices equal {same1}): "
+            + beside(lambda: parent.fps(xyz, npt), lambda: kernels.fps(xyz, npt)))
+        if not (same and same1):
+            raise SystemExit("fps: the parent's indices differ from this tree's")
 
     # knn: the fusion head's batched self + cross query, 2 x 3 frames
     k = cfg.fusion_k
@@ -256,6 +310,11 @@ def check_kernels(kernels, cfg, dataset, dev):
         (tab.numel() + base.numel() + w.numel() + b.numel() + out.numel()) * F32
         + idx.numel() * I32,
         G * N * K * (2 * C * C + 2 * C + 3 * C), err, 1e-4 * (1 + float(out.abs().max())))
+    if parent is not None:
+        gap = float((parent.cross_tail_fwd(tab, idx, base, w, b) - out).abs().max())
+        log(f"cross_tail fwd {tuple(idx.shape)} (the parent's error {gap:.3e}): "
+            + beside(lambda: parent.cross_tail_fwd(tab, idx, base, w, b),
+                     lambda: kernels.cross_tail(tab, idx, base, w, b)))
 
     # transformer_tail: the refine head, 3 frames x refine_npoint queries
     G, M, N, K, D = 3, cfg.refine_npoint, cfg.refine_npoint, cfg.refine_k, c1
@@ -353,10 +412,10 @@ def time_chamfer_vjp(kernels, pc1, pc2, what):
 
 
 def build_parent(tree):
-    """Start building another checkout's train fusion head forward sweeps and
-    train attention kernels (its ``fusion_head_train_fwd.cu``,
-    ``attention_train.cu`` and ``common.cu``) into a library of their own;
-    returns a function that waits for the build and gives a :class:`Parent`."""
+    """Start building another checkout's cost-volume tail and FPS kernels (its
+    ``cross_tail.cu``, ``fps.cu`` and ``common.cu``) into a library of their
+    own; returns a function that waits for the build and gives a
+    :class:`Parent`."""
     from mocopci_torch.kernels import _lib
 
     csrc = os.path.join(tree, "mocopci_torch", "csrc")
@@ -364,8 +423,7 @@ def build_parent(tree):
                        "libparent.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-I", csrc, "-o", out,
-           *(os.path.join(csrc, f) for f in ("fusion_head_train_fwd.cu", "attention_train.cu",
-                                               "common.cu"))]
+           *(os.path.join(csrc, f) for f in ("cross_tail.cu", "fps.cu", "common.cu"))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish():
@@ -377,65 +435,93 @@ def build_parent(tree):
 
 
 class Parent:
-    """Another checkout's train fusion head forward (its four sweeps on that
-    tree's grid, ``BLOCKS``) and attention backward wide route, called through
-    their C entry points; the wide route with a work buffer where that tree's
-    entry takes one (``WIDE_KEYS`` keys a block)."""
+    """Another checkout's cost-volume tail (forward and backward) and FPS
+    kernels, called through their C entry points with the argument lists of
+    that tree's ``_lib.SIGNATURES``: a tree without ``fps_pyramid`` samples a
+    pyramid by one launch a level and a gather between levels, and its
+    cross_tail backward recomputes the max from the forward's output (no
+    argmax), on that tree's grid (``BWD_BLOCKS``)."""
 
     def __init__(self, tree, path):
         import ctypes
 
-        from mocopci_torch.kernels import _lib
-
-        def number(rel, pattern):
-            with open(os.path.join(tree, "mocopci_torch", "kernels", rel)) as f:
-                m = re.search(pattern, f.read(), re.M)
-            return int(m.group(1)) if m else None
-
+        spec = importlib.util.spec_from_file_location(
+            "parent_lib", os.path.join(tree, "mocopci_torch", "kernels", "_lib.py"))
+        plib = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(plib)
+        self.sig = plib.SIGNATURES
+        self.argmax = len(self.sig["cross_tail"]) == 14
+        with open(os.path.join(tree, "mocopci_torch", "kernels", "cross_tail.py")) as f:
+            self.bwd_blocks = int(re.search(r"^BWD_BLOCKS = (\d+)", f.read(), re.M).group(1))
         self.lib = ctypes.CDLL(path)
-        self.blocks = number("fusion_head_train.py", r"^BLOCKS = (\d+)")
-        n_ptr = number("_lib.py", r'"attention_train_bwd_wide": \[_P\] \* (\d+)')
-        self.wide_keys = (number("attention_train.py", r"^WIDE_KEYS = (\d+)") if n_ptr == 10
-                          else None)
-        self.lib.mocopci_fusion_head_train_fwd.argtypes = _lib.SIGNATURES["fusion_head_train_fwd"]
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.mocopci_attention_train_bwd_wide.argtypes = [P] * n_ptr + [I] * 4 + [F, P, I, F, P]
+        for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid"):
+            if name in self.sig:
+                fn = getattr(self.lib, f"mocopci_{name}")
+                fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
 
-    def fusion_head_train_fwd(self, fht, x, params, F):
-        """This tree's wrapper with its launches sent to the other library."""
-        from mocopci_torch.kernels import _lib
+    def _call(self, name, *args):
+        if getattr(self.lib, f"mocopci_{name}")(*args, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"the parent's {name} failed")
 
-        def launch(name, *args):
-            if getattr(self.lib, f"mocopci_{name}")(*args):
-                raise RuntimeError(f"the parent's {name} failed")
+    def fps(self, xyz, npoint):
+        B, N, _ = xyz.shape
+        out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+        self._call("fps", xyz.data_ptr(), B, N, npoint, out.data_ptr())
+        return out
 
-        saved = _lib.launch, fht.BLOCKS
-        _lib.launch, fht.BLOCKS = launch, self.blocks
-        try:
-            return fht.fusion_head_train_fwd(x, params, F)
-        finally:
-            _lib.launch, fht.BLOCKS = saved
+    def fps_pyramid(self, xyz, npoints):
+        """That tree's pyramid: its one launch, or a launch a level with the
+        row gathers between levels, as that tree's ``ops.sampling`` did."""
+        from mocopci_torch.kernels._lib import group_rows
 
-    def attention_train_bwd_wide(self, at, q, k, v, out, lse, dout, seed, scale, rate):
-        G, N, D = q.shape
-        M = k.shape[1]
-        thr, kscale = at.dropout_constants(rate)
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        work = [] if self.wide_keys is None else [torch.empty(
-            G * -(-M // self.wide_keys) * N * D + G * N, device=q.device)]
-        if self.lib.mocopci_attention_train_bwd_wide(
-                *(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, *work)), G, N, M,
-                D, float(scale), seed.data_ptr(), thr, kscale,
-                torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError("the parent's attention_train_bwd_wide failed")
-        return dq, dk, dv
+        B, N, _ = xyz.shape
+        if "fps_pyramid" in self.sig:
+            out = torch.empty(B * sum(npoints), dtype=torch.int32, device=xyz.device)
+            levels = torch.tensor(npoints, dtype=torch.int32)
+            self._call("fps_pyramid", xyz.data_ptr(), B, N, levels.data_ptr(), len(npoints),
+                       out.data_ptr())
+            return tuple(o.view(B, n) for o, n in zip(out.split([B * n for n in npoints]),
+                                                      npoints))
+        idxs, pc = [], xyz
+        for n in npoints:
+            i = self.fps(pc, n)
+            pc = group_rows(pc, i).contiguous()
+            idxs.append(i)
+        return tuple(idxs)
+
+    def cross_tail_fwd(self, tab, idx, base, w, b):
+        B, M, C = tab.shape
+        N, K, C2 = idx.shape[1], idx.shape[2], w.shape[1]
+        out = torch.empty((B, N, C2), dtype=torch.float32, device=tab.device)
+        amax = [0] if self.argmax else []
+        self._call("cross_tail", tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(),
+                   b.data_ptr(), out.data_ptr(), *amax, B, M, N, K, C, C2)
+        return out
+
+    def cross_tail_bwd(self, tab, idx, base, w, b, out, amax, dout):
+        """(d_rows, d_base, dw, db) from that tree's backward: from ``out``
+        alone where it recomputes the max, else from ``amax`` too."""
+        B, M, C = tab.shape
+        N, K, C2 = idx.shape[1], idx.shape[2], w.shape[1]
+        dev = tab.device
+        d_rows = torch.empty((B, N, K, C), device=dev)
+        d_base = torch.empty((B, N, C), device=dev)
+        dwb = torch.empty(C * C2 + C2, device=dev)
+        nblk = min(self.bwd_blocks, B * N)
+        partial = torch.empty(nblk * (C * C2 + C2), device=dev)
+        lead = ((w, out, amax) if self.argmax else (w, b, out))
+        self._call("cross_tail_bwd", tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
+                   *(t.data_ptr() for t in lead), dout.data_ptr(), d_rows.data_ptr(),
+                   d_base.data_ptr(), dwb.data_ptr(), partial.data_ptr(), B, M, N, K, C, C2,
+                   nblk)
+        return d_rows, d_base, dwb[:C * C2].view(C, C2), dwb[C * C2:]
 
 
 def check_train_kernels(kernels, cfg, dev, rows, parent=None):
     """The train kernels against their plain versions at the train step's
     shapes (B=2, the 3 frames folded into the batch: G = 6), each repeated
     once to show it returns the same bits; ``parent`` (a :class:`Parent`),
-    when given, timed beside the two kernels it holds."""
+    when given, its cost-volume tail timed beside this tree's."""
     from mocopci_torch.config import TrainConfig
 
     (attention_train, cross_tail, fusion_head_train, fusion_pair, scatter_add,
@@ -568,41 +654,67 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
             Gw * n3 * n3 * 10.0 * c3,
             err_of(got, attention_train.attention_train_bwd_plain(q, k, vv, seed_i, sc, rate, do)),
             1e-4, peak=PEAK_3XTF32_FLOPS)
-    if parent is not None:
-        def parent_wide():
-            return parent.attention_train_bwd_wide(attention_train, q, k, vv, out, lse, do, seed,
-                                                   sc, rate)
-        gap = err_of(parent_wide(), got)
-        log(f"attention_train bwd wide {tuple(q.shape)}: the parent's kernels "
-            f"{median_ms(parent_wide):.4f} ms against {rows[-1]['ms']:.4f} ms here (the "
-            f"results differ by {gap:.3e})")
     del q, k, vv, do, out, lse, got, out0, lse0, got0
 
-    # cross_tail backward: bid / fe at up_1, G x n1 queries, K = flow_nei;
-    # the rows' gradient compared after its scatter (ties split differently)
+    # cross_tail at up_1, bid / fe: G x n1 queries, K = flow_nei.  The forward
+    # with its argmax against the twin's first argmax (where they differ, the
+    # two pre-max values within 1e-5: a near tie summed in another order),
+    # then the backward from it, the rows' gradient compared after its scatter
+    # (ties split differently)
     M, N, K, C = n1, n1, cfg.flow_nei, c1
     tab, base, dout = rnd(G, M, C), rnd(G, N, C), rnd(G, N, C)
     w, b = rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1)
     idx = idx_of(G, N, K, high=M)
-    out = cross_tail.cross_tail_fwd(tab, idx, base, w, b)
-    got = cross_tail.cross_tail_bwd(tab, idx, base, w, b, out, dout)
+    amax = torch.empty((G, N, C), dtype=cross_tail.argmax_dtype(K), device=dev)
+    out = cross_tail.cross_tail_fwd(tab, idx, base, w, b, amax)
+    want_amax = cross_tail.cross_tail_argmax_plain(tab, idx, base, w, b)
+    h = cross_tail._tail_pre(kernels._lib.group_rows(tab, idx), base, w, b)
+    tie_gap = float((h.gather(2, amax.long()[:, :, None]) - h.gather(
+        2, want_amax.long()[:, :, None])).abs().max())
+    del h
+    log(f"cross_tail fwd {tuple(idx.shape)} argmax: mismatches against the twin's "
+        f"{int((amax != want_amax).sum())}, largest pre-max gap there {tie_gap:.3e}")
+    if tie_gap > 1e-5:
+        raise SystemExit("cross_tail: the forward's argmax is not a max")
+    fwd_ms = [median_ms(lambda: cross_tail.cross_tail_fwd(tab, idx, base, w, b, amax)),
+              median_ms(lambda: cross_tail.cross_tail_fwd(tab, idx, base, w, b))]
+    log(f"cross_tail fwd {tuple(idx.shape)}: {fwd_ms[0]:.4f} ms with the argmax, "
+        f"{fwd_ms[1]:.4f} ms without")
+    if parent is not None:
+        log(f"cross_tail fwd {tuple(idx.shape)} with the argmax: "
+            + beside(lambda: parent.cross_tail_fwd(tab, idx, base, w, b),
+                     lambda: cross_tail.cross_tail_fwd(tab, idx, base, w, b, amax)))
+    got = cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
     want = cross_tail.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
-    same = bits_equal(got, cross_tail.cross_tail_bwd(tab, idx, base, w, b, out, dout))
+    same = bits_equal(got, cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, dout))
     flat_idx = idx.reshape(G, N * K)
-    d_tab = [scatter_add.gather_backward(r.reshape(G, N * K, C), flat_idx, M)
-             for r in (got[0], want[0])]
-    err = rel_err([d_tab[0], *got[1:]], [d_tab[1], *want[1:]])
+
+    def d_tab(r):
+        return scatter_add.gather_backward(r.reshape(G, N * K, C), flat_idx, M)
+
+    err = rel_err([d_tab(got[0]), *got[1:]], [d_tab(want[0]), *want[1:]])
     log(f"cross_tail bwd: repeat bit-equal {same}; d_tab/d_base/dw/db error over "
         f"max(1, |value|) {err:.3e}")
     if not same:
         raise SystemExit("cross_tail_bwd: a run did not repeat its bits")
+    # the bound: the sparse work from the saved argmax (gv W into one row per
+    # channel, leaky' of every row, dW and db), every input read once (the
+    # argmax a byte an entry), every output written once
     add_row(rows, "cross_tail_bwd", cross_tail.SOURCE, cross_tail.REPLACES_BWD,
-            lambda: cross_tail.cross_tail_bwd(tab, idx, base, w, b, out, dout),
+            lambda: cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, dout),
             lambda: cross_tail.cross_tail_bwd_plain(tab, idx, base, w, b, dout), None,
-            (tab.numel() + 3 * base.numel() + 2 * w.numel() + 2 * b.numel() + 2 * out.numel()
-             + N * K * C * G) * F32 + idx.numel() * I32,
-            G * N * (2.0 * K * C * C + 4 * C * C + 3 * K * C), err, 1e-4)
-    del tab, base, dout, out, got, want, d_tab
+            (tab.numel() + 2 * base.numel() + 2 * w.numel() + b.numel() + 2 * out.numel()
+             + N * K * C * G) * F32 + idx.numel() * I32 + amax.numel() * amax.element_size(),
+            G * N * (4.0 * C * C + 3 * K * C), err, 1e-4)
+    if parent is not None:
+        pout = parent.cross_tail_fwd(tab, idx, base, w, b)
+        pgot = parent.cross_tail_bwd(tab, idx, base, w, b, pout, amax, dout)
+        gap = rel_err([d_tab(pgot[0]), *pgot[1:]], [d_tab(got[0]), *got[1:]])
+        log(f"cross_tail bwd {tuple(idx.shape)} (results differ by {gap:.3e} over max(1, "
+            f"|value|) after the scatter): "
+            + beside(lambda: parent.cross_tail_bwd(tab, idx, base, w, b, pout, amax, dout),
+                     lambda: cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, dout)))
+    del tab, base, dout, out, amax, want_amax, got, want
 
     # transformer_tail backward: the refine head, G x refine_npoint, K = refine_k
     M = N = cfg.refine_npoint
@@ -661,15 +773,6 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
             lambda: fusion_head_train.fusion_head_train_plain(planes, params, F), None,
             (planes.numel() + o.numel() + packed.numel()) * F32, G * P * products,
             float((o - want_o).abs().max()), 1e-3, reps=5, peak=PEAK_3XTF32_FLOPS)
-    if parent is not None:
-        def parent_fwd():
-            return parent.fusion_head_train_fwd(fusion_head_train, planes, params, F)
-        po, pstats, _ = parent_fwd()
-        gap = rel_err([po, *[t for s in pstats for t in s]], [o, *[t for s in stats for t in s]])
-        log(f"fusion_head_train fwd {tuple(planes.shape)}: the parent's sweeps "
-            f"{median_ms(parent_fwd, 5):.4f} ms against {rows[-1]['ms']:.4f} ms here (o and "
-            f"stats differ by {gap:.3e} over max(1, |value|))")
-        del po, pstats
     # the gradient follows the channel max and the ReLU kinks; where the top
     # two channels are within 1e-4 relative, or a hidden pre-activation within
     # 1e-4 of 0, kernel and twin (sums in another order) may route it
@@ -924,9 +1027,10 @@ def chamfer(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # launch-counter names of the kernels the forward runs in each kNN mode
 FORWARD_KERNELS = {
-    "approx": ("fps", "knn_approx", "attention", "cross_tail", "transformer_tail",
-               "fusion_pair"),
-    "exact": ("fps", "knn", "attention", "cross_tail", "transformer_tail", "fusion_pair"),
+    "approx": ("fps", "fps_pyramid", "knn_approx", "attention", "cross_tail",
+               "transformer_tail", "fusion_pair"),
+    "exact": ("fps", "fps_pyramid", "knn", "attention", "cross_tail", "transformer_tail",
+              "fusion_pair"),
 }
 
 
@@ -974,7 +1078,8 @@ def run_slice(kernels, cfg, dataset, dev, model, cpu_model, mode):
     peak = torch.cuda.max_memory_allocated()
     log(f"slice {mode}: ModelConfig() B=1 eval forward median {fwd_ms:.3f} ms over 12 runs "
         f"(min {min(times):.3f}, max {max(times):.3f}), peak memory {peak / 2**20:.1f} MiB")
-    busy = profile(lambda: interpolate(model, *pairs[0]), "forward") if mode == "approx" else {}
+    busy = (profile_fps_calls(lambda: interpolate(model, *pairs[0]), "forward")
+            if mode == "approx" else {})
     return launches, {"forward_ms": fwd_ms, "forward_ms_min": min(times),
                       "forward_ms_max": max(times), "cd_max": max(cds),
                       "peak_mib": peak / 2**20, **busy}
@@ -1062,10 +1167,10 @@ def run_eval(kernels, cfg, dataset, dev, model, cpu_model):
 
 
 # the kernels one train step launches in the default (approx) kNN mode
-TRAIN_KERNELS = ("fps", "knn_approx", "cross_tail", "cross_tail_bwd", "transformer_tail",
-                 "transformer_tail_bwd", "attention_train_fwd", "attention_train_bwd",
-                 "attention_train_bwd_wide", "fusion_pair_planes", "fusion_head_train_fwd", "fusion_head_train_bwd",
-                 "chamfer_pair", "scatter_add")
+TRAIN_KERNELS = ("fps", "fps_pyramid", "knn_approx", "cross_tail", "cross_tail_bwd",
+                 "transformer_tail", "transformer_tail_bwd", "attention_train_fwd",
+                 "attention_train_bwd", "attention_train_bwd_wide", "fusion_pair_planes",
+                 "fusion_head_train_fwd", "fusion_head_train_bwd", "chamfer_pair", "scatter_add")
 TRAIN_STEPS = 6
 ZERO_GRAD_LEAVES = {f"estimator.fusion_conv{i}.bias" for i in range(3)}
 
@@ -1153,9 +1258,71 @@ def profile_attention_calls(step):
 
     attention_train.attention_train_bwd = recorded
     try:
-        return profile(step, "train step", per_call)
+        return profile_fps_calls(step, "train step", per_call)
     finally:
         attention_train.attention_train_bwd = bwd
+
+
+def sm_clock() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0] if out.strip() else "not read"
+
+
+def profile_fps_calls(fn, what, trace=None):
+    """One profiled call of ``fn`` (``profile``), with each FPS launch logged
+    in call order: its entry, (B, N, npoints), device ms by CUDA events around
+    the launch and, where the profiler traced every FPS kernel, by the
+    profiler, and µs a step; the SM clock, power and temperature read before
+    and after.  ``trace``, when given, reads the profile too."""
+    from torch.autograd import DeviceType
+
+    sampling = importlib.import_module("mocopci_torch.ops.sampling")
+    calls, saved = [], (sampling.fps, sampling.fps_pyramid)
+
+    def timed(entry, launch, xyz, npoints):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch()
+        end.record()
+        calls.append((entry, xyz.shape[0], xyz.shape[1], npoints, start, end))
+        return out
+
+    def fps(xyz, npoint):
+        return timed("fps", lambda: saved[0](xyz, npoint), xyz, (int(npoint),))
+
+    def fps_pyramid(xyz, npoints):
+        return timed("fps_pyramid", lambda: saved[1](xyz, npoints), xyz, tuple(npoints))
+
+    def per_call(prof):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and ("fps_kernel" in e.name or "fps_pyramid_kernel" in e.name))
+        traced = len(spans) == len(calls)
+        total = 0.0
+        for i, (entry, B, N, npoints, start, end) in enumerate(calls):
+            ms = start.elapsed_time(end)
+            total += ms
+            steps = max(1, sum(n - 1 for n in npoints))
+            prof_ms = (spans[i][1] - spans[i][0]) / 1e3 if traced else None
+            log(f"{what} fps launch {entry} (B, N, npoints) ({B}, {N}, {npoints}): device ms "
+                f"{ms:.4f} by CUDA events ({1e3 * ms / steps:.4f} us a step), "
+                + (f"{prof_ms:.4f} by the profiler" if traced else "not matched in the profile"))
+        log(f"{what} fps: {len(calls)} launches, device ms {total:.4f} by CUDA events; the "
+            f"profiler traced {len(spans)} FPS kernels, device ms "
+            f"{sum(b - a for a, b in spans) / 1e3:.4f}")
+        if trace is not None:
+            trace(prof)
+
+    sampling.fps, sampling.fps_pyramid = fps, fps_pyramid
+    try:
+        log(f"{what}: SM clock, max, power, temperature before: {sm_clock()}")
+        busy = profile(fn, what, per_call)
+        log(f"{what}: SM clock, max, power, temperature after: {sm_clock()}")
+        return busy
+    finally:
+        sampling.fps, sampling.fps_pyramid = saved
 
 
 def run_train_parity(kernels, dev):
@@ -1252,7 +1419,8 @@ def run_train_cli(kernels):
 
 
 # device-kernel name fragment -> port kernel, for the profile breakdown
-KERNEL_SYMBOLS = {"fps_kernel": "fps", "knn_xyz_kernel": "knn_exact",
+KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
+                  "knn_xyz_kernel": "knn_exact",
                   "knn_dot_kernel": "knn_exact", "knn_approx_xyz_kernel": "knn_approx",
                   "knn_approx_dot_kernel": "knn_approx", "chamfer_pair_kernel": "chamfer_pair",
                   "attention_kernel": "attention",
@@ -1325,8 +1493,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="TREE",
-                    help="another checkout whose train fusion head forward and attention "
-                         "backward wide route are timed beside this tree's")
+                    help="another checkout whose FPS and cost-volume tail kernels are timed "
+                         "beside this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1357,7 +1525,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     cfg = ModelConfig()
     dataset = SyntheticInterpolationDataset(length=3, num_points=cfg.npoints, seed=0)
-    rows = check_kernels(kernels, cfg, dataset, dev)
+    rows = check_kernels(kernels, cfg, dataset, dev, parent)
     check_train_kernels(kernels, cfg, dev, rows, parent)
     check_op_kernels(kernels, cfg, dev, rows)
     torch.cuda.empty_cache()

@@ -5,21 +5,34 @@
 // kernel reads materialised k-major rows; this one gathers each row itself
 // from the (B, M, C) table, so the (B, K*N1, C) row tensor never exists.
 //
-// Bound on the H100: operations, 2*N1*K*C*C2 flops (1.6 GFLOP per up_1 call)
-// against K*N1*C*4 gathered bytes.  Design: one block per tile of QT queries;
-// W (C x C2) is loaded into shared memory once per block and reused for all
-// QT*K rows.  Per query the K gathered rows (after the first leaky) sit in
-// shared memory; thread t owns output channel t % C2 and neighbour slice
-// t / C2, keeps a running max, and the slices are max-reduced in shared
-// memory.  The (N1, K, C2) activation is never written.
+// Forward, bound on the H100: operations, 2*N1*K*C*C2 flops (1.6 GFLOP per
+// up_1 call) against K*N1*C*4 gathered bytes.  Design: one block per tile of
+// QT queries; W (C x C2) is loaded into shared memory once per block and
+// reused for all QT*K rows.  Per query the K gathered rows (after the first
+// leaky) sit in shared memory; thread t owns output channel t % C2 and
+// neighbour slice t / C2, keeps a running max, and the slices are
+// max-reduced in shared memory.  The (N1, K, C2) activation is never
+// written.  When the caller asks for it (training), the forward also writes
+// the first j attaining each max, j*(n, c2): strict > along a slice's
+// ascending j, the lowest j on ties across slices, one byte an entry for
+// K <= 255.
 //
 // Backward (cross_tail.py bwd :172, pallas_call :178, _bwd_kernel :81): the
-// same recompute per query, gradients to the first j attaining each max (the
-// K rows searched in slices side by side); each output channel's gradient
-// then lands on one row, added per column by the column's owner thread from
-// a transposed copy of W (no bank conflicts); d_rows, d_base, and dW/db as
-// per-block partials over a fixed set of queries, summed in block order
-// (deterministic).  Operations bound it too.
+// gradient of each (n, c2) goes to the first j attaining the max (the TPU
+// kernel's tie rule, cross_tail.py:20-31).  The TPU kernel recomputes the K x
+// C2 pre-activations of every query to find that j, since an HBM round trip
+// costs it more; here the forward saved j*, and since out = leaky(pre1 at
+// j*), leaky'(pre1 at j*) is 1 where out >= 0 and 0.1 elsewhere.  So the
+// backward does only the sparse work, about 2*C*C2 FMAs a query, and bytes
+// bound it: the (N, K, C) rows' gradient it writes (100 MB at the train
+// step's up_1).  Design: a fixed grid of blocks walks tiles of up to 256 / C
+// queries (4 at C = 64); a tile's neighbour rows are gathered by cp.async;
+// thread (query, c) adds gv * W[c, c2] into its own row j*(c2), c2
+// ascending, in shared memory, then writes its column of d_rows (zeros where a row won no
+// channel) and d_base; the block's dW and db are summed per entry in query
+// order, and the per-block partials in block order (deterministic).
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
@@ -27,15 +40,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kQT = 16;
 
+// kArg: also find and write the first j at each max (amax); without it the
+// instance is the plain running max
+template <typename IdxT, bool kArg>
 __global__ void __launch_bounds__(kThreads) cross_tail_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx,
     const float* __restrict__ base, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K, int C,
-    int C2) {
+    const float* __restrict__ bias, float* __restrict__ out, IdxT* __restrict__ amax, int M,
+    int N, int K, int C, int C2) {
   extern __shared__ float sm[];
   float* ws = sm;              // [C][C2]
   float* hs = ws + C * C2;     // [K][C]
-  float* red = hs + K * C;     // [kThreads]
+  float* red = hs + K * C;     // [kThreads] a slice's max
+  int* redj = reinterpret_cast<int*>(red + kThreads);  // [kThreads] its first j
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   for (int e = tid; e < C * C2; e += kThreads) ws[e] = w[e];
@@ -58,175 +75,240 @@ __global__ void __launch_bounds__(kThreads) cross_tail_kernel(
     for (int c20 = 0; c20 < C2; c20 += cw) {
       const int c2 = c20 + tid % cw;
       float m = -__int_as_float(0x7f800000);
+      int jm = K;
       if (sl < js && c2 < C2) {
         const float bb = bias[c2];
         for (int j = sl; j < K; j += js) {
           float acc = 0.f;
           const float* h = hs + j * C;
           for (int c = 0; c < C; ++c) acc = fmaf(h[c], ws[c * C2 + c2], acc);
-          m = fmaxf(m, mocopci::leaky(acc + bb));
+          const float v = mocopci::leaky(acc + bb);
+          if (!kArg) {
+            m = fmaxf(m, v);
+          } else if (v > m) {   // ascending j: strict > keeps the first j at the max
+            m = v;
+            jm = j;
+          }
         }
       }
       red[tid] = m;
+      if (kArg) redj[tid] = jm;
       __syncthreads();
       if (tid < cw && c20 + tid < C2) {
         float r = red[tid];
-        for (int t = 1; t < js; ++t) r = fmaxf(r, red[t * cw + tid]);
-        out[(static_cast<size_t>(b) * N + n) * C2 + c20 + tid] = r;
+        int rj = kArg ? redj[tid] : 0;
+        for (int t = 1; t < js; ++t) {
+          const float v = red[t * cw + tid];
+          if (!kArg) {
+            r = fmaxf(r, v);
+          } else if (v > r || (v == r && redj[t * cw + tid] < rj)) {
+            r = v;
+            rj = redj[t * cw + tid];
+          }
+        }
+        const size_t o = (static_cast<size_t>(b) * N + n) * C2 + c20 + tid;
+        out[o] = r;
+        if (kArg) amax[o] = static_cast<IdxT>(rj < K ? rj : 0);
       }
       __syncthreads();
     }
   }
 }
 
-// Backward, one query at a time per block (queries q = blockIdx.x + t*gridDim.x
-// of the flattened (B, N)): recompute the K rows, find for each output channel
-// the FIRST j whose activation equals the saved max (the TPU kernel's tie rule,
-// cross_tail.py:20-31), route dout there only, then d_rows / d_base per query
-// and this block's dW / db partial sums, in query order.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+constexpr size_t kMaxSmem = 227 * 1024;
+
+inline size_t bwd_smem_floats(int qt, int K, int C, int C2) {
+  return 2 * static_cast<size_t>(qt) * K * C + 2 * static_cast<size_t>(C) * C2 + C2 +
+         static_cast<size_t>(qt) * C + 2 * static_cast<size_t>(qt) * C2;
+}
+
+// queries a backward tile holds: a thread for each (query, channel) column,
+// fewer where the tile's rows would not fit shared memory
+inline int bwd_tile(int K, int C, int C2) {
+  int qt = C < kThreads ? kThreads / C : 1;
+  while (qt > 1 && bwd_smem_floats(qt, K, C, C2) * sizeof(float) > kMaxSmem) --qt;
+  return qt;
+}
+
+// Backward over tiles of qt flattened (B*N) queries, tile t = blockIdx.x +
+// i*gridDim.x: gather the rows, route each output channel's gradient to its
+// saved j*, write d_rows and d_base, add the tile into this block's dW / db.
+template <typename IdxT>
 __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx,
     const float* __restrict__ base, const float* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ out,
+    const float* __restrict__ out, const IdxT* __restrict__ amax,
     const float* __restrict__ dout, float* __restrict__ d_rows, float* __restrict__ d_base,
-    float* __restrict__ partial, int B, int M, int N, int K, int C, int C2) {
+    float* __restrict__ partial, int BN, int M, int N, int K, int C, int C2, int qt) {
   extern __shared__ float sm[];
-  float* ws = sm;                  // [C][C2]
-  float* wt = ws + C * C2;         // [C2][C]  W transposed, for the rows' gradient
-  float* dw = wt + C * C2;         // [C][C2]  this block's dW
-  float* db = dw + C * C2;         // [C2]     this block's db
-  float* gv = db + C2;             // [C2]     dout * leaky'(pre1) at the winning j
-  int* jstar = reinterpret_cast<int*>(gv + C2);   // [C2]
-  float* hs = reinterpret_cast<float*>(jstar + C2);  // [K][C] pre-activations
-  float* dx = hs + K * C;          // [K][C]
-  float* gf = dx + K * C;          // [kThreads] a slice's g at its first hit
-  int* jf = reinterpret_cast<int*>(gf + kThreads);   // [kThreads] that hit's j
+  float* rows = sm;                   // [qt][K][C] gathered rows, then x0 = leaky(row + base)
+  float* dx = rows + qt * K * C;      // [qt][K][C] the rows' gradient before leaky'
+  float* wt = dx + qt * K * C;        // [C2][C]    W transposed
+  float* dw = wt + C2 * C;            // [C2][C]    this block's dW, transposed
+  float* db = dw + C2 * C;            // [C2]       this block's db
+  float* bs = db + C2;                // [qt][C]    base
+  float* gv = bs + qt * C;            // [qt][C2]   dout * leaky'(pre1 at j*)
+  int* js = reinterpret_cast<int*>(gv + qt * C2);  // [qt][C2] j*
   const int tid = threadIdx.x;
-  const int cw = min(C2, kThreads);
-  const int ns = kThreads / cw;    // neighbour slices searched side by side
-  const int kc = (K + ns - 1) / ns;
+  const bool vec = (C & 3) == 0 && (reinterpret_cast<uintptr_t>(tab) & 15) == 0;
   for (int e = tid; e < C * C2; e += kThreads) {
-    ws[e] = w[e];
-    wt[(e % C2) * C + e / C2] = w[e];
+    const int c = e / C2, c2 = e - c * C2;
+    wt[c2 * C + c] = w[e];
     dw[e] = 0.f;
   }
   for (int e = tid; e < C2; e += kThreads) db[e] = 0.f;
+  for (int e = tid; e < qt * K * C; e += kThreads) dx[e] = 0.f;
 
-  for (int qf = blockIdx.x; qf < B * N; qf += gridDim.x) {
-    const int b = qf / N;
-    const int* in = idx + static_cast<size_t>(qf) * K;
-    const float* bn = base + static_cast<size_t>(qf) * C;
-    const float* tb = tab + static_cast<size_t>(b) * M * C;
-    __syncthreads();
-    for (int e = tid; e < K * C; e += kThreads) {
-      const int j = e / C, c = e - j * C;
-      hs[e] = tb[static_cast<size_t>(in[j]) * C + c] + bn[c];
-    }
-    __syncthreads();
-    // the first j whose activation equals the max: slice sl searches rows
-    // [sl*kc, (sl+1)*kc) up to its first hit; the lowest slice with a hit wins
-    for (int c20 = 0; c20 < C2; c20 += cw) {
-      const int c2 = c20 + tid % cw, sl = tid / cw;
-      int js = K;
-      float g = 0.f;
-      if (sl < ns && c2 < C2) {
-        const float o = out[static_cast<size_t>(qf) * C2 + c2];
-        const float bb = bias[c2];
-        for (int j = sl * kc; j < min(K, (sl + 1) * kc); ++j) {
-          float acc = 0.f;
-          const float* h = hs + j * C;
-          for (int c = 0; c < C; ++c) acc = fmaf(mocopci::leaky(h[c]), ws[c * C2 + c2], acc);
-          const float pre1 = acc + bb;
-          if (mocopci::leaky(pre1) == o) {
-            js = j;
-            g = dout[static_cast<size_t>(qf) * C2 + c2] * mocopci::dleaky(pre1);
-            break;
-          }
-        }
+  const int ntiles = (BN + qt - 1) / qt;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int q0 = tile * qt;
+    const int nq = min(qt, BN - q0);
+    const int* iq = idx + static_cast<size_t>(q0) * K;
+    __syncthreads();                  // the previous tile's readers are done
+    if (vec) {
+      const int cv = C / 4;
+      for (int e = tid; e < nq * K * cv; e += kThreads) {
+        const int r = e / cv, c = (e - r * cv) * 4;   // r = q * K + j
+        const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
+        cp_async16(rows + r * C + c, tab + src);
       }
-      jf[tid] = js;
-      gf[tid] = g;
-      __syncthreads();
-      if (tid < cw && c20 + tid < C2) {
-        int best = K;
-        float bg = 0.f;
-        for (int t = 0; t < ns; ++t) {
-          if (jf[t * cw + tid] < best) {
-            best = jf[t * cw + tid];
-            bg = gf[t * cw + tid];
-          }
-        }
-        jstar[c20 + tid] = best < K ? best : -1;
-        gv[c20 + tid] = bg;
+    } else {
+      for (int e = tid; e < nq * K * C; e += kThreads) {
+        const int r = e / C, c = e - r * C;
+        const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
+        cp_async4(rows + e, tab + src);
       }
-      __syncthreads();
     }
-    // each output channel's gradient goes to one row: thread c owns column c
-    // of dx and adds the channels in ascending order
-    for (int c = tid; c < C; c += kThreads) {
-      for (int j = 0; j < K; ++j) dx[j * C + c] = 0.f;
+    for (int e = tid; e < nq * C; e += kThreads) bs[e] = base[static_cast<size_t>(q0) * C + e];
+    for (int e = tid; e < nq * C2; e += kThreads) {
+      const size_t o = static_cast<size_t>(q0) * C2 + e;
+      gv[e] = out[o] >= 0.f ? dout[o] : 0.1f * dout[o];
+      js[e] = static_cast<int>(amax[o]);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    // column (q, c): each output channel's gradient lands on its one row j*
+    for (int e = tid; e < nq * C; e += kThreads) {
+      const int q = e / C, c = e - q * C;
+      float* dxc = dx + q * K * C + c;
+      float* rc = rows + q * K * C + c;
+      const int* jq = js + q * C2;
+      const float* gq = gv + q * C2;
       for (int c2 = 0; c2 < C2; ++c2) {
-        const int js = jstar[c2];
-        if (js >= 0) dx[js * C + c] = fmaf(gv[c2], wt[c2 * C + c], dx[js * C + c]);
+        float* t = dxc + jq[c2] * C;
+        *t = fmaf(gq[c2], wt[c2 * C + c], *t);
       }
-      for (int j = 0; j < K; ++j) {
-        const float d = dx[j * C + c] * mocopci::dleaky(hs[j * C + c]);
-        dx[j * C + c] = d;
-        d_rows[(static_cast<size_t>(qf) * K + j) * C + c] = d;
-      }
-    }
-    for (int e = tid; e < C * C2; e += kThreads) {
-      const int c = e / C2, c2 = e - c * C2;
-      const int js = jstar[c2];
-      if (js >= 0) dw[e] = fmaf(mocopci::leaky(hs[js * C + c]), gv[c2], dw[e]);
-    }
-    for (int c2 = tid; c2 < C2; c2 += kThreads) db[c2] += gv[c2];
-    __syncthreads();
-    for (int c = tid; c < C; c += kThreads) {
+      const float bb = bs[e];
+      float* dr = d_rows + static_cast<size_t>(q0 + q) * K * C + c;
       float s = 0.f;
-      for (int j = 0; j < K; ++j) s += dx[j * C + c];
-      d_base[static_cast<size_t>(qf) * C + c] = s;
+      for (int j = 0; j < K; ++j) {
+        const float p = rc[j * C] + bb;
+        const float d = dxc[j * C] * mocopci::dleaky(p);
+        dxc[j * C] = 0.f;             // zero again for the next tile
+        rc[j * C] = mocopci::leaky(p);
+        dr[static_cast<size_t>(j) * C] = d;
+        s += d;
+      }
+      d_base[static_cast<size_t>(q0 + q) * C + c] = s;
+    }
+    __syncthreads();
+    // dW[c, c2] += x0[q][j*(c2)][c] * gv[q][c2], db[c2] += gv[q][c2], q in order
+    for (int e = tid; e < C2 * C; e += kThreads) {
+      const int c2 = e / C, c = e - c2 * C;
+      float acc = dw[e];
+      for (int q = 0; q < nq; ++q)
+        acc = fmaf(rows[(q * K + js[q * C2 + c2]) * C + c], gv[q * C2 + c2], acc);
+      dw[e] = acc;
+    }
+    for (int c2 = tid; c2 < C2; c2 += kThreads) {
+      float acc = db[c2];
+      for (int q = 0; q < nq; ++q) acc += gv[q * C2 + c2];
+      db[c2] = acc;
     }
   }
   __syncthreads();
   float* pb = partial + static_cast<size_t>(blockIdx.x) * (C * C2 + C2);
-  for (int e = tid; e < C * C2; e += kThreads) pb[e] = dw[e];
+  for (int e = tid; e < C * C2; e += kThreads) {
+    const int c = e / C2, c2 = e - c * C2;
+    pb[e] = dw[c2 * C + c];
+  }
   for (int e = tid; e < C2; e += kThreads) pb[C * C2 + e] = db[e];
+}
+
+template <typename IdxT, bool kArg>
+cudaError_t run_fwd(const float* tab, const int* idx, const float* base, const float* w,
+                    const float* b, float* out, void* amax, int B, int M, int N, int K, int C,
+                    int C2, cudaStream_t st) {
+  const size_t smem =
+      (static_cast<size_t>(C) * C2 + static_cast<size_t>(K) * C + 2 * kThreads) * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(cross_tail_kernel<IdxT, kArg>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(mocopci::ceil_div(N, kQT), B);
+  cross_tail_kernel<IdxT, kArg><<<grid, kThreads, smem, st>>>(
+      tab, idx, base, w, b, out, static_cast<IdxT*>(amax), M, N, K, C, C2);
+  return cudaGetLastError();
+}
+
+template <typename IdxT>
+cudaError_t run_bwd(const float* tab, const int* idx, const float* base, const float* w,
+                    const float* out, const void* amax, const float* dout, float* d_rows,
+                    float* d_base, float* partial, int B, int M, int N, int K, int C, int C2,
+                    int nblk, cudaStream_t st) {
+  const int qt = bwd_tile(K, C, C2);
+  const size_t smem = bwd_smem_floats(qt, K, C, C2) * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(cross_tail_bwd_kernel<IdxT>, smem);
+  if (err != cudaSuccess) return err;
+  cross_tail_bwd_kernel<IdxT><<<nblk, kThreads, smem, st>>>(
+      tab, idx, base, w, out, static_cast<const IdxT*>(amax), dout, d_rows, d_base, partial,
+      B * N, M, N, K, C, C2, qt);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // tab (B, M, C), idx (B, N, K) int32, base (B, N, C), w (C, C2), b (C2)
-// -> out (B, N, C2), all f32.
+// -> out (B, N, C2), all f32; amax (B, N, C2), uint8 for K <= 255 else int32,
+// the first j at each max, written unless null.
 MOCOPCI_API int mocopci_cross_tail(const float* tab, const int* idx, const float* base,
-                                   const float* w, const float* b, float* out, int B, int M,
-                                   int N, int K, int C, int C2, void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(C) * C2 + static_cast<size_t>(K) * C + kThreads) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(cross_tail_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(mocopci::ceil_div(N, kQT), B);
-  cross_tail_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      tab, idx, base, w, b, out, M, N, K, C, C2);
-  return cudaGetLastError();
+                                   const float* w, const float* b, float* out, void* amax,
+                                   int B, int M, int N, int K, int C, int C2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (amax == nullptr)
+    return run_fwd<int, false>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, st);
+  if (K <= 255)
+    return run_fwd<uint8_t, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, st);
+  return run_fwd<int, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, st);
 }
 
-// Backward of mocopci_cross_tail given its out and dout (B, N, C2):
+// Backward of mocopci_cross_tail given its out, its amax and dout (B, N, C2):
 // d_rows (B, N, K, C) (the gathered rows' gradient, scattered into the table by
 // the caller), d_base (B, N, C), dwb = [dW (C, C2) | db (C2)].  partial: nblk *
 // (C*C2 + C2) floats of scratch; nblk blocks, reduced in block order.
 MOCOPCI_API int mocopci_cross_tail_bwd(const float* tab, const int* idx, const float* base,
-                                       const float* w, const float* b, const float* out,
+                                       const float* w, const float* out, const void* amax,
                                        const float* dout, float* d_rows, float* d_base,
                                        float* dwb, float* partial, int B, int M, int N, int K,
                                        int C, int C2, int nblk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (3 * static_cast<size_t>(C) * C2 + 3 * static_cast<size_t>(C2) +
-                       2 * static_cast<size_t>(K) * C + 2 * kThreads) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(cross_tail_bwd_kernel, smem);
+  cudaError_t err =
+      K <= 255 ? run_bwd<uint8_t>(tab, idx, base, w, out, amax, dout, d_rows, d_base, partial,
+                                  B, M, N, K, C, C2, nblk, st)
+               : run_bwd<int>(tab, idx, base, w, out, amax, dout, d_rows, d_base, partial, B, M,
+                              N, K, C, C2, nblk, st);
   if (err != cudaSuccess) return err;
-  cross_tail_bwd_kernel<<<nblk, kThreads, smem, st>>>(tab, idx, base, w, b, out, dout, d_rows,
-                                                      d_base, partial, B, M, N, K, C, C2);
-  MOCOPCI_CHECK_LAUNCH();
   return mocopci::reduce_partials(partial, dwb, nblk, C * C2 + C2, st);
 }

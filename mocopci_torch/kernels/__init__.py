@@ -15,7 +15,7 @@ from mocopci_torch.kernels.chamfer_pair import (
     chamfer_pair_keys_plain,
 )
 from mocopci_torch.kernels.cross_tail import cross_tail, cross_tail_plain
-from mocopci_torch.kernels.fps import fps, fps_plain
+from mocopci_torch.kernels.fps import fps, fps_plain, fps_pyramid, fps_pyramid_plain
 from mocopci_torch.kernels.fusion_head_train import fusion_head_train, fusion_head_train_plain
 from mocopci_torch.kernels.fusion_pair import (
     fold_bn_dense,
@@ -39,7 +39,7 @@ __all__ = [
     "attention_train", "attention_train_plain",
     "chamfer_pair", "chamfer_pair_keys", "chamfer_pair_keys_plain",
     "cross_tail", "cross_tail_plain",
-    "fps", "fps_plain",
+    "fps", "fps_plain", "fps_pyramid", "fps_pyramid_plain",
     "fusion_head_train", "fusion_head_train_plain",
     "build_pair_planes", "build_pair_planes_plain",
     "fold_bn_dense", "fusion_pair", "fusion_pair_plain", "fusion_pair_planes", "pair_planes",

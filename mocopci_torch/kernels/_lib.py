@@ -35,9 +35,10 @@ _F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "fps": [_P, _I, _I, _I, _P, _P],
+    "fps_pyramid": [_P, _I, _I, _P, _I, _P, _P],
     "knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "cross_tail": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cross_tail": [_P] * 7 + [_I] * 6 + [_P],
     "transformer_tail": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "fusion_pair": [_P] * 11 + [_I, _I, _I, _I, _P],
     "knn_approx": [_P, _P, _P] + [_I] * 9 + [_P, _P],

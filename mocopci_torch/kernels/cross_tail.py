@@ -6,10 +6,13 @@ table themselves, so both versions take (table, idx) instead of materialised
 k-major rows; the backward returns the gathered rows' gradient, which
 :func:`~mocopci_torch.kernels.scatter_add.gather_backward` scatters into the
 table (through the ``scatter_add`` kernel at the up_1 shape, as JAX's gather
-VJP).  At a max tie the kernel routes the gradient to the first neighbour, the
-twin splits it evenly; both give the same table, base and weight gradients
-(duplicate neighbours are the only systematic ties, ``cross_tail.py:20-31``).
-Operations bound both.
+VJP).  When a gradient is needed the forward kernel also writes, for each
+output, the first neighbour j attaining its max (:func:`cross_tail_argmax_plain`
+is its twin), and the backward kernel routes the gradient there with no
+recompute; the twin's backward splits a max tie evenly instead.  Both give
+the same table, base and weight gradients (duplicate neighbours are the only
+systematic ties, ``cross_tail.py:20-31``).  Operations bound the forward,
+bytes (the rows' gradient it writes) the backward.
 """
 from __future__ import annotations
 
@@ -25,18 +28,36 @@ REPLACES_BWD = "mocopci_tpu/ops/pallas/cross_tail.py:172"
 
 LEAKY_RATE = 0.1
 _MAX_SMEM = 227 * 1024
-BWD_BLOCKS = 264      # two per SM of an H100; fixes the dW/db summation order
+_THREADS = 256
+# the backward's fixed grid, two blocks per SM of an H100: each block sums its
+# tiles' dW / db in query order, the partials are summed in block order
+BWD_BLOCKS = 264
+
+
+def _tail_pre(rows, base, w, b):
+    x = F.leaky_relu(rows + base[:, :, None, :], LEAKY_RATE)
+    return F.leaky_relu(torch.matmul(x, w) + b, LEAKY_RATE)
 
 
 def _tail(rows, base, w, b):
-    x = F.leaky_relu(rows + base[:, :, None, :], LEAKY_RATE)
-    x = F.leaky_relu(torch.matmul(x, w) + b, LEAKY_RATE)
-    return x.amax(dim=2)
+    return _tail_pre(rows, base, w, b).amax(dim=2)
+
+
+def argmax_dtype(K: int) -> torch.dtype:
+    """The forward's argmax type: one byte an entry while K <= 255."""
+    return torch.uint8 if K <= 255 else torch.int32
 
 
 def cross_tail_plain(tab, idx, base, w, b):
     """max_j leaky(leaky(tab[idx[n, j]] + base[n]) @ w + b): (B, N, C2)."""
     return _tail(_lib.group_rows(tab, idx), base, w, b)
+
+
+def cross_tail_argmax_plain(tab, idx, base, w, b):
+    """The first j attaining each max of :func:`cross_tail_plain`, (B, N, C2)
+    of :func:`argmax_dtype` (K)."""
+    h = _tail_pre(_lib.group_rows(tab, idx), base, w, b)
+    return torch.argmax(h, dim=2).to(argmax_dtype(idx.shape[2]))
 
 
 def cross_tail_bwd_plain(tab, idx, base, w, b, dout):
@@ -47,74 +68,116 @@ def cross_tail_bwd_plain(tab, idx, base, w, b, dout):
         return torch.autograd.grad(_tail(*leaves), leaves, dout)
 
 
-def _check(tab, idx, base, w, b):
+def _fwd_smem(K, C, C2):
+    return (C * C2 + K * C + 2 * _THREADS) * 4
+
+
+def _bwd_smem(qt, K, C, C2):
+    return (2 * qt * K * C + 2 * C * C2 + C2 + qt * C + 2 * qt * C2) * 4
+
+
+def _bwd_tile(K, C, C2):
+    """Queries a backward tile holds (csrc/cross_tail.cu ``bwd_tile``)."""
+    qt = max(1, _THREADS // C)
+    while qt > 1 and _bwd_smem(qt, K, C, C2) > _MAX_SMEM:
+        qt -= 1
+    return qt
+
+
+def _check(tab, idx, base, w):
     _lib.check_cuda("cross_tail tab", tab, torch.float32, 3)
     _lib.check_cuda("cross_tail idx", idx, torch.int32, 3)
     _lib.check_cuda("cross_tail base", base, torch.float32, 3)
     _lib.check_cuda("cross_tail w", w, torch.float32, 2)
-    _lib.check_cuda("cross_tail b", b, torch.float32, 1)
     B, M, C = tab.shape
     N, K = idx.shape[1], idx.shape[2]
     C2 = w.shape[1]
-    if idx.shape[0] != B or base.shape != (B, N, C) or w.shape[0] != C or b.shape != (C2,):
+    if idx.shape[0] != B or base.shape != (B, N, C) or w.shape[0] != C:
         raise ValueError("cross_tail: inconsistent shapes")
-    if (C * C2 + K * C + 256) * 4 > _MAX_SMEM or (3 * C * C2 + 3 * C2 + 2 * K * C + 512) * 4 > _MAX_SMEM:
+    if max(_fwd_smem(K, C, C2), _bwd_smem(1, K, C, C2)) > _MAX_SMEM:
         raise ValueError(f"cross_tail kernel: C={C}, C2={C2}, K={K} exceed shared memory")
     return B, M, N, K, C, C2
 
 
-def cross_tail_fwd(tab, idx, base, w, b):
-    """Kernel forward, (B, N, C2)."""
-    B, M, N, K, C, C2 = _check(tab, idx, base, w, b)
+def _check_argmax(argmax, B, N, K, C2):
+    if argmax.dtype != argmax_dtype(K) or argmax.shape != (B, N, C2):
+        raise ValueError(f"cross_tail argmax: expected {argmax_dtype(K)} {(B, N, C2)}, got "
+                         f"{argmax.dtype} {tuple(argmax.shape)}")
+    _lib.check_cuda("cross_tail argmax", argmax, argmax_dtype(K), 3)
+
+
+def cross_tail_fwd(tab, idx, base, w, b, argmax=None):
+    """Kernel forward, (B, N, C2); fills ``argmax`` ((B, N, C2) of
+    :func:`argmax_dtype` (K)) with the first j at each max when given."""
+    B, M, N, K, C, C2 = _check(tab, idx, base, w)
+    _lib.check_cuda("cross_tail b", b, torch.float32, 1)
+    if b.shape != (C2,):
+        raise ValueError("cross_tail: inconsistent shapes")
+    if argmax is not None:
+        _check_argmax(argmax, B, N, K, C2)
     out = torch.empty((B, N, C2), dtype=torch.float32, device=tab.device)
     _lib.launch("cross_tail", tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(),
-                b.data_ptr(), out.data_ptr(), B, M, N, K, C, C2, _lib.stream(tab))
+                b.data_ptr(), out.data_ptr(), 0 if argmax is None else argmax.data_ptr(),
+                B, M, N, K, C, C2, _lib.stream(tab))
     return out
 
 
-def cross_tail_bwd(tab, idx, base, w, b, out, dout):
-    """Kernel backward: (d_rows (B, N, K, C), d_base, dw, db)."""
-    B, M, N, K, C, C2 = _check(tab, idx, base, w, b)
+def cross_tail_bwd(tab, idx, base, w, out, argmax, dout):
+    """Kernel backward from the forward's ``out`` (its sign gives leaky' at
+    the max) and ``argmax``: (d_rows (B, N, K, C), d_base, dw, db)."""
+    B, M, N, K, C, C2 = _check(tab, idx, base, w)
+    _check_argmax(argmax, B, N, K, C2)
+    _lib.check_cuda("cross_tail out", out, torch.float32, 3)
     _lib.check_cuda("cross_tail dout", dout, torch.float32, 3)
+    if out.shape != (B, N, C2) or dout.shape != (B, N, C2):
+        raise ValueError("cross_tail: inconsistent shapes")
     dev = tab.device
     d_rows = torch.empty((B, N, K, C), dtype=torch.float32, device=dev)
     d_base = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     dwb = torch.empty(C * C2 + C2, dtype=torch.float32, device=dev)
-    nblk = min(BWD_BLOCKS, B * N)
+    nblk = min(BWD_BLOCKS, -(-B * N // _bwd_tile(K, C, C2)))
     partial = torch.empty(nblk * (C * C2 + C2), dtype=torch.float32, device=dev)
     _lib.launch("cross_tail_bwd", tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
-                w.data_ptr(), b.data_ptr(), out.data_ptr(), dout.data_ptr(), d_rows.data_ptr(),
-                d_base.data_ptr(), dwb.data_ptr(), partial.data_ptr(), B, M, N, K, C, C2, nblk,
-                _lib.stream(tab))
+                w.data_ptr(), out.data_ptr(), argmax.data_ptr(), dout.data_ptr(),
+                d_rows.data_ptr(), d_base.data_ptr(), dwb.data_ptr(), partial.data_ptr(),
+                B, M, N, K, C, C2, nblk, _lib.stream(tab))
     return d_rows, d_base, dwb[:C * C2].view(C, C2), dwb[C * C2:]
 
 
 class _CrossTail(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tab, idx, base, w, b):
-        cpu = _lib.dispatch_device(tab, idx, base, w, b) == "cpu"
-        out = cross_tail_plain(tab, idx, base, w, b) if cpu else cross_tail_fwd(
-            tab, idx, base, w, b)
-        ctx.save_for_backward(tab, idx, base, w, b, out)
-        ctx.cpu = cpu
+    def forward(ctx, tab, idx, base, w, b, grad):
+        ctx.cpu = _lib.dispatch_device(tab, idx, base, w, b) == "cpu"
+        if ctx.cpu:
+            ctx.save_for_backward(tab, idx, base, w, b)
+            return cross_tail_plain(tab, idx, base, w, b)
+        argmax = None
+        if grad:
+            argmax = torch.empty((idx.shape[0], idx.shape[1], w.shape[1]),
+                                 dtype=argmax_dtype(idx.shape[2]), device=tab.device)
+        out = cross_tail_fwd(tab, idx, base, w, b, argmax)
+        # the backward reads out's sign (leaky' at the max) and the argmax
+        ctx.save_for_backward(tab, idx, base, w, out, argmax)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        tab, idx, base, w, b, out = ctx.saved_tensors
         if ctx.cpu:
+            tab, idx, base, w, b = ctx.saved_tensors
             d_rows, d_base, dw, db = cross_tail_bwd_plain(tab, idx, base, w, b, dout)
         else:
-            d_rows, d_base, dw, db = cross_tail_bwd(tab, idx, base, w, b, out,
+            tab, idx, base, w, out, argmax = ctx.saved_tensors
+            d_rows, d_base, dw, db = cross_tail_bwd(tab, idx, base, w, out, argmax,
                                                     dout.contiguous())
         B, N, K, C = d_rows.shape
         d_tab = gather_backward(d_rows.reshape(B, N * K, C), idx.reshape(B, N * K),
                                 tab.shape[1])
-        return d_tab, None, d_base, dw, db
+        return d_tab, None, d_base, dw, db, None
 
 
 def cross_tail(tab, idx, base, w, b):
     """tab (B, M, C), idx (B, N, K) int32, base (B, N, C), w (C, C2), b (C2)
     -> (B, N, C2); the kernels on CUDA, the twins on the CPU; differentiable
-    in tab, base, w and b."""
-    return _CrossTail.apply(tab, idx, base, w, b)
+    in tab, base, w and b (the forward kernel saves its argmax only then)."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (tab, base, w, b))
+    return _CrossTail.apply(tab, idx, base, w, b, grad)

@@ -1,19 +1,25 @@
-"""Farthest point sampling: CUDA kernel ``csrc/fps.cu`` and its plain twin.
+"""Farthest point sampling: CUDA kernels ``csrc/fps.cu`` and their plain twins.
 
 Replaces ``mocopci_tpu/ops/pallas/fps.py``: ``farthest_point_sample_pallas``
-(:419) and ``farthest_point_sample_pyramid_pallas`` (:477).  One block per
-cloud; the step chain, not bytes or flops, bounds it (see the source note).
+(:419) by :func:`fps`, and ``farthest_point_sample_pyramid_pallas`` (:477) by
+:func:`fps_pyramid`, every level in one launch with the level subsets kept in
+shared memory.  One block per cloud; the step chain, not bytes or flops,
+bounds both (see the source note), and a step takes one block barrier.
 """
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 
 from mocopci_torch.kernels import _lib
 
 SOURCE = "mocopci_torch/csrc/fps.cu"
-REPLACES = "mocopci_tpu/ops/pallas/fps.py:477; mocopci_tpu/ops/pallas/fps.py:419"
+REPLACES = "mocopci_tpu/ops/pallas/fps.py:419"
+REPLACES_PYRAMID = "mocopci_tpu/ops/pallas/fps.py:477"
 
-MAX_N = 8192
+MAX_N = 8192          # 32 points a thread, 256 threads a block
+MAX_LEVELS = 8
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -35,16 +41,56 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
+def fps_pyramid_plain(xyz: torch.Tensor, npoints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """Cascaded :func:`fps_plain`: level l samples ``npoints[l]`` of level
+    l-1's points (gathered), its indices addressing them."""
+    idxs, pc = [], xyz.detach().float()
+    for n in npoints:
+        i = fps_plain(pc, n)
+        pc = _lib.group_rows(pc, i)
+        idxs.append(i)
+    return tuple(idxs)
+
+
+def _check_cloud(name: str, xyz: torch.Tensor) -> Tuple[int, int]:
+    _lib.check_cuda(f"{name} xyz", xyz, torch.float32, 3)
+    B, N, C = xyz.shape
+    if C != 3:
+        raise ValueError(f"{name}: expected (B, N, 3), got {tuple(xyz.shape)}")
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"{name}: need 1 <= N <= {MAX_N}, got {N}")
+    return B, N
+
+
 def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """FPS indices (B, npoint) int32; the kernel on CUDA, the twin on the CPU."""
     if _lib.dispatch_device(xyz) == "cpu":
         return fps_plain(xyz, npoint)
-    _lib.check_cuda("fps xyz", xyz, torch.float32, 3)
-    B, N, C = xyz.shape
-    if C != 3:
-        raise ValueError(f"fps: expected (B, N, 3), got {tuple(xyz.shape)}")
-    if not 1 <= npoint <= N or N > MAX_N:
-        raise ValueError(f"fps: need 1 <= npoint <= N <= {MAX_N}, got {npoint}, {N}")
+    B, N = _check_cloud("fps", xyz)
+    if not 1 <= npoint <= N:
+        raise ValueError(f"fps: need 1 <= npoint <= N = {N}, got {npoint}")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     _lib.launch("fps", xyz.data_ptr(), B, N, npoint, out.data_ptr(), _lib.stream(xyz))
     return out
+
+
+def fps_pyramid(xyz: torch.Tensor, npoints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """One (B, npoints[l]) int32 index tensor per level, level l addressing
+    level l-1's sampled points (level 0 ``xyz``); one launch on CUDA, the
+    twin on the CPU."""
+    npoints = tuple(int(n) for n in npoints)
+    if _lib.dispatch_device(xyz) == "cpu":
+        return fps_pyramid_plain(xyz, npoints)
+    B, N = _check_cloud("fps_pyramid", xyz)
+    if not 1 <= len(npoints) <= MAX_LEVELS:
+        raise ValueError(f"fps_pyramid: 1 to {MAX_LEVELS} levels, got {len(npoints)}")
+    for l, (n, n_in) in enumerate(zip(npoints, (N,) + npoints)):
+        if not 1 <= n <= n_in:
+            raise ValueError(f"fps_pyramid: level {l} takes {n} of {n_in} points; a level "
+                             "samples 1 to all of the points of the level before")
+    out = torch.empty(B * sum(npoints), dtype=torch.int32, device=xyz.device)
+    levels = torch.tensor(npoints, dtype=torch.int32)        # read on the host
+    _lib.launch("fps_pyramid", xyz.data_ptr(), B, N, levels.data_ptr(), len(npoints),
+                out.data_ptr(), _lib.stream(xyz))
+    return tuple(part.view(B, n) for part, n in zip(out.split([B * n for n in npoints]),
+                                                    npoints))

@@ -1,8 +1,9 @@
 """Sampling and gathering ops (port of ``mocopci_tpu/ops/sampling.py``).
 
-FPS runs in the ``fps`` kernel (CUDA) or its plain twin (CPU); the pyramid is
-one launch per level with a gather in between, each level's indices
-addressing the previous level's cloud.  A gather's backward is
+FPS runs in the ``fps`` kernel (CUDA) or its plain twin (CPU); the pyramid in
+the ``fps_pyramid`` kernel, every level in one launch, each level's indices
+addressing the previous level's cloud (on the CPU its twin: a loop of
+``fps_plain`` and gathers).  A gather's backward is
 ``kernels.scatter_add.gather_backward``.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from mocopci_torch.kernels import fps
+from mocopci_torch.kernels import fps, fps_pyramid
 from mocopci_torch.kernels._lib import group_rows
 from mocopci_torch.kernels.scatter_add import gather_backward
 
@@ -27,13 +28,7 @@ def farthest_point_sample_pyramid(xyz: torch.Tensor, npoints: Sequence[int]) -> 
     Returns one (B, npoints[l]) int32 index tensor per level, each addressing
     the PREVIOUS level's sampled cloud (level 0 addresses ``xyz``).
     """
-    idxs = []
-    pc = xyz.float().contiguous()
-    for n in npoints:
-        i = farthest_point_sample(pc, n)
-        pc = gather(pc, i).contiguous()
-        idxs.append(i)
-    return tuple(idxs)
+    return fps_pyramid(xyz.float().contiguous(), npoints)
 
 
 class _RowGather(torch.autograd.Function):

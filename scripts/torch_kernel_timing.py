@@ -12,8 +12,8 @@ shared memory and spills of each kernel; by default ``scatter_add.cu`` and
 ``chip_smoke.check_train_kernels``: every train kernel against its plain
 version at the B=2 train step's shapes, twice for bit-equal repeats, with its
 time, its plain version's, the library call's and its bound (with
-``--parent``, another checkout's train fusion head forward and attention
-backward wide route beside this tree's, as ``chip_smoke.py --parent``).  Then
+``--parent``, another checkout's cost-volume tail forward and backward
+beside this tree's, as ``chip_smoke.py --parent``).  Then
 the scatter-add on the inputs of one train step at ``ModelConfig()``, B=2: the
 device time of each of its shapes, beside one ``index_add_`` and, with
 ``--other``, beside the ``scatter_add.cu`` of another checkout (for example
@@ -217,8 +217,8 @@ def main() -> int:
     ap.add_argument("--other", metavar="TREE",
                     help="a checkout whose scatter_add.cu is timed beside this one's")
     ap.add_argument("--parent", metavar="TREE",
-                    help="a checkout whose fusion head forward and attention backward wide "
-                         "route are timed beside this one's")
+                    help="a checkout whose cost-volume tail kernels are timed beside this "
+                         "one's")
     ap.add_argument("--skip-scatter", action="store_true",
                     help="leave out the scatter-add on the train step's inputs")
     ap.add_argument("--skip-fusion-head", action="store_true",

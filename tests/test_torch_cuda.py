@@ -39,6 +39,37 @@ def test_fps_kernel_equals_twin(card):
                                   kernels.fps_plain(xyz, 500).cpu().numpy())
 
 
+@pytest.mark.parametrize("B,N,npoint,dup", [(6, 8192, 2048, False), (3, 1, 1, False),
+                                            (2, 700, 700, False), (2, 1000, 600, True)])
+def test_fps_kernel_equals_twin_at_the_edges(card, B, N, npoint, dup):
+    """The train step's (6, 8192) -> 2048, a one-point cloud, every point
+    sampled, and a cloud of duplicate points, where a tie must go to the
+    lowest index (the duplicates sit in the upper half)."""
+    g = torch.Generator().manual_seed(20)
+    xyz = _x(g, B, N, 3, scale=10.0)
+    if dup:
+        xyz[:, N // 2:] = xyz[:, :N - N // 2]
+    xyz = xyz.to(card)
+    got = kernels.fps(xyz, npoint).cpu()
+    np.testing.assert_array_equal(got.numpy(), kernels.fps_plain(xyz, npoint).cpu().numpy())
+    if dup:
+        assert (got < N // 2).all()
+
+
+@pytest.mark.parametrize("B,N,levels", [(2, 8192, (2048, 512, 256, 64)),
+                                        (7, 3000, (1000, 100, 10, 1))])
+def test_fps_pyramid_kernel_equals_twin(card, B, N, levels):
+    g = torch.Generator().manual_seed(21)
+    xyz = _x(g, B, N, 3, scale=10.0).to(card)
+    kernels.reset_launches()
+    got = kernels.fps_pyramid(xyz, levels)
+    assert kernels.LAUNCHES["fps_pyramid"] == 1 and kernels.LAUNCHES["fps"] == 0
+    want = kernels.fps_pyramid_plain(xyz, levels)
+    for a, w, n in zip(got, want, levels):
+        assert a.shape == (B, n) and a.dtype == torch.int32
+        np.testing.assert_array_equal(a.cpu().numpy(), w.cpu().numpy())
+
+
 @pytest.mark.parametrize("metric,C,k", [("euclidean", 3, 32), ("euclidean", 3, 3),
                                         ("cosine", 64, 16), ("euclidean", 20, 8)])
 def test_knn_kernel_matches_twin(card, metric, C, k):
@@ -72,6 +103,36 @@ def test_cross_tail_kernel_matches_twin(card):
     torch.testing.assert_close(kernels.cross_tail(tab, idx, base, w, b),
                                kernels.cross_tail_plain(tab, idx, base, w, b),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("N,K,C,C2", [(300, 32, 64, 64), (301, 32, 32, 96), (50, 300, 8, 16)])
+def test_cross_tail_argmax_matches_twin(card, N, K, C, C2):
+    """The forward's argmax (one byte for K <= 255, else int32) against the
+    twin's first argmax: where the indices differ, the two pre-max values
+    must agree within 1e-5 (a near tie summed in another order)."""
+    from mocopci_torch.kernels.cross_tail import (
+        _tail_pre,
+        argmax_dtype,
+        cross_tail_argmax_plain,
+        cross_tail_fwd,
+    )
+
+    g = torch.Generator().manual_seed(22)
+    tab, base = _x(g, 2, 700, C).to(card), _x(g, 2, N, C).to(card)
+    w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
+    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32)
+    idx[:, :, 1] = idx[:, :, 0]
+    idx = idx.to(card)
+    amax = torch.empty((2, N, C2), dtype=argmax_dtype(K), device=card)
+    out = cross_tail_fwd(tab, idx, base, w, b, amax)
+    torch.testing.assert_close(out, cross_tail_fwd(tab, idx, base, w, b), atol=0, rtol=0)
+    want = cross_tail_argmax_plain(tab, idx, base, w, b)
+    assert amax.dtype == want.dtype and int(amax.max()) < K
+    h = _tail_pre(kernels._lib.group_rows(tab, idx), base, w, b)
+    hg, hw = h.gather(2, amax.long()[:, :, None]), h.gather(2, want.long()[:, :, None])
+    torch.testing.assert_close(hg, hw, atol=1e-5, rtol=0)
+    torch.testing.assert_close(hg[:, :, 0], out, atol=1e-5, rtol=1e-5)
+    assert (amax == want).float().mean() > 0.99
 
 
 def test_transformer_tail_kernel_matches_twin(card):
@@ -139,9 +200,10 @@ def test_chamfer_pair_kernel_matches_twin(card, G, N, M):
 
 # the kernels the eval forward launches in each kNN mode
 FORWARD_KERNELS = {
-    "approx": {"fps", "knn_approx", "attention", "cross_tail", "transformer_tail",
-               "fusion_pair"},
-    "exact": {"fps", "knn", "attention", "cross_tail", "transformer_tail", "fusion_pair"},
+    "approx": {"fps", "fps_pyramid", "knn_approx", "attention", "cross_tail",
+               "transformer_tail", "fusion_pair"},
+    "exact": {"fps", "fps_pyramid", "knn", "attention", "cross_tail", "transformer_tail",
+              "fusion_pair"},
 }
 
 
@@ -270,28 +332,38 @@ def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
         assert _bits_equal(leaf.grad, a)
 
 
-def test_cross_tail_bwd_kernel_matches_twin_with_ties(card):
-    from mocopci_torch.kernels.cross_tail import cross_tail_bwd, cross_tail_bwd_plain
+@pytest.mark.parametrize("N,K,C,C2", [(300, 32, 64, 64), (301, 32, 32, 96), (50, 300, 8, 16)])
+def test_cross_tail_bwd_kernel_matches_twin_with_ties(card, N, K, C, C2):
+    """The backward from the forward's saved argmax, at N = 300 (4-query
+    tiles), at a ragged N = 301 with C = 32 (8-query tiles), C2 = 96, and at
+    K = 300 (an int32 argmax; tiles cut to what shared memory holds)."""
+    from mocopci_torch.kernels.cross_tail import (
+        argmax_dtype,
+        cross_tail_bwd,
+        cross_tail_bwd_plain,
+        cross_tail_fwd,
+    )
     from mocopci_torch.kernels.scatter_add import gather_backward
 
     g = torch.Generator().manual_seed(12)
-    tab, base = _x(g, 2, 700, 64).to(card), _x(g, 2, 300, 64).to(card)
-    w, b = _x(g, 64, 64, scale=0.125).to(card), _x(g, 64, scale=0.1).to(card)
-    idx = torch.randint(0, 700, (2, 300, 32), generator=g, dtype=torch.int32)
+    tab, base = _x(g, 2, 700, C).to(card), _x(g, 2, N, C).to(card)
+    w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
+    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32)
     idx[:, :, 1] = idx[:, :, 0]
     idx = idx.to(card)
-    dout = _x(g, 2, 300, 64).to(card)
-    out = kernels.cross_tail(tab, idx, base, w, b)
-    got = cross_tail_bwd(tab, idx, base, w, b, out, dout)
+    dout = _x(g, 2, N, C2).to(card)
+    amax = torch.empty((2, N, C2), dtype=argmax_dtype(K), device=card)
+    out = cross_tail_fwd(tab, idx, base, w, b, amax)
+    got = cross_tail_bwd(tab, idx, base, w, out, amax, dout)
     want = cross_tail_bwd_plain(tab, idx, base, w, b, dout)
     # ties between duplicate neighbours: the kernel routes the gradient to the
     # first, the twin splits it; their sums into the table agree
-    d_tab = [gather_backward(r.reshape(2, 300 * 32, 64), idx.reshape(2, -1), 700)
+    d_tab = [gather_backward(r.reshape(2, N * K, C), idx.reshape(2, -1), 700)
              for r in (got[0], want[0])]
     torch.testing.assert_close(d_tab[0], d_tab[1], atol=1e-4, rtol=1e-4)
     for a, c in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
-    again = cross_tail_bwd(tab, idx, base, w, b, out, dout)
+    again = cross_tail_bwd(tab, idx, base, w, out, amax, dout)
     assert all(_bits_equal(a, c) for a, c in zip(got, again))
 
 
@@ -425,9 +497,9 @@ def test_forward_only_kernels_refuse_grad(card):
 
 
 # the kernels one train step launches (exact kNN mode)
-TRAIN_KERNELS = {"fps", "knn", "cross_tail", "cross_tail_bwd", "transformer_tail",
-                 "transformer_tail_bwd", "attention_train_fwd", "attention_train_bwd",
-                 "attention_train_bwd_wide", "fusion_pair_planes", "fusion_head_train_fwd",
+TRAIN_KERNELS = {"fps", "fps_pyramid", "knn", "cross_tail", "cross_tail_bwd",
+                 "transformer_tail", "transformer_tail_bwd", "attention_train_fwd",
+                 "attention_train_bwd", "attention_train_bwd_wide", "fusion_pair_planes", "fusion_head_train_fwd",
                  "fusion_head_train_bwd", "chamfer_pair", "scatter_add"}
 
 

@@ -1,9 +1,10 @@
-"""The CUDA-side wrappers of the train attention's backward and the train
-fusion head, driven with CPU tensors: the launch is replaced by a check of
-its arguments against the C signature (``_lib.SIGNATURES``), so the route
-each shape takes, the shapes and constants handed to the kernel and the
-refusals before any launch are held here; the kernels themselves are held
-against their plain versions on the card (``tests/test_torch_cuda.py``).
+"""The CUDA-side wrappers of the train attention's backward, the train
+fusion head, the cost-volume tail and FPS, driven with CPU tensors: the
+launch is replaced by a check of its arguments against the C signature
+(``_lib.SIGNATURES``), so the route each shape takes, the shapes and
+constants handed to the kernel and the refusals before any launch are held
+here; the kernels themselves are held against their plain versions on the
+card (``tests/test_torch_cuda.py``).
 """
 import importlib
 
@@ -13,6 +14,8 @@ import torch
 from mocopci_torch.kernels import _lib
 
 attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
+cross_tail = importlib.import_module("mocopci_torch.kernels.cross_tail")
+fps = importlib.import_module("mocopci_torch.kernels.fps")
 fusion_head_train = importlib.import_module("mocopci_torch.kernels.fusion_head_train")
 
 
@@ -27,6 +30,7 @@ def launches(monkeypatch):
 
     monkeypatch.setattr(_lib, "launch", launch)
     monkeypatch.setattr(_lib, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_lib, "dispatch_device", lambda *t: "cuda")
     monkeypatch.setattr(_lib, "stream", lambda t: 0)
     return calls
 
@@ -89,3 +93,77 @@ def test_fusion_head_train_refuses_groups_past_shared_memory(launches, F, fits):
         with pytest.raises(ValueError, match="shared memory"):
             fusion_head_train.fusion_head_train_fwd(x, params, F)
         assert not launches
+
+
+def test_fps_pyramid_is_one_launch_with_every_level(launches):
+    xyz = torch.zeros(2, 8192, 3)
+    idxs = fps.fps_pyramid(xyz, (2048, 512, 256, 64))
+    assert [name for name, _ in launches] == ["fps_pyramid"]
+    args = launches[0][1]
+    assert args[1:3] == (2, 8192) and args[4] == 4       # B, N; levels
+    assert [tuple(i.shape) for i in idxs] == [(2, 2048), (2, 512), (2, 256), (2, 64)]
+    assert all(i.dtype == torch.int32 and i.is_contiguous() for i in idxs)
+    fps.fps(xyz, 2048)
+    assert launches[1][0] == "fps" and launches[1][1][1:4] == (2, 8192, 2048)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: fps.fps(x, 100), lambda x: fps.fps_pyramid(x, (100,))])
+def test_fps_refuses_clouds_past_max_n(launches, call):
+    with pytest.raises(ValueError, match="N <="):
+        call(torch.zeros(1, fps.MAX_N + 1, 3))
+    assert not launches
+
+
+@pytest.mark.parametrize("levels", [(3000, 512), (2048, 4096), (256, 0), ()])
+def test_fps_pyramid_refuses_a_level_past_the_one_before(launches, levels):
+    """A level samples 1 to all of the points of the level before (equal
+    levels are taken, as the TPU kernel takes them); more, none, or no level
+    at all raises before any launch."""
+    with pytest.raises(ValueError, match="fps_pyramid"):
+        fps.fps_pyramid(torch.zeros(1, 2048, 3), levels)
+    assert not launches
+
+
+def _tail_inputs(B=2, M=50, N=40, K=32, C=64, C2=64):
+    return (torch.zeros(B, M, C), torch.zeros(B, N, K, dtype=torch.int32), torch.zeros(B, N, C),
+            torch.zeros(C, C2), torch.zeros(C2))
+
+
+@pytest.mark.parametrize("K,dtype", [(32, torch.uint8), (300, torch.int32)])
+def test_cross_tail_fwd_passes_its_argmax_or_none(launches, K, dtype):
+    tab, idx, base, w, b = _tail_inputs(K=K, C=8, C2=16)
+    assert cross_tail.argmax_dtype(K) == dtype
+    cross_tail.cross_tail_fwd(tab, idx, base, w, b)
+    amax = torch.empty(2, 40, 16, dtype=dtype)
+    cross_tail.cross_tail_fwd(tab, idx, base, w, b, amax)
+    (n0, a0), (n1, a1) = launches
+    assert n0 == n1 == "cross_tail"
+    assert a0[6] == 0 and a1[6] == amax.data_ptr()       # the argmax pointer, or null
+    assert a0[7:13] == a1[7:13] == (2, 50, 40, K, 8, 16)  # B, M, N, K, C, C2
+
+
+@pytest.mark.parametrize("amax", [torch.empty(2, 40, 64, dtype=torch.int32),
+                                  torch.empty(2, 40, 64, dtype=torch.int64),
+                                  torch.empty(2, 40, 63, dtype=torch.uint8),
+                                  torch.empty(2, 64, 40, dtype=torch.uint8)])
+def test_cross_tail_refuses_an_argmax_of_the_wrong_type_or_shape(launches, amax):
+    tab, idx, base, w, b = _tail_inputs()
+    with pytest.raises(ValueError, match="argmax"):
+        cross_tail.cross_tail_fwd(tab, idx, base, w, b, amax)
+    with pytest.raises(ValueError, match="argmax"):
+        cross_tail.cross_tail_bwd(tab, idx, base, w, torch.zeros(2, 40, 64), amax,
+                                  torch.zeros(2, 40, 64))
+    assert not launches
+
+
+def test_cross_tail_bwd_takes_the_argmax_on_the_fixed_grid(launches):
+    tab, idx, base, w, b = _tail_inputs(B=6, N=2048)
+    out, amax = torch.zeros(6, 2048, 64), torch.zeros(6, 2048, 64, dtype=torch.uint8)
+    d_rows, d_base, dw, db = cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, out)
+    assert [name for name, _ in launches] == ["cross_tail_bwd"]
+    args = launches[0][1]
+    assert args[4:6] == (out.data_ptr(), amax.data_ptr())
+    assert args[11:18] == (6, 50, 2048, 32, 64, 64, cross_tail.BWD_BLOCKS)
+    assert d_rows.shape == (6, 2048, 32, 64) and d_base.shape == (6, 2048, 64)
+    assert dw.shape == (64, 64) and db.shape == (64,)

@@ -10,6 +10,7 @@ so there only swaps at float-rounding distance gaps are allowed.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mocopci_tpu.ops.pallas.attention import fused_attention_pallas
 from mocopci_tpu.ops.pallas.chamfer_pair import _pair_keys
@@ -59,6 +60,19 @@ def test_fps_twin_matches_pallas():
         i = kernels.fps_plain(pc, n)
         np.testing.assert_array_equal(i.numpy(), np.asarray(w))
         pc = gather(pc, i)
+
+
+@pytest.mark.parametrize("B,N,levels", [(2, 256, (64, 32, 16, 8)), (3, 300, (100, 100, 7, 1))])
+def test_fps_pyramid_twin_matches_pallas(B, N, levels):
+    """The pyramid kernel's twin, level for level (equal levels and a one-point
+    level included), against the one-launch Pallas pyramid."""
+    xyz = _x(np.random.default_rng(10), B, N, 3)
+    got = kernels.fps_pyramid_plain(t(xyz), levels)
+    want = farthest_point_sample_pyramid_pallas(jnp.asarray(xyz), levels, interpret=True)
+    assert len(got) == len(levels)
+    for g, w, n in zip(got, want, levels):
+        assert g.shape == (B, n) and g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_attention_twin_matches_pallas():
