@@ -26,13 +26,11 @@
 // backward does only the sparse work, about 2*C*C2 FMAs a query, and bytes
 // bound it: the (N, K, C) rows' gradient it writes (100 MB at the train
 // step's up_1).  Design: a fixed grid of blocks walks tiles of up to 256 / C
-// queries (4 at C = 64); a tile's neighbour rows, base rows, out, dout and
-// argmax entries are copied by cp.async, the next tile's under this tile's
-// dW sums; thread (query, c) adds gv * W[c, c2] into its own row j*(c2), c2
-// ascending, in shared memory, then writes its column of d_rows (zeros where
-// a row won no channel) and d_base; each thread keeps its 17 entries of the
-// block's dW and db in registers, summed in query order, and the per-block
-// partials are summed in block order (deterministic).
+// queries (4 at C = 64); a tile's neighbour rows are gathered by cp.async;
+// thread (query, c) adds gv * W[c, c2] into its own row j*(c2), c2
+// ascending, in shared memory, then writes its column of d_rows (zeros where a row won no
+// channel) and d_base; the block's dW and db are summed per entry in query
+// order, and the per-block partials in block order (deterministic).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -132,13 +130,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kE = 17;   // dW / db entries a thread sums in registers: 64 x 64 + 64 in one pass
 
-// [qt][K][C] rows, [qt][K][C] dx, [C2][C] W^T, [qt][C] base, then two
-// buffers each of out, dout and the argmax (4 bytes an entry at most)
 inline size_t bwd_smem_floats(int qt, int K, int C, int C2) {
-  return 2 * static_cast<size_t>(qt) * K * C + static_cast<size_t>(C2) * C +
-         static_cast<size_t>(qt) * C + 6 * static_cast<size_t>(qt) * C2;
+  return 2 * static_cast<size_t>(qt) * K * C + 2 * static_cast<size_t>(C) * C2 + C2 +
+         static_cast<size_t>(qt) * C + 2 * static_cast<size_t>(qt) * C2;
 }
 
 // queries a backward tile holds: a thread for each (query, channel) column,
@@ -149,59 +144,9 @@ inline int bwd_tile(int K, int C, int C2) {
   return qt;
 }
 
-// Queues the copies of tile q0's inputs: its nq*K neighbour rows into rows,
-// its base rows into bs, its out, dout and argmax entries into ov, dv, am.
-template <typename IdxT>
-__device__ __forceinline__ void bwd_load_tile(
-    const float* __restrict__ tab, const int* __restrict__ idx, const float* __restrict__ base,
-    const float* __restrict__ out, const IdxT* __restrict__ amax, const float* __restrict__ dout,
-    int q0, int nq, int M, int N, int K, int C, int C2, bool vec, float* rows, float* bs,
-    float* ov, float* dv, IdxT* am) {
-  const int tid = threadIdx.x;
-  const int* iq = idx + static_cast<size_t>(q0) * K;
-  if (vec) {
-    const int cv = C / 4;
-    for (int e = tid; e < nq * K * cv; e += kThreads) {
-      const int r = e / cv, c = (e - r * cv) * 4;   // r = q * K + j
-      const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
-      cp_async16(rows + r * C + c, tab + src);
-    }
-  } else {
-    for (int e = tid; e < nq * K * C; e += kThreads) {
-      const int r = e / C, c = e - r * C;
-      const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
-      cp_async4(rows + e, tab + src);
-    }
-  }
-  const size_t o = static_cast<size_t>(q0) * C2;
-  for (int e = tid; e < nq * C; e += kThreads)
-    cp_async4(bs + e, base + static_cast<size_t>(q0) * C + e);
-  for (int e = tid; e < nq * C2; e += kThreads) {
-    cp_async4(ov + e, out + o + e);
-    cp_async4(dv + e, dout + o + e);
-  }
-  // the argmax in 4-byte words where they line up, else entry by entry
-  const int words = nq * C2 * static_cast<int>(sizeof(IdxT)) / 4;
-  if ((C2 * sizeof(IdxT)) % 4 == 0 && (reinterpret_cast<uintptr_t>(amax) & 3) == 0) {
-    const float* src = reinterpret_cast<const float*>(amax + o);
-    float* dst = reinterpret_cast<float*>(am);
-    for (int e = tid; e < words; e += kThreads) cp_async4(dst + e, src + e);
-  } else {
-    for (int e = tid; e < nq * C2; e += kThreads) am[e] = amax[o + e];
-  }
-}
-
-__device__ __forceinline__ float dout_at_max(const float* ov, const float* dv, int e) {
-  return ov[e] >= 0.f ? dv[e] : 0.1f * dv[e];   // dout * leaky'(pre1 at j*)
-}
-
 // Backward over tiles of qt flattened (B*N) queries, tile t = blockIdx.x +
-// i*gridDim.x.  Per tile: column (q, c) routes each output channel's gradient
-// to its saved j* and writes its column of d_rows and d_base, leaving x0 =
-// leaky(row + base) in dx; then the next tile's copies are queued, and the
-// thread adds the tile into its kE entries of [dW | db] in registers.  Where
-// [dW | db] has more than kThreads * kE entries, the tiles are walked again
-// for the next kThreads * kE (x0 and the sums only).
+// i*gridDim.x: gather the rows, route each output channel's gradient to its
+// saved j*, write d_rows and d_base, add the tile into this block's dW / db.
 template <typename IdxT>
 __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx,
@@ -210,119 +155,98 @@ __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
     const float* __restrict__ dout, float* __restrict__ d_rows, float* __restrict__ d_base,
     float* __restrict__ partial, int BN, int M, int N, int K, int C, int C2, int qt) {
   extern __shared__ float sm[];
-  float* rows = sm;                   // [qt][K][C] gathered rows
-  float* dx = rows + qt * K * C;      // [qt][K][C] the rows' gradient, then x0
+  float* rows = sm;                   // [qt][K][C] gathered rows, then x0 = leaky(row + base)
+  float* dx = rows + qt * K * C;      // [qt][K][C] the rows' gradient before leaky'
   float* wt = dx + qt * K * C;        // [C2][C]    W transposed
-  float* bs = wt + C2 * C;            // [qt][C]    base
-  float* ovb = bs + qt * C;           // [2][qt][C2] out
-  float* dvb = ovb + 2 * qt * C2;     // [2][qt][C2] dout
-  IdxT* amb = reinterpret_cast<IdxT*>(dvb + 2 * qt * C2);  // [2][qt * C2 words] j*
+  float* dw = wt + C2 * C;            // [C2][C]    this block's dW, transposed
+  float* db = dw + C2 * C;            // [C2]       this block's db
+  float* bs = db + C2;                // [qt][C]    base
+  float* gv = bs + qt * C;            // [qt][C2]   dout * leaky'(pre1 at j*)
+  int* js = reinterpret_cast<int*>(gv + qt * C2);  // [qt][C2] j*
   const int tid = threadIdx.x;
   const bool vec = (C & 3) == 0 && (reinterpret_cast<uintptr_t>(tab) & 15) == 0;
   for (int e = tid; e < C * C2; e += kThreads) {
     const int c = e / C2, c2 = e - c * C2;
     wt[c2 * C + c] = w[e];
+    dw[e] = 0.f;
   }
+  for (int e = tid; e < C2; e += kThreads) db[e] = 0.f;
+  for (int e = tid; e < qt * K * C; e += kThreads) dx[e] = 0.f;
 
   const int ntiles = (BN + qt - 1) / qt;
-  const int E = C * C2 + C2;          // [dW as (c2, c) | db]
-  for (int e0 = 0; e0 < E; e0 += kThreads * kE) {
-    const bool first = e0 == 0;
-    float acc[kE];
-    int ec2[kE], ec[kE];              // each entry's c2 and c (c = -1: db)
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      const int e = e0 + tid + i * kThreads;
-      acc[i] = 0.f;
-      ec2[i] = e < C * C2 ? e / C : e - C * C2;
-      ec[i] = e < C * C2 ? e - ec2[i] * C : -1;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int q0 = tile * qt;
+    const int nq = min(qt, BN - q0);
+    const int* iq = idx + static_cast<size_t>(q0) * K;
+    __syncthreads();                  // the previous tile's readers are done
+    if (vec) {
+      const int cv = C / 4;
+      for (int e = tid; e < nq * K * cv; e += kThreads) {
+        const int r = e / cv, c = (e - r * cv) * 4;   // r = q * K + j
+        const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
+        cp_async16(rows + r * C + c, tab + src);
+      }
+    } else {
+      for (int e = tid; e < nq * K * C; e += kThreads) {
+        const int r = e / C, c = e - r * C;
+        const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
+        cp_async4(rows + e, tab + src);
+      }
     }
-    int buf = 0;
-    if (blockIdx.x < ntiles) {
-      const int q0 = blockIdx.x * qt;
-      bwd_load_tile(tab, idx, base, out, amax, dout, q0, min(qt, BN - q0), M, N, K, C, C2, vec,
-                    rows, bs, ovb, dvb, amb);
+    for (int e = tid; e < nq * C; e += kThreads) bs[e] = base[static_cast<size_t>(q0) * C + e];
+    for (int e = tid; e < nq * C2; e += kThreads) {
+      const size_t o = static_cast<size_t>(q0) * C2 + e;
+      gv[e] = out[o] >= 0.f ? dout[o] : 0.1f * dout[o];
+      js[e] = static_cast<int>(amax[o]);
     }
     cp_async_wait_all();
     __syncthreads();
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int q0 = tile * qt;
-      const int nq = min(qt, BN - q0);
-      const float* ov = ovb + buf * qt * C2;
-      const float* dv = dvb + buf * qt * C2;
-      const IdxT* am = amb + buf * qt * C2 * 4 / static_cast<int>(sizeof(IdxT));
-      // column (q, c): each output channel's gradient lands on its one row j*
-      for (int e = tid; e < nq * C; e += kThreads) {
-        const int q = e / C, c = e - q * C;
-        float* dxc = dx + q * K * C + c;
-        const float* rc = rows + q * K * C + c;
-        const float bb = bs[e];
-        if (first) {
-          for (int j = 0; j < K; ++j) dxc[j * C] = 0.f;
-          for (int c20 = 0; c20 < C2; c20 += 8) {   // 8 channels' loads ahead of their adds
-            int jj[8];
-            float gg[8], ww[8];
-#pragma unroll
-            for (int u = 0; u < 8; ++u) {
-              const int c2 = min(c20 + u, C2 - 1);
-              jj[u] = static_cast<int>(am[q * C2 + c2]);
-              gg[u] = c20 + u < C2 ? dout_at_max(ov, dv, q * C2 + c2) : 0.f;
-              ww[u] = wt[c2 * C + c];
-            }
-#pragma unroll
-            for (int u = 0; u < 8; ++u) {
-              float* t = dxc + jj[u] * C;
-              *t = fmaf(gg[u], ww[u], *t);
-            }
-          }
-          float* dr = d_rows + static_cast<size_t>(q0 + q) * K * C + c;
-          float s = 0.f;
-          for (int j = 0; j < K; ++j) {
-            const float p = rc[j * C] + bb;
-            const float d = dxc[j * C] * mocopci::dleaky(p);
-            dxc[j * C] = mocopci::leaky(p);   // x0, for the sums below
-            dr[static_cast<size_t>(j) * C] = d;
-            s += d;
-          }
-          d_base[static_cast<size_t>(q0 + q) * C + c] = s;
-        } else {
-          for (int j = 0; j < K; ++j) dxc[j * C] = mocopci::leaky(rc[j * C] + bb);
-        }
+    // column (q, c): each output channel's gradient lands on its one row j*
+    for (int e = tid; e < nq * C; e += kThreads) {
+      const int q = e / C, c = e - q * C;
+      float* dxc = dx + q * K * C + c;
+      float* rc = rows + q * K * C + c;
+      const int* jq = js + q * C2;
+      const float* gq = gv + q * C2;
+      for (int c2 = 0; c2 < C2; ++c2) {
+        float* t = dxc + jq[c2] * C;
+        *t = fmaf(gq[c2], wt[c2 * C + c], *t);
       }
-      __syncthreads();
-      // the next tile's copies run under this tile's sums
-      const int next = tile + gridDim.x;
-      if (next < ntiles) {
-        const int n0 = next * qt;
-        bwd_load_tile(tab, idx, base, out, amax, dout, n0, min(qt, BN - n0), M, N, K, C, C2,
-                      vec, rows, bs, ovb + (buf ^ 1) * qt * C2, dvb + (buf ^ 1) * qt * C2,
-                      amb + (buf ^ 1) * qt * C2 * 4 / static_cast<int>(sizeof(IdxT)));
+      const float bb = bs[e];
+      float* dr = d_rows + static_cast<size_t>(q0 + q) * K * C + c;
+      float s = 0.f;
+      for (int j = 0; j < K; ++j) {
+        const float p = rc[j * C] + bb;
+        const float d = dxc[j * C] * mocopci::dleaky(p);
+        dxc[j * C] = 0.f;             // zero again for the next tile
+        rc[j * C] = mocopci::leaky(p);
+        dr[static_cast<size_t>(j) * C] = d;
+        s += d;
       }
-      // dW[c, c2] += x0[q][j*(c2)][c] * gv[q][c2], db[c2] += gv[q][c2], q in order
-      for (int q = 0; q < nq; ++q) {
-        const float* x0 = dx + q * K * C;
-#pragma unroll
-        for (int i = 0; i < kE; ++i) {
-          if (e0 + tid + i * kThreads < E) {
-            const int c2 = ec2[i];
-            const float g = dout_at_max(ov, dv, q * C2 + c2);
-            acc[i] = ec[i] >= 0
-                         ? fmaf(x0[static_cast<int>(am[q * C2 + c2]) * C + ec[i]], g, acc[i])
-                         : acc[i] + g;
-          }
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      buf ^= 1;
+      d_base[static_cast<size_t>(q0 + q) * C + c] = s;
     }
-    float* pb = partial + static_cast<size_t>(blockIdx.x) * E;
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      if (e0 + tid + i * kThreads < E)
-        pb[ec[i] >= 0 ? ec[i] * C2 + ec2[i] : C * C2 + ec2[i]] = acc[i];
+    __syncthreads();
+    // dW[c, c2] += x0[q][j*(c2)][c] * gv[q][c2], db[c2] += gv[q][c2], q in order
+    for (int e = tid; e < C2 * C; e += kThreads) {
+      const int c2 = e / C, c = e - c2 * C;
+      float acc = dw[e];
+      for (int q = 0; q < nq; ++q)
+        acc = fmaf(rows[(q * K + js[q * C2 + c2]) * C + c], gv[q * C2 + c2], acc);
+      dw[e] = acc;
+    }
+    for (int c2 = tid; c2 < C2; c2 += kThreads) {
+      float acc = db[c2];
+      for (int q = 0; q < nq; ++q) acc += gv[q * C2 + c2];
+      db[c2] = acc;
     }
   }
+  __syncthreads();
+  float* pb = partial + static_cast<size_t>(blockIdx.x) * (C * C2 + C2);
+  for (int e = tid; e < C * C2; e += kThreads) {
+    const int c = e / C2, c2 = e - c * C2;
+    pb[e] = dw[c2 * C + c];
+  }
+  for (int e = tid; e < C2; e += kThreads) pb[C * C2 + e] = db[e];
 }
 
 template <typename IdxT, bool kArg>

@@ -73,7 +73,7 @@ def _fwd_smem(K, C, C2):
 
 
 def _bwd_smem(qt, K, C, C2):
-    return (2 * qt * K * C + C * C2 + qt * C + 6 * qt * C2) * 4
+    return (2 * qt * K * C + 2 * C * C2 + C2 + qt * C + 2 * qt * C2) * 4
 
 
 def _bwd_tile(K, C, C2):
