@@ -35,6 +35,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;  // 32 points a thread at N = 8192
 constexpr int kMaxLevels = 8;
+constexpr int kSlotFloats = 2 * 32 * 2;   // the step slots, in floats
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;
 
@@ -129,15 +130,17 @@ __device__ void fps_level(const float* X, const float* Y, const float* Z, int n_
   }
 }
 
-// Cloud blockIdx.x: its (N, 3) points into three shared planes of capacity N,
-// then lv.count levels, level l's (B, n_l) indices at out + B * (n_0 + ... +
+// Cloud blockIdx.x: the step slots (2 x 32 uint2) first in dynamic shared
+// memory, then its (N, 3) points as three planes of capacity N; then lv.count
+// levels, level l's (B, n_l) indices at out + B * (n_0 + ... +
 // n_{l-1}); the levels alternate between that region and a second one of
 // capacity n_0 (each level's points fit the region it is written to, as the
 // levels do not grow).
 __device__ void fps_cloud(const float* __restrict__ xyz, int N, const Levels& lv,
                           int* __restrict__ out) {
-  extern __shared__ float sm[];
-  __shared__ uint2 slots[2 * 32];
+  extern __shared__ float smem[];
+  uint2* slots = reinterpret_cast<uint2*>(smem);
+  float* sm = smem + kSlotFloats;
   const int b = blockIdx.x, B = gridDim.x;
   const float* x = xyz + static_cast<size_t>(b) * N * 3;
   for (int e = threadIdx.x; e < 3 * N; e += blockDim.x) {
@@ -185,7 +188,9 @@ __global__ void __launch_bounds__(kMaxThreads) fps_pyramid_kernel(const float* _
 template <typename Kernel>
 cudaError_t run(Kernel kernel, const float* xyz, int B, int N, const Levels& lv, int* out,
                 cudaStream_t st) {
-  const size_t smem = 3 * static_cast<size_t>(N + (lv.count > 1 ? lv.n[0] : 0)) * sizeof(float);
+  // all of it dynamic, so that allow_smem sees every byte above 48 KB
+  const size_t smem =
+      (kSlotFloats + 3 * static_cast<size_t>(N + (lv.count > 1 ? lv.n[0] : 0))) * sizeof(float);
   cudaError_t err = mocopci::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int threads = level_threads(N);   // the block serves every level
