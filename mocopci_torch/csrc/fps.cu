@@ -29,20 +29,13 @@
 // runs on as many threads as its points need (rounded to warps) behind a
 // named barrier of that many; the selected points' coordinates go to the
 // other shared region, where the next level runs on them.
-#include <cooperative_groups.h>
-
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 256;  // 32 points a thread at N = 8192
 constexpr int kMaxLevels = 8;
 constexpr int kSlotFloats = 2 * 32 * 2;   // the step slots, in floats
-constexpr int kMaxEntries = 64;           // exchange slots a parity: 8 blocks x 8 warps
-constexpr int kCluster = 4;               // blocks a cloud at level 0 above kClusterMinN
-constexpr int kClusterMinN = 2048;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;
 
@@ -137,17 +130,28 @@ __device__ void fps_level(const float* X, const float* Y, const float* Z, int n_
   }
 }
 
-// Levels first.. of cloud b: level l's (B, n_l) indices at out + B * (n_0 +
-// ... + n_{l-1}); level `first` reads n_in points from the planes at src
-// (capacity cap_src), and the levels alternate between that region and the
-// one at dst (capacity cap_dst; each level's points fit the region it is
-// written to, as the levels do not grow).
-__device__ void fps_levels(float* src, int cap_src, float* dst, int cap_dst, int n_in,
-                           const Levels& lv, int first, int* __restrict__ out, int B, int b,
-                           uint2* slots) {
-  int off = 0;
-  for (int l = 0; l < first; ++l) off += lv.n[l];
-  for (int l = first; l < lv.count; ++l) {
+// Cloud blockIdx.x: the step slots (2 x 32 uint2) first in dynamic shared
+// memory, then its (N, 3) points as three planes of capacity N; then lv.count
+// levels, level l's (B, n_l) indices at out + B * (n_0 + ... +
+// n_{l-1}); the levels alternate between that region and a second one of
+// capacity n_0 (each level's points fit the region it is written to, as the
+// levels do not grow).
+__device__ void fps_cloud(const float* __restrict__ xyz, int N, const Levels& lv,
+                          int* __restrict__ out) {
+  extern __shared__ float smem[];
+  uint2* slots = reinterpret_cast<uint2*>(smem);
+  float* sm = smem + kSlotFloats;
+  const int b = blockIdx.x, B = gridDim.x;
+  const float* x = xyz + static_cast<size_t>(b) * N * 3;
+  for (int e = threadIdx.x; e < 3 * N; e += blockDim.x) {
+    const int n = e / 3, c = e - n * 3;
+    sm[c * N + n] = x[e];
+  }
+  __syncthreads();
+  float* src = sm;
+  float* dst = sm + 3 * N;
+  int cap_src = N, cap_dst = lv.n[0], n_in = N, off = 0;
+  for (int l = 0; l < lv.count; ++l) {
     const int np = lv.n[l];
     float* nx = l + 1 < lv.count ? dst : nullptr;
     int* o = out + static_cast<size_t>(B) * off + static_cast<size_t>(b) * np;
@@ -170,161 +174,6 @@ __device__ void fps_levels(float* src, int cap_src, float* dst, int cap_dst, int
   }
 }
 
-// Cloud blockIdx.x in one block: the step slots (2 x 32 uint2) first in
-// dynamic shared memory, then its (N, 3) points as three planes of capacity
-// N, then a second region of capacity n_0 for the levels to alternate with.
-__device__ void fps_cloud(const float* __restrict__ xyz, int N, const Levels& lv,
-                          int* __restrict__ out) {
-  extern __shared__ float smem[];
-  uint2* slots = reinterpret_cast<uint2*>(smem);
-  float* sm = smem + kSlotFloats;
-  const int b = blockIdx.x;
-  const float* x = xyz + static_cast<size_t>(b) * N * 3;
-  for (int e = threadIdx.x; e < 3 * N; e += blockDim.x) {
-    const int n = e / 3, c = e - n * 3;
-    sm[c * N + n] = x[e];
-  }
-  __syncthreads();
-  fps_levels(sm, N, sm + 3 * N, lv.n[0], N, lv, 0, out, gridDim.x, b, slots);
-}
-
-// Level 0 of a cloud across the blocks of a cluster: block r holds points
-// [base, base + n_here) of the cloud in its planes (capacity S), thread t its
-// points base + t + i * blockDim.  A step: each warp's winner (value, index
-// and coordinates) is stored into every block's exchange slot of the step's
-// parity through distributed shared memory, then ONE cluster barrier, then
-// every warp reduces the cluster's slots itself.  Rank 0 writes the indices
-// and, where nx is given, the winners' coordinates.
-template <int kPer>
-__device__ void fps_level_cluster(const float* X, const float* Y, const float* Z, int n_here,
-                                  int base, int npoint, float4 first, int* __restrict__ out,
-                                  float* nx, float* ny, float* nz, uint2* xv, float4* xc) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int r = static_cast<int>(cluster.block_rank());
-  const int R = static_cast<int>(cluster.num_blocks());
-  const int tid = threadIdx.x, act = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = act >> 5, ne = R * nw;
-  float px[kPer], py[kPer], pz[kPer], md[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int n = tid + i * act;
-    const bool real = n < n_here;
-    px[i] = real ? X[n] : 0.f;
-    py[i] = real ? Y[n] : 0.f;
-    pz[i] = real ? Z[n] : 0.f;
-    md[i] = real ? 1e10f : 0.f;   // padded: 0, and an index past its block's points
-  }
-  float lx = first.x, ly = first.y, lz = first.z;
-  const bool writer = r == 0 && tid == 0;
-  if (writer) {
-    out[0] = 0;
-    if (nx != nullptr) {
-      nx[0] = lx;
-      ny[0] = ly;
-      nz[0] = lz;
-    }
-  }
-  for (int s = 1; s < npoint; ++s) {
-    unsigned bv = 0u, bi = kNone;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float dx = __fsub_rn(px[i], lx), dy = __fsub_rn(py[i], ly),
-                  dz = __fsub_rn(pz[i], lz);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      md[i] = fminf(md[i], d);
-      const unsigned v = __float_as_uint(md[i]);
-      if (i == 0 || v > bv) {
-        bv = v;
-        bi = static_cast<unsigned>(tid + i * act);
-      }
-    }
-    const unsigned wm = __reduce_max_sync(kFull, bv);
-    const unsigned wl = __reduce_min_sync(kFull, bv == wm ? bi : kNone);
-    const int par = (s & 1) * kMaxEntries;
-    if (lane < R) {
-      const float4 c = wl < static_cast<unsigned>(n_here)
-                           ? make_float4(X[wl], Y[wl], Z[wl], 0.f)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      const int slot = par + r * nw + warp;
-      *cluster.map_shared_rank(xv + slot, lane) = make_uint2(wm, base + wl);
-      *cluster.map_shared_rank(xc + slot, lane) = c;
-    }
-    cluster.sync();
-    // the slots of the other parity are the next step's: no block stores into
-    // a slot another may still read
-    uint2 e = lane < ne ? xv[par + lane] : make_uint2(0u, kNone);
-    int pos = lane;
-    if (lane + 32 < ne) {
-      const uint2 f = xv[par + lane + 32];
-      if (f.x > e.x || (f.x == e.x && f.y < e.y)) {
-        e = f;
-        pos = lane + 32;
-      }
-    }
-    const unsigned m = __reduce_max_sync(kFull, e.x);
-    const unsigned win = __reduce_min_sync(kFull, e.x == m ? e.y : kNone);
-    const int from = __ffs(__ballot_sync(kFull, e.x == m && e.y == win)) - 1;
-    const float4 c = xc[par + __shfl_sync(kFull, pos, from)];
-    lx = c.x;
-    ly = c.y;
-    lz = c.z;
-    if (writer) {
-      out[s] = static_cast<int>(win);
-      if (nx != nullptr) {
-        nx[s] = lx;
-        ny[s] = ly;
-        nz[s] = lz;
-      }
-    }
-  }
-}
-
-// Cloud blockIdx.y across the cluster along x: the exchange slots ([2][64]
-// uint2 and [2][64] float4), the step slots of the later levels, then this
-// block's slice of S = ceil(N / R) points as three planes, then two regions
-// (capacities n_0 and n_1) where rank 0 runs the later levels alone.
-__device__ void fps_cloud_cluster(const float* __restrict__ xyz, int N, const Levels& lv,
-                                  int* __restrict__ out) {
-  extern __shared__ float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int r = static_cast<int>(cluster.block_rank());
-  const int R = static_cast<int>(cluster.num_blocks());
-  uint2* xv = reinterpret_cast<uint2*>(smem);
-  float4* xc = reinterpret_cast<float4*>(smem + 4 * kMaxEntries);
-  uint2* slots = reinterpret_cast<uint2*>(smem + 12 * kMaxEntries);
-  float* sm = smem + 12 * kMaxEntries + kSlotFloats;
-  const int b = blockIdx.y;
-  const int S = (N + R - 1) / R, base = r * S, n_here = max(0, min(S, N - base));
-  const float* x = xyz + static_cast<size_t>(b) * N * 3;
-  for (int e = threadIdx.x; e < 3 * n_here; e += blockDim.x) {
-    const int n = e / 3, c = e - n * 3;
-    sm[c * S + n] = x[3 * base + e];
-  }
-  __syncthreads();
-  const float4 first = make_float4(x[0], x[1], x[2], 0.f);
-  float* reg_b = sm + 3 * S;
-  const int cap_b = lv.n[0], cap_c = lv.count > 2 ? lv.n[1] : 0;
-  float* nx = r == 0 && lv.count > 1 ? reg_b : nullptr;
-  switch (level_per(S)) {
-    case 32:
-      fps_level_cluster<32>(sm, sm + S, sm + 2 * S, n_here, base, lv.n[0], first, out + b * lv.n[0],
-                            nx, reg_b + cap_b, reg_b + 2 * cap_b, xv, xc);
-      break;
-    case 16:
-      fps_level_cluster<16>(sm, sm + S, sm + 2 * S, n_here, base, lv.n[0], first, out + b * lv.n[0],
-                            nx, reg_b + cap_b, reg_b + 2 * cap_b, xv, xc);
-      break;
-    default:
-      fps_level_cluster<8>(sm, sm + S, sm + 2 * S, n_here, base, lv.n[0], first, out + b * lv.n[0],
-                           nx, reg_b + cap_b, reg_b + 2 * cap_b, xv, xc);
-  }
-  // after the last step's cluster barrier no block touches another's memory
-  if (r != 0 || lv.count == 1) return;
-  __syncthreads();
-  fps_levels(reg_b, cap_b, reg_b + 3 * cap_b, cap_c, lv.n[0], lv, 1, out, gridDim.y, b, slots);
-}
-
 __global__ void __launch_bounds__(kMaxThreads) fps_kernel(const float* __restrict__ xyz, int N,
                                                           Levels lv, int* __restrict__ out) {
   fps_cloud(xyz, N, lv, out);
@@ -336,57 +185,18 @@ __global__ void __launch_bounds__(kMaxThreads) fps_pyramid_kernel(const float* _
   fps_cloud(xyz, N, lv, out);
 }
 
-__global__ void __launch_bounds__(kMaxThreads) fps_kernel_cluster(const float* __restrict__ xyz,
-                                                                  int N, Levels lv,
-                                                                  int* __restrict__ out) {
-  fps_cloud_cluster(xyz, N, lv, out);
-}
-
-__global__ void __launch_bounds__(kMaxThreads) fps_pyramid_kernel_cluster(
-    const float* __restrict__ xyz, int N, Levels lv, int* __restrict__ out) {
-  fps_cloud_cluster(xyz, N, lv, out);
-}
-
-// threads a block needs for the levels it runs: from its own n_in points at
-// level 0, then from each level's points for the next
-int block_threads(int n0_in, const Levels& lv) {
-  int threads = level_threads(n0_in);
-  for (int l = 0; l + 1 < lv.count; ++l) threads = max(threads, level_threads(lv.n[l]));
-  return threads;
-}
-
-template <typename Kernel, typename ClusterKernel>
-cudaError_t run(Kernel kernel, ClusterKernel cluster_kernel, const float* xyz, int B, int N,
-                const Levels& lv, int* out, cudaStream_t st) {
+template <typename Kernel>
+cudaError_t run(Kernel kernel, const float* xyz, int B, int N, const Levels& lv, int* out,
+                cudaStream_t st) {
   // all of it dynamic, so that allow_smem sees every byte above 48 KB
-  if (kCluster < 2 || N <= kClusterMinN) {
-    const size_t smem =
-        (kSlotFloats + 3 * static_cast<size_t>(N + (lv.count > 1 ? lv.n[0] : 0))) * sizeof(float);
-    cudaError_t err = mocopci::allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<B, block_threads(N, lv), smem, st>>>(xyz, N, lv, out);
-    return cudaGetLastError();
-  }
-  const int S = mocopci::ceil_div(N, kCluster);
-  const size_t regions = lv.count > 1 ? lv.n[0] + (lv.count > 2 ? lv.n[1] : 0) : 0;
   const size_t smem =
-      (12 * kMaxEntries + kSlotFloats + 3 * (static_cast<size_t>(S) + regions)) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(cluster_kernel, smem);
+      (kSlotFloats + 3 * static_cast<size_t>(N + (lv.count > 1 ? lv.n[0] : 0))) * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster, B);
-  config.blockDim = dim3(block_threads(S, lv));
-  config.dynamicSmemBytes = smem;
-  config.stream = st;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  config.attrs = &attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, cluster_kernel, xyz, N, lv, out);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  int threads = level_threads(N);   // the block serves every level
+  for (int l = 0; l + 1 < lv.count; ++l) threads = max(threads, level_threads(lv.n[l]));
+  kernel<<<B, threads, smem, st>>>(xyz, N, lv, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -397,8 +207,7 @@ MOCOPCI_API int mocopci_fps(const float* xyz, int B, int N, int npoint, int* out
   Levels lv{};
   lv.n[0] = npoint;
   lv.count = 1;
-  return run(fps_kernel, fps_kernel_cluster, xyz, B, N, lv, out,
-             static_cast<cudaStream_t>(stream));
+  return run(fps_kernel, xyz, B, N, lv, out, static_cast<cudaStream_t>(stream));
 }
 
 // xyz (B, N, 3) f32, npoints[levels] on the host (1 <= levels <= 8, N <= 8192,
@@ -411,6 +220,5 @@ MOCOPCI_API int mocopci_fps_pyramid(const float* xyz, int B, int N, const int* n
   Levels lv{};
   for (int l = 0; l < levels; ++l) lv.n[l] = npoints[l];
   lv.count = levels;
-  return run(fps_pyramid_kernel, fps_pyramid_kernel_cluster, xyz, B, N, lv, out,
-             static_cast<cudaStream_t>(stream));
+  return run(fps_pyramid_kernel, xyz, B, N, lv, out, static_cast<cudaStream_t>(stream));
 }
