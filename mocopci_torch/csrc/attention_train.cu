@@ -29,6 +29,11 @@
 
 namespace {
 
+using mocopci::cp_async16;
+using mocopci::cp_async4;
+using mocopci::cp_async_commit;
+using mocopci::cp_async_wait0;
+
 constexpr int kThreads = 256;
 constexpr int kTQ = 8;        // forward query tile
 
@@ -176,20 +181,6 @@ struct BwdTile {
   static constexpr int smem_floats = 4 * kBwdQ * DP + 4 * kBwdQ + kBwdQ * LDS + TK * DP;
   static_assert(QS >= 1 && (kBwdQ / QM) * (DP / 4) == kBwdThreads, "tile shape");
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 
 // every group but the newest has landed (for this thread's copies)
 __device__ __forceinline__ void cp_async_wait1() {
@@ -513,10 +504,6 @@ __device__ __forceinline__ void cp_async4z(float* dst, const float* src, bool ok
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Queues the copies of query rows [i0, i0 + 16): head dims [d0, d0 + W) of q

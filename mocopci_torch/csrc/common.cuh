@@ -44,6 +44,26 @@ __device__ __forceinline__ bool lex_less(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
+// Asynchronous copies global -> shared of 4 or 16 bytes (cp.async), their
+// group commit and the wait for every group of this thread.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

@@ -115,20 +115,6 @@ __global__ void __launch_bounds__(kThreads) cross_tail_kernel(
   }
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 constexpr size_t kMaxSmem = 227 * 1024;
 
 inline size_t bwd_smem_floats(int qt, int K, int C, int C2) {
@@ -184,13 +170,13 @@ __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
       for (int e = tid; e < nq * K * cv; e += kThreads) {
         const int r = e / cv, c = (e - r * cv) * 4;   // r = q * K + j
         const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
-        cp_async16(rows + r * C + c, tab + src);
+        mocopci::cp_async16(rows + r * C + c, tab + src);
       }
     } else {
       for (int e = tid; e < nq * K * C; e += kThreads) {
         const int r = e / C, c = e - r * C;
         const size_t src = (static_cast<size_t>((q0 + r / K) / N) * M + iq[r]) * C + c;
-        cp_async4(rows + e, tab + src);
+        mocopci::cp_async4(rows + e, tab + src);
       }
     }
     for (int e = tid; e < nq * C; e += kThreads) bs[e] = base[static_cast<size_t>(q0) * C + e];
@@ -199,7 +185,8 @@ __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
       gv[e] = out[o] >= 0.f ? dout[o] : 0.1f * dout[o];
       js[e] = static_cast<int>(amax[o]);
     }
-    cp_async_wait_all();
+    mocopci::cp_async_commit();
+    mocopci::cp_async_wait0();
     __syncthreads();
     // column (q, c): each output channel's gradient lands on its one row j*
     for (int e = tid; e < nq * C; e += kThreads) {

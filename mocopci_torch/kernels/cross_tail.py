@@ -72,16 +72,10 @@ def _fwd_smem(K, C, C2):
     return (C * C2 + K * C + 2 * _THREADS) * 4
 
 
-def _bwd_smem(qt, K, C, C2):
-    return (2 * qt * K * C + 2 * C * C2 + C2 + qt * C + 2 * qt * C2) * 4
-
-
-def _bwd_tile(K, C, C2):
-    """Queries a backward tile holds (csrc/cross_tail.cu ``bwd_tile``)."""
-    qt = max(1, _THREADS // C)
-    while qt > 1 and _bwd_smem(qt, K, C, C2) > _MAX_SMEM:
-        qt -= 1
-    return qt
+def _bwd_smem(K, C, C2):
+    """The backward's shared memory at its smallest tile, one query
+    (csrc/cross_tail.cu ``bwd_smem_floats``)."""
+    return (2 * K * C + 2 * C * C2 + C2 + C + 2 * C2) * 4
 
 
 def _check(tab, idx, base, w):
@@ -94,7 +88,7 @@ def _check(tab, idx, base, w):
     C2 = w.shape[1]
     if idx.shape[0] != B or base.shape != (B, N, C) or w.shape[0] != C:
         raise ValueError("cross_tail: inconsistent shapes")
-    if max(_fwd_smem(K, C, C2), _bwd_smem(1, K, C, C2)) > _MAX_SMEM:
+    if max(_fwd_smem(K, C, C2), _bwd_smem(K, C, C2)) > _MAX_SMEM:
         raise ValueError(f"cross_tail kernel: C={C}, C2={C2}, K={K} exceed shared memory")
     return B, M, N, K, C, C2
 
@@ -135,7 +129,7 @@ def cross_tail_bwd(tab, idx, base, w, out, argmax, dout):
     d_rows = torch.empty((B, N, K, C), dtype=torch.float32, device=dev)
     d_base = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     dwb = torch.empty(C * C2 + C2, dtype=torch.float32, device=dev)
-    nblk = min(BWD_BLOCKS, -(-B * N // _bwd_tile(K, C, C2)))
+    nblk = min(BWD_BLOCKS, B * N)     # a block with no tile writes zero partials
     partial = torch.empty(nblk * (C * C2 + C2), dtype=torch.float32, device=dev)
     _lib.launch("cross_tail_bwd", tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
                 w.data_ptr(), out.data_ptr(), argmax.data_ptr(), dout.data_ptr(),
