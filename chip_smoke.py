@@ -1458,10 +1458,6 @@ def profile(fn, what: str, trace=None) -> dict:
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # one small kernel first: the trace of a step has lost its first FPS
-        # launch, which the launch counts and CUDA events both show
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
