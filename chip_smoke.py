@@ -411,9 +411,13 @@ def time_chamfer_vjp(kernels, pc1, pc2, what):
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms}
 
 
+PARENT_SOURCES = ("cross_tail.cu", "fps.cu", "attention_train.cu", "transformer_tail.cu",
+                  "common.cu")
+
+
 def build_parent(tree):
-    """Start building another checkout's cost-volume tail and FPS kernels (its
-    ``cross_tail.cu``, ``fps.cu`` and ``common.cu``) into a library of their
+    """Start building another checkout's cost-volume tail, FPS, train attention
+    and transformer tail kernels (``PARENT_SOURCES``) into a library of their
     own; returns a function that waits for the build and gives a
     :class:`Parent`."""
     from mocopci_torch.kernels import _lib
@@ -423,7 +427,7 @@ def build_parent(tree):
                        "libparent.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-I", csrc, "-o", out,
-           *(os.path.join(csrc, f) for f in ("cross_tail.cu", "fps.cu", "common.cu"))]
+           *(os.path.join(csrc, f) for f in PARENT_SOURCES)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish():
@@ -434,13 +438,21 @@ def build_parent(tree):
     return finish
 
 
+def _bwd_blocks(tree, module):
+    """``BWD_BLOCKS`` of another checkout's ``mocopci_torch/kernels/<module>.py``."""
+    with open(os.path.join(tree, "mocopci_torch", "kernels", f"{module}.py")) as f:
+        return int(re.search(r"^BWD_BLOCKS = (\d+)", f.read(), re.M).group(1))
+
+
 class Parent:
-    """Another checkout's cost-volume tail (forward and backward) and FPS
-    kernels, called through their C entry points with the argument lists of
-    that tree's ``_lib.SIGNATURES``: a tree without ``fps_pyramid`` samples a
-    pyramid by one launch a level and a gather between levels, and its
-    cross_tail backward recomputes the max from the forward's output (no
-    argmax), on that tree's grid (``BWD_BLOCKS``)."""
+    """Another checkout's cost-volume tail (forward and backward), FPS, train
+    attention forward and transformer tail backward kernels, called through
+    their C entry points with the argument lists of that tree's
+    ``_lib.SIGNATURES``: a tree without ``fps_pyramid`` samples a pyramid by
+    one launch a level and a gather between levels, and its cross_tail
+    backward recomputes the max from the forward's output (no argmax), on
+    that tree's grid (``BWD_BLOCKS``).  The attention forward is that tree's
+    ``attention_train_fwd`` entry for every head dim."""
 
     def __init__(self, tree, path):
         import ctypes
@@ -451,10 +463,11 @@ class Parent:
         spec.loader.exec_module(plib)
         self.sig = plib.SIGNATURES
         self.argmax = len(self.sig["cross_tail"]) == 14
-        with open(os.path.join(tree, "mocopci_torch", "kernels", "cross_tail.py")) as f:
-            self.bwd_blocks = int(re.search(r"^BWD_BLOCKS = (\d+)", f.read(), re.M).group(1))
+        self.bwd_blocks, self.tail_bwd_blocks = (_bwd_blocks(tree, name)
+                                                 for name in ("cross_tail", "transformer_tail"))
         self.lib = ctypes.CDLL(path)
-        for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid"):
+        for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid", "attention_train_fwd",
+                     "transformer_tail_bwd"):
             if name in self.sig:
                 fn = getattr(self.lib, f"mocopci_{name}")
                 fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
@@ -515,6 +528,35 @@ class Parent:
                    d_base.data_ptr(), dwb.data_ptr(), partial.data_ptr(), B, M, N, K, C, C2,
                    nblk)
         return d_rows, d_base, dwb[:C * C2].view(C, C2), dwb[C * C2:]
+
+    def attention_train_fwd(self, q, k, v, seed, scale, rate):
+        from mocopci_torch.kernels.attention_train import dropout_constants
+
+        G, N, D = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((G, N), dtype=torch.float32, device=q.device)
+        self._call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), lse.data_ptr(), G, N, k.shape[1], D, float(scale),
+                   seed.data_ptr(), *dropout_constants(rate))
+        return out, lse
+
+    def transformer_tail_bwd(self, table, idx, xyzq, q, *weights_and_dout):
+        """(d_rows, dxq, dq, dw) from that tree's backward, dw the eight weight
+        and bias gradients in one flat tensor."""
+        *weights, dout = weights_and_dout
+        B, M, _ = table.shape
+        N, K, D = idx.shape[1], idx.shape[2], q.shape[2]
+        dev = table.device
+        d_rows = torch.empty((B, N, K, 3 + 2 * D), device=dev)
+        dxq, dq = torch.empty((B, N, 3), device=dev), torch.empty((B, N, D), device=dev)
+        dw = torch.empty(3 * D * D + 7 * D, device=dev)
+        nblk = min(self.tail_bwd_blocks, B * N)
+        partial = torch.empty(nblk * dw.numel(), device=dev)
+        self._call("transformer_tail_bwd", table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
+                   q.data_ptr(), *(t.data_ptr() for t in weights), dout.data_ptr(),
+                   d_rows.data_ptr(), dxq.data_ptr(), dq.data_ptr(), dw.data_ptr(),
+                   partial.data_ptr(), B, M, N, K, D, nblk)
+        return d_rows, dxq, dq, dw
 
 
 def check_train_kernels(kernels, cfg, dev, rows, parent=None):
@@ -580,11 +622,39 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
             (v.numel() + G * n0 * 3) * F32 + idx.numel() * I32, 1.0 * v.numel(),
             float((got - want).abs().max()), 1e-4)
 
+    # attention_train forward at each (G, N = M, D, rate) of the step's one-pass
+    # calls (Multi_Frame_Att at L1 and L2 with dropout, the EICrossformer at
+    # L3, L2 and L1 without), each against its plain version (output and
+    # log-sum-exp) and, with a parent, timed beside that tree's forward
+    seed_i = -12345
+    seed = torch.tensor([seed_i], dtype=torch.int32, device=dev)
+    n2, n3 = cfg.pyramid[1:3]
+    for Ga, L, D, rate in ((B * 5 * 8, n1, c1 // 8, cfg.attn_drop),
+                           (B * 5 * 8, n2, c2 // 8, cfg.attn_drop), (B * 8, n3, c3 // 8, 0.0),
+                           (B * 8, n2, c2 // 8, 0.0), (B * 8, n1, c1 // 8, 0.0)):
+        q, k, vv = rnd(Ga, L, D), rnd(Ga, L, D), rnd(Ga, L, D)
+        sc = D ** -0.5
+        out, lse = attention_train.attention_train_fwd(q, k, vv, seed, sc, rate)
+        err = float((out - attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate))
+                    .abs().max())
+        err_lse = float((lse - torch.logsumexp(q @ k.transpose(1, 2) * sc, -1)).abs().max())
+        msg = (f"attention_train fwd (G, N, M, D, rate) {(Ga, L, L, D, rate)}: max_abs_err "
+               f"{err:.3e}, lse {err_lse:.3e} (tol 1e-5)")
+        if parent is not None:
+            gap = float((parent.attention_train_fwd(q, k, vv, seed, sc, rate)[0] - out)
+                        .abs().max())
+            msg += (f"; the parent's output differs by {gap:.3e}: "
+                    + beside(lambda: parent.attention_train_fwd(q, k, vv, seed, sc, rate),
+                             lambda: attention_train.attention_train_fwd(q, k, vv, seed, sc,
+                                                                         rate)))
+        log(msg)
+        if err > 1e-5 or err_lse > 1e-5:
+            raise SystemExit("attention_train_fwd disagrees with its plain version")
+    del q, k, vv, out, lse
+
     # attention_train: Multi_Frame_Att at L1, (B*5*8, n1, c1/8), the dropout rate
     Ga, D, rate = B * 5 * 8, c1 // 8, cfg.attn_drop
     q, k, vv, do = rnd(Ga, n1, D), rnd(Ga, n1, D), rnd(Ga, n1, D), rnd(Ga, n1, D)
-    seed_i = -12345
-    seed = torch.tensor([seed_i], dtype=torch.int32, device=dev)
     sc = D ** -0.5
     out, lse = attention_train.attention_train_fwd(q, k, vv, seed, sc, rate)
     want = attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate)
@@ -627,10 +697,17 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
 
     # attention_train, the wide route (D > 64): CrossFrameBlock at L3, 4 heads
     # of the full width c3 over both input frames, (B*2*4, n3, c3)
-    Gw, n3 = B * 2 * 4, cfg.pyramid[2]
+    Gw = B * 2 * 4
     q, k, vv, do = rnd(Gw, n3, c3), rnd(Gw, n3, c3), rnd(Gw, n3, c3), rnd(Gw, n3, c3)
     sc = c3 ** -0.5
     out, lse = attention_train.attention_train_fwd(q, k, vv, seed, sc, rate)
+    add_row(rows, "attention_train_fwd_wide", attention_train.SOURCE, attention_train.REPLACES,
+            lambda: attention_train.attention_train_fwd(q, k, vv, seed, sc, rate),
+            lambda: attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, vv, scale=sc),
+            (4 * q.numel() + Gw * n3) * F32, Gw * n3 * n3 * (4.0 * c3 + 3),
+            float((out - attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate))
+                  .abs().max()), 1e-5)
     got = attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate)
     same = bits_equal(got, attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed,
                                                                sc, rate))
@@ -731,13 +808,22 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
     log(f"transformer_tail bwd: repeat bit-equal {same}; error over max(1, |value|) {err:.3e}")
     if not same:
         raise SystemExit("transformer_tail_bwd: a run did not repeat its bits")
+    # the bound: the chain's products (recompute and VJP, 6 (3 D^2 + 3 D) flops
+    # a pair) on the tensor cores at float32 grade
     add_row(rows, "transformer_tail_bwd", transformer_tail.SOURCE,
             transformer_tail.REPLACES_BWD,
             lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
             lambda: transformer_tail.transformer_tail_bwd_plain(table, idx, xq, qq, *ws, dout),
             None, (table.numel() + 2 * xq.numel() + 3 * qq.numel() + 2 * sum(
                 t.numel() for t in ws) + G * N * K * (3 + 2 * D)) * F32 + idx.numel() * I32,
-            G * N * K * 6.0 * (3 * D * D + 3 * D), err, 1e-4)
+            G * N * K * 6.0 * (3 * D * D + 3 * D), err, 1e-4, peak=PEAK_3XTF32_FLOPS)
+    if parent is not None:
+        pgot = parent.transformer_tail_bwd(table, idx, xq, qq, *ws, dout)
+        gap = rel_err([*pgot[:3], pgot[3]], [*got[:3], torch.cat([t.reshape(-1) for t in got[3:]])])
+        log(f"transformer_tail bwd {tuple(idx.shape)} (results differ by {gap:.3e} over max(1, "
+            f"|value|)): "
+            + beside(lambda: parent.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
+                     lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout)))
     del table, xq, qq, dout, got, want
 
     # fusion_pair planes and fusion_head_train: G x n0 queries x 2k pairs, 3 groups
@@ -1169,7 +1255,8 @@ def run_eval(kernels, cfg, dataset, dev, model, cpu_model):
 # the kernels one train step launches in the default (approx) kNN mode
 TRAIN_KERNELS = ("fps", "fps_pyramid", "knn_approx", "cross_tail", "cross_tail_bwd",
                  "transformer_tail", "transformer_tail_bwd", "attention_train_fwd",
-                 "attention_train_bwd", "attention_train_bwd_wide", "fusion_pair_planes",
+                 "attention_train_fwd_wide", "attention_train_bwd", "attention_train_bwd_wide",
+                 "fusion_pair_planes",
                  "fusion_head_train_fwd", "fusion_head_train_bwd", "chamfer_pair", "scatter_add")
 TRAIN_STEPS = 6
 ZERO_GRAD_LEAVES = {f"estimator.fusion_conv{i}.bias" for i in range(3)}
@@ -1227,22 +1314,38 @@ def profile_attention_calls(step):
     """One profiled train step (``profile``), with each train attention
     backward logged: (G, N, M, D, rate), its route and the device ms of its
     3 kernels (the dot pass, the route's main kernel, the dq pass), in call
-    order."""
+    order; then each forward, (G, N, M, D, rate), its route and the device ms
+    of its kernel; then each ``knn_approx`` launch, (B, N, M, C), k and its
+    metric; each of these by CUDA events around the launch and, where the
+    profiler traced every one of their kernels, by the profiler."""
     from torch.autograd import DeviceType
 
     attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
-    calls = []
-    bwd = attention_train.attention_train_bwd
+    _lib = importlib.import_module("mocopci_torch.kernels._lib")
+    calls, launched = [], []
+    bwd, launch = attention_train.attention_train_bwd, _lib.launch
 
     def recorded(q, k, v, out, lse, dout, seed, scale, rate):
         calls.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2], rate))
         return bwd(q, k, v, out, lse, dout, seed, scale, rate)
 
+    def spied(name, *args):
+        if not (name.startswith("attention_train_fwd") or name == "knn_approx"):
+            return launch(name, *args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(name, *args)
+        end.record()
+        launched.append((name, args, start, end))
+
+    def spans_of(prof, prefix):
+        symbols = [k for k, v in KERNEL_SYMBOLS.items() if v.startswith(prefix)]
+        return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and any(sym in e.name for sym in symbols))
+
     def per_call(prof):
-        symbols = [k for k, v in KERNEL_SYMBOLS.items() if v.startswith("attention_train_bwd")]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA
-                       and any(sym in e.name for sym in symbols))
+        spans = spans_of(prof, "attention_train_bwd")
         total = 0.0
         for shape in calls:
             ms = sum(end - start for start, end in spans[:3]) / 1e3
@@ -1255,12 +1358,32 @@ def profile_attention_calls(step):
             f"matched to a call {len(spans)}")
         if not calls:
             raise SystemExit("profile: the train step called no attention backward")
+        for prefix, what in (("attention_train_fwd", "train attention fwd"),
+                             ("knn_approx", "train knn_approx")):
+            mine = [c for c in launched if c[0].startswith(prefix)]
+            spans = spans_of(prof, prefix)
+            traced = len(spans) == len(mine)
+            total = 0.0
+            for i, (name, args, start, end) in enumerate(mine):
+                ms = start.elapsed_time(end)
+                total += ms
+                if prefix == "knn_approx":
+                    shape = f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}"
+                else:
+                    rate = 0.0 if args[11] == 0 and args[12] == 1.0 else 1.0 - 1.0 / args[12]
+                    shape = f"(G, N, M, D, rate) {(*args[5:9], round(rate, 6))}, route {name}"
+                log(f"{what} {shape}: device ms {ms:.4f} by CUDA events, "
+                    + (f"{(spans[i][1] - spans[i][0]) / 1e3:.4f} by the profiler" if traced
+                       else "not matched in the profile"))
+            log(f"{what}: {len(mine)} launches, device ms {total:.4f} by CUDA events; the "
+                f"profiler traced {len(spans)} of their kernels, device ms "
+                f"{sum(b - a for a, b in spans) / 1e3:.4f}")
 
-    attention_train.attention_train_bwd = recorded
+    attention_train.attention_train_bwd, _lib.launch = recorded, spied
     try:
         return profile_fps_calls(step, "train step", per_call)
     finally:
-        attention_train.attention_train_bwd = bwd
+        attention_train.attention_train_bwd, _lib.launch = bwd, launch
 
 
 def sm_clock() -> str:
@@ -1429,6 +1552,7 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                   "fusion_pair_kernel": "fusion_pair",
                   "scatter_add_": "scatter_add",     # every kernel of scatter_add.cu
                   "attention_train_fwd_kernel": "attention_train_fwd",
+                  "attention_train_fwd_wide_kernel": "attention_train_fwd_wide",
                   "attention_train_bwd_dot_kernel": "attention_train_bwd dot and dq passes "
                                                     "(both routes)",
                   "attention_train_bwd_kernel": "attention_train_bwd",

@@ -10,14 +10,18 @@
 //
 // Bound on the H100: operations (4*N*M*D flops forward, about 10*N*M*D
 // backward, against (N + M)*D*4 bytes per group).  Design:
-//   forward   one block per (group, tile of 8 queries); the tile's logit rows
-//             stay in shared memory (as csrc/attention.cu), the keep factor is
-//             applied to the numerators, and the row's log-sum-exp is written
-//             for the backward;
+//   forward, head dims D <= 64: one pass over the keys, streamed through
+//             shared memory, with an online softmax (see the block comment
+//             above attention_train_fwd_kernel), no hash at rate 0;
+//   forward, D > 64 (the "wide" route): one block per (group, tile of 8
+//             queries); the tile's logit rows stay in shared memory (as
+//             csrc/attention.cu), the keep factor is applied to the
+//             numerators, and the row's log-sum-exp is written for the
+//             backward;
 //   backward, head dims D <= 64: one pass over the pairs, each pair's logit,
 //             do.v, exp and keep factor computed once (see the block comment
 //             above attention_train_bwd_kernel), no hash at rate 0;
-//   backward, D > 64 (the "wide" route): one pass over the pairs as well,
+//   backward, D > 64 (the wide route): one pass over the pairs as well,
 //             its five products on the tensor cores at float32 grade (see the
 //             block comment above attention_train_bwd_wide_kernel).
 // Every output element is summed in a fixed order by one owner, with no
@@ -35,7 +39,8 @@ using mocopci::cp_async_commit;
 using mocopci::cp_async_wait0;
 
 constexpr int kThreads = 256;
-constexpr int kTQ = 8;        // forward query tile
+constexpr int kTQ = 8;        // the wide forward's query tile
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -46,6 +51,23 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0) : "memory");
+}
+
+// every group but the newest has landed (for this thread's copies)
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // gseed = fmix32(g ^ seed)
 __device__ __forceinline__ float keep_factor(uint32_t gseed, int row, int col, int thr,
                                              float kscale) {
@@ -54,7 +76,211 @@ __device__ __forceinline__ float keep_factor(uint32_t gseed, int row, int col, i
   return static_cast<int>(h & 0xFFFFFFu) >= thr ? kscale : 0.f;
 }
 
-__global__ void __launch_bounds__(kThreads) attention_train_fwd_kernel(
+// ---- forward for head dims D <= 64: one pass over the keys ----
+//
+// One block per (group, tile of QT queries): QT = 128, or 64 or 32 where the
+// grid would not give every SM a block.  LPK lanes a query, as the backward
+// splits a key (1 up to DP = 16, 2 at 32, 4 at 64; D padded with zeros to DP
+// = 8, 16, 32 or 64): lane l holds head dims [l*DT, (l+1)*DT) of its query's
+// q (times scale * log2(e)) and of its running numerator acc, and the row's
+// running max m (in log2 units) and denominator in registers.  The keys and
+// values stream through shared memory in tiles of 64, double-buffered by
+// cp.async (rows past M zero-filled).  Per chunk of 16 keys: the 16 logits
+// (the LPK lanes add their partial dots by shuffles, reading k as float4
+// broadcasts), one max and one rescale of acc and the denominator, then per
+// key p = 2^(s - m) into the denominator and, where the keep factor keeps
+// the pair, p v into acc (no hash at rate 0).  The denominator sums every
+// exp, kept or dropped, so dropout acts after the softmax.  At the end out =
+// acc * kscale / denominator and lse = m ln 2 + ln(denominator).  Every
+// output element has one owner adding its keys in ascending order.
+constexpr int kFwdKeys = 64;        // keys per tile
+constexpr int kFwdChunk = 16;       // keys per online-softmax step
+constexpr int kMaxFwdD = 64;
+constexpr int kFwdMaxThreads = 128 * 4;
+constexpr int kSMs = 132;           // an H100's SMs
+
+template <int DP>
+struct FwdTile {
+  static constexpr int LPK = DP <= 16 ? 1 : DP / 16;   // lanes per query
+  static constexpr int DT = DP / LPK;                   // head dims per lane
+  static constexpr size_t smem_bytes = 4 * kFwdKeys * DP * sizeof(float);  // [2][k, v][64][DP]
+};
+
+// Queues the copies of key rows [j0, j0 + 64) of k and v into [64][DP]
+// tiles (the padded dims are not written); rows past M are filled with zeros.
+template <int DP>
+__device__ __forceinline__ void stage_keys(const float* __restrict__ kg,
+                                           const float* __restrict__ vg, int j0, int M, int D,
+                                           float* kt, float* vt) {
+  if ((D & 3) == 0) {
+    const int D4 = D >> 2;
+    for (int e = threadIdx.x; e < kFwdKeys * D4; e += blockDim.x) {
+      const int r = e / D4, c = (e - r * D4) << 2;
+      const bool ok = j0 + r < M;
+      const size_t src = ok ? static_cast<size_t>(j0 + r) * D + c : 0;
+      cp_async16z(kt + r * DP + c, kg + src, ok);
+      cp_async16z(vt + r * DP + c, vg + src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kFwdKeys * D; e += blockDim.x) {
+      const int r = e / D, c = e - r * D;
+      const bool ok = j0 + r < M;
+      const size_t src = ok ? static_cast<size_t>(j0 + r) * D + c : 0;
+      cp_async4z(kt + r * DP + c, kg + src, ok);
+      cp_async4z(vt + r * DP + c, vg + src, ok);
+    }
+  }
+}
+
+template <int DP, bool DROP>
+__global__ void __launch_bounds__(kFwdMaxThreads) attention_train_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, float* __restrict__ lse, int N, int M, int D, float scale,
+    const int* __restrict__ seed, int thr, float kscale) {
+  constexpr int LPK = FwdTile<DP>::LPK, DT = FwdTile<DP>::DT;
+  constexpr int TK = kFwdKeys, CH = kFwdChunk;
+  extern __shared__ __align__(16) float sm[];
+  float* kts = sm;                    // [2][TK][DP]
+  float* vts = kts + 2 * TK * DP;     // [2][TK][DP]
+  const int tid = threadIdx.x, l = tid % LPK;
+  const int g = blockIdx.y;
+  const int i = blockIdx.x * (blockDim.x / LPK) + tid / LPK;
+  const bool row_ok = i < N;
+  // the hash of pair (i, j) is fmix32(rg ^ j), rg = (i << 12) ^ fmix32(g ^ seed)
+  uint32_t rg = 0u;
+  if (DROP)
+    rg = (static_cast<uint32_t>(i) << 12) ^
+         fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
+  const size_t gk = static_cast<size_t>(g) * M * D;
+  const float* kg = k + gk;
+  const float* vg = v + gk;
+  const int ntiles = (M + TK - 1) / TK;
+  stage_keys<DP>(kg, vg, 0, M, D, kts, vts);
+  cp_async_commit();
+
+  const float c2 = scale * kLog2e;
+  float qr[DT], acc[DT];
+#pragma unroll
+  for (int e = 0; e < DT; ++e) {
+    const int d = l * DT + e;
+    qr[e] = row_ok && d < D ? q[(static_cast<size_t>(g) * N + i) * D + d] * c2 : 0.f;
+    acc[e] = 0.f;
+  }
+  if (D < DP) {       // the padded dims of both buffers stay zero (cp.async skips them)
+    for (int e = tid; e < 2 * TK * (DP - D); e += blockDim.x) {
+      const int r = e / (DP - D), c = D + (e - r * (DP - D));
+      kts[r * DP + c] = 0.f;
+      vts[r * DP + c] = 0.f;
+    }
+  }
+
+  float m = -__int_as_float(0x7f800000), den = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int b = t & 1, j0 = t * TK;
+    if (t + 1 < ntiles)
+      stage_keys<DP>(kg, vg, j0 + TK, M, D, kts + (b ^ 1) * TK * DP, vts + (b ^ 1) * TK * DP);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();        // tile t has landed
+    const float* kb = kts + b * TK * DP + l * DT;
+    const float* vb = vts + b * TK * DP + l * DT;
+    const int nk = min(TK, M - j0);
+    for (int jj = 0; jj < nk; jj += CH) {
+      float s[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < DT; e += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kb + (jj + c) * DP + e);
+          a = fmaf(qr[e], kv.x, a);
+          a = fmaf(qr[e + 1], kv.y, a);
+          a = fmaf(qr[e + 2], kv.z, a);
+          a = fmaf(qr[e + 3], kv.w, a);
+        }
+        s[c] = a;
+      }
+#pragma unroll
+      for (int off = LPK / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int c = 0; c < CH; ++c) s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
+      float mc = m;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (jj + c >= nk) s[c] = -__int_as_float(0x7f800000);
+        mc = fmaxf(mc, s[c]);
+      }
+      const float alpha = exp2f(m - mc);
+      m = mc;
+      den *= alpha;
+#pragma unroll
+      for (int e = 0; e < DT; ++e) acc[e] *= alpha;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        float p = exp2f(s[c] - m);
+        den += p;
+        if (DROP) {
+          const uint32_t h = fmix32(rg ^ static_cast<uint32_t>(j0 + jj + c));
+          if (static_cast<int>(h & 0xFFFFFFu) < thr) p = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < DT; e += 4) {
+          const float4 vv = *reinterpret_cast<const float4*>(vb + (jj + c) * DP + e);
+          acc[e] = fmaf(p, vv.x, acc[e]);
+          acc[e + 1] = fmaf(p, vv.y, acc[e + 1]);
+          acc[e + 2] = fmaf(p, vv.z, acc[e + 2]);
+          acc[e + 3] = fmaf(p, vv.w, acc[e + 3]);
+        }
+      }
+    }
+    __syncthreads();        // every thread is done with buffer b before tile t + 2 lands in it
+  }
+
+  if (row_ok) {
+    const size_t row = static_cast<size_t>(g) * N + i;
+    const float f = kscale / den;
+#pragma unroll
+    for (int e = 0; e < DT; ++e) {
+      const int d = l * DT + e;
+      if (d < D) out[row * D + d] = acc[e] * f;
+    }
+    if (l == 0) lse[row] = m * 0.6931471805599453f + logf(den);
+  }
+}
+
+template <int DP, bool DROP>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* out, float* lse,
+                       int G, int N, int M, int D, float scale, const int* seed, int thr,
+                       float kscale, cudaStream_t st) {
+  cudaError_t err = mocopci::allow_smem(attention_train_fwd_kernel<DP, DROP>,
+                                        FwdTile<DP>::smem_bytes);
+  if (err != cudaSuccess) return err;
+  int qt = 128;
+  while (qt > 32 && static_cast<long long>(G) * mocopci::ceil_div(N, qt) < kSMs) qt >>= 1;
+  attention_train_fwd_kernel<DP, DROP>
+      <<<dim3(mocopci::ceil_div(N, qt), G), qt * FwdTile<DP>::LPK, FwdTile<DP>::smem_bytes,
+         st>>>(q, k, v, out, lse, N, M, D, scale, seed, thr, kscale);
+  return cudaGetLastError();
+}
+
+template <bool DROP>
+cudaError_t launch_fwd_dp(int DP, const float* q, const float* k, const float* v, float* out,
+                          float* lse, int G, int N, int M, int D, float scale, const int* seed,
+                          int thr, float kscale, cudaStream_t st) {
+  switch (DP) {
+    case 8:
+      return launch_fwd<8, DROP>(q, k, v, out, lse, G, N, M, D, scale, seed, thr, kscale, st);
+    case 16:
+      return launch_fwd<16, DROP>(q, k, v, out, lse, G, N, M, D, scale, seed, thr, kscale, st);
+    case 32:
+      return launch_fwd<32, DROP>(q, k, v, out, lse, G, N, M, D, scale, seed, thr, kscale, st);
+    default:
+      return launch_fwd<64, DROP>(q, k, v, out, lse, G, N, M, D, scale, seed, thr, kscale, st);
+  }
+}
+
+// ---- forward for head dims D > 64 (the wide route) ----
+__global__ void __launch_bounds__(kThreads) attention_train_fwd_wide_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, float* __restrict__ lse, int N, int M, int D, float scale,
     const int* __restrict__ seed, int thr, float kscale) {
@@ -167,7 +393,6 @@ constexpr int kBwdThreads = 256;
 constexpr int kBwdKeys = 64;      // keys per block
 constexpr int kBwdQ = 128;        // queries per chunk
 constexpr int kMaxBwdD = 64;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DP>
 struct BwdTile {
@@ -181,11 +406,6 @@ struct BwdTile {
   static constexpr int smem_floats = 4 * kBwdQ * DP + 4 * kBwdQ + kBwdQ * LDS + TK * DP;
   static_assert(QS >= 1 && (kBwdQ / QM) * (DP / 4) == kBwdThreads, "tile shape");
 };
-
-// every group but the newest has landed (for this thread's copies)
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Queues the copies of query rows [i0, i0 + 128) (cut at N): q and do into
 // [128][DP] tiles (the padded dims are not written), lse and dot.
@@ -494,18 +714,6 @@ constexpr size_t kWideSmem =
     (2 * kWKeys * kLdKV * 2 + 4 * kWQ * kLdQ + 4 * kWQ + 4 * kWQ * kLdS + 2 * kWQ * kLdP * 2) *
     sizeof(float);
 
-__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4z(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0) : "memory");
-}
-
 // Queues the copies of query rows [i0, i0 + 16): head dims [d0, d0 + W) of q
 // and do into [16][kLdQ] tiles (the dims from W on are not written), lse and
 // dot; rows past N are filled with zeros.
@@ -781,19 +989,37 @@ cudaError_t launch_bwd_wide(const float* q, const float* k, const float* v, cons
 
 }  // namespace
 
-// q (G, N, D), k/v (G, M, D) -> out (G, N, D), lse (G, N); M <= 4096; seed: one
-// int32 in device memory (the caller's random draw stays on the card).
-// thr = int32(rate * 2^24), kscale = f32(1 / (1 - rate)); rate 0: thr 0, kscale 1.
+// q (G, N, D), k/v (G, M, D) -> out (G, N, D), lse (G, N) for D <= 64, in one
+// pass over the keys; M <= 4096; seed: one int32 in device memory (the
+// caller's random draw stays on the card).  thr = int32(rate * 2^24), kscale
+// = f32(1 / (1 - rate)); rate 0 (thr 0, kscale 1) takes the kernel without
+// the keep factor.
 MOCOPCI_API int mocopci_attention_train_fwd(const float* q, const float* k, const float* v,
                                             float* out, float* lse, int G, int N, int M, int D,
                                             float scale, const int* seed, int thr,
                                             float kscale, void* stream) {
+  if (D < 1 || D > kMaxFwdD) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int DP = D <= 8 ? 8 : D <= 16 ? 16 : D <= 32 ? 32 : 64;
+  const bool drop = thr > 0 || kscale != 1.f;
+  return drop ? launch_fwd_dp<true>(DP, q, k, v, out, lse, G, N, M, D, scale, seed, thr, kscale,
+                                    st)
+              : launch_fwd_dp<false>(DP, q, k, v, out, lse, G, N, M, D, scale, seed, thr,
+                                     kscale, st);
+}
+
+// The wide route, D > 64: the same outputs for any D <= 2048, a block per
+// 8 queries with their logit rows in shared memory (M <= 4096).
+MOCOPCI_API int mocopci_attention_train_fwd_wide(const float* q, const float* k, const float* v,
+                                                 float* out, float* lse, int G, int N, int M,
+                                                 int D, float scale, const int* seed, int thr,
+                                                 float kscale, void* stream) {
   const size_t smem =
       (static_cast<size_t>(kTQ) * (D + M) + kThreads * kTQ + kTQ) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(attention_train_fwd_kernel, smem);
+  cudaError_t err = mocopci::allow_smem(attention_train_fwd_wide_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(mocopci::ceil_div(N, kTQ), G);
-  attention_train_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  attention_train_fwd_wide_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, out, lse, N, M, D, scale, seed, thr, kscale);
   return cudaGetLastError();
 }

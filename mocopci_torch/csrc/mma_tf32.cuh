@@ -45,6 +45,23 @@ struct FragA {
   }
 };
 
+// The A fragment of k-step ks of a 16-row activation held as accumulator
+// fragments c[n-tile][4]: column tig (tig + 4) of n-tile ks sits in quad lane
+// tig / 2 (2 + tig / 2), element tig % 2 of its row pair.
+__device__ __forceinline__ void c_to_a(const float (&c)[4], float (&a)[4]) {
+  const int lane = threadIdx.x & 31, tig = lane & 3, quad = lane & ~3;
+  const int s0 = quad | (tig >> 1), s1 = quad | (2 + (tig >> 1));
+  const float e0 = __shfl_sync(0xffffffffu, c[0], s0), o0 = __shfl_sync(0xffffffffu, c[1], s0);
+  const float e2 = __shfl_sync(0xffffffffu, c[2], s0), o2 = __shfl_sync(0xffffffffu, c[3], s0);
+  const float e1 = __shfl_sync(0xffffffffu, c[0], s1), o1 = __shfl_sync(0xffffffffu, c[1], s1);
+  const float e3 = __shfl_sync(0xffffffffu, c[2], s1), o3 = __shfl_sync(0xffffffffu, c[3], s1);
+  const bool odd = tig & 1;
+  a[0] = odd ? o0 : e0;
+  a[1] = odd ? o2 : e2;
+  a[2] = odd ? o1 : e1;
+  a[3] = odd ? o3 : e3;
+}
+
 // A B fragment split into hi and lo parts.
 struct FragB {
   uint32_t hi[2], lo[2];

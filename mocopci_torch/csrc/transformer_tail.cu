@@ -11,8 +11,8 @@
 // _bwd_kernel :113).  The forward emits no running (m, l): the backward
 // recomputes the whole per-channel softmax over the K neighbours instead.
 //
-// Bound on the H100: operations, 2*N*K*(3D + 3D^2) flops (3.2 GFLOP at the
-// refine head) against N*K*(3+2D)*4 gathered bytes.  Design: one block per
+// Forward: bound on the H100 by operations, 2*N*K*(3D + 3D^2) flops (3.2
+// GFLOP at the refine head) against N*K*(3+2D)*4 gathered bytes.  One block per
 // tile of QT queries; the four weight matrices (3D^2+3D floats, 49 KB at
 // D=64) are loaded into shared memory once per block.  Per query the K x D
 // activations of each stage stay in shared memory; thread t computes items
@@ -20,12 +20,9 @@
 // reads are warp broadcasts.  The final per-channel softmax over K is done by
 // one thread per channel.  No (N, K, D) tensor is written to HBM.
 //
-// Backward design: the same per-query recompute, then the chain's VJP with
-// transposed weight copies in shared memory; the eight weight/bias gradients
-// accumulate in shared memory (one owner thread per element) over a fixed set
-// of queries per block and are summed across blocks in block order, so the
-// result repeats bit for bit.  Operations bound it (about 2.5x the forward).
+// Backward: see the block comment above transformer_tail_bwd_kernel.
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -122,44 +119,242 @@ __global__ void __launch_bounds__(kThreads) transformer_tail_kernel(
   }
 }
 
-// dst[j][f] = sum_e src[j][e] * wt[e][f] for j < K, f < fout (wt = W^T, [D][fout])
-__device__ __forceinline__ void dense_t(const float* src, const float* wt, float* dst, int K,
-                                        int D, int fout) {
-  for (int it = threadIdx.x; it < K * fout; it += kThreads) {
-    const int j = it / fout, f = it - j * fout;
-    const float* s = src + j * D;
-    float acc = 0.f;
-    for (int e = 0; e < D; ++e) acc = fmaf(s[e], wt[e * fout + f], acc);
-    dst[it] = acc;
-  }
-}
+// ---- backward on the tensor cores ----
+//
+// Bound on the H100: operations, the chain's products (the recompute r0 Wd2,
+// gv Wg1, r1 Wg2; the VJP dG2 Wg2^T, dh1 Wg1^T, dpos Wd2^T; the weight
+// gradients r1^T dG2, gv^T dh1, r0^T dpos), 6 (3 D^2 + 3 D) flops a pair.
+// Design: a fixed grid of blocks, each walking over tiles of 128 pair rows
+// (8 queries at K = 16, 32 at K = 4), 8 warps a block, D = 64.  The tile's
+// rows [xyz | k | v] are gathered into shared memory by cp.async (each warp
+// its own 16 rows, a row's 131 floats by consecutive lanes), the queries' q,
+// dout and xyz beside them.  Warp w owns rows [16 w, 16 w + 16) and runs the
+// chain on them as mma.sync m16n8k8 accumulator fragments (16 x 64 in 32
+// registers a thread), the weights as B fragments from shared memory:
+//   rel = xq - xyz, h0 = rel Wd1 + bd1 and r0 = relu(h0) on FMAs;
+//   pos = r0 Wd2 + bd2 and h1 = (q - k + pos) Wg1 + bg1 on FMAs too, each sum
+//     over k in order and then the bias, as a float32 GEMM sums, so that the
+//     ReLU masks of h0 and h1 take the plain version's side of a near-zero
+//     pre-activation (fma_product);
+//   logit = r1 Wg2 + bg2 at 3xTF32;
+//   the per-channel softmax over each query's K rows, out and the softmax
+//     VJP dlogit = a (dout w - dout out) / sqrt(D), by shuffles over the
+//     fragment's rows (a query's K rows lie in one warp);
+//   dr1 = dG2 Wg2^T, dgv = dh1 Wg1^T, dr0 = dpos Wd2^T at 3xTF32 (the weights
+//     read transposed), drel = dh0 Wd1^T on FMAs.
+// An accumulator becomes the next product's A fragment by shuffles within
+// its quad (c_to_a).  (The two mask-deciding products at 6xTF32, an exact
+// split, came within 1.5e-6 of float64, but the plain version itself flips
+// masks against float64 on most random draws at the step's shape, so they
+// differed from it by up to 9.3e-3 over max(1, |value|).)  The operands of the weight gradients (r1, dG2, gv, dh1,
+// r0 recomputed, dpos) are staged in four [128][72] tile buffers, each a
+// warp's rows written by that warp, and after a block barrier every warp
+// computes a 16 x 32 slice of X^T dY over the 128 rows at 3xTF32, kept in
+// registers across the block's tiles; the bias gradients and dWd1 = rel^T dh0
+// are column sums over the staged rows (4 threads a column, in a fixed
+// order).  d_rows = [-drel | -dgv | d(v + pos)] goes out from the staged tile
+// in coalesced rows of 3 + 2D floats; dxq and dq are summed per query over
+// its rows in j order.  The block partials are summed in block order
+// (reduce_partials), so the result repeats bit for bit.
+constexpr int kBD = 64;                  // head dim of the backward
+constexpr int kBW = 3 + 2 * kBD;         // row width of the table
+constexpr int kBRows = 128;              // pair rows a tile
+constexpr int kBWarps = 8;
+constexpr int kBThreads = 32 * kBWarps;
+constexpr int kLdW = kBD + 4;            // weight row stride (floats)
+constexpr int kLdT = kBD + 8;            // tile row stride
+constexpr int kMaxQT = 32;               // queries a tile, at most (K = 4)
+// shared memory, in floats
+constexpr int kOffWd2 = 0;
+constexpr int kOffWg1 = kOffWd2 + kBD * kLdW;
+constexpr int kOffWg2 = kOffWg1 + kBD * kLdW;
+constexpr int kOffWd1 = kOffWg2 + kBD * kLdW;       // [3][64]
+constexpr int kOffBias = kOffWd1 + 3 * kBD;         // bd1 | bd2 | bg1 | bg2
+constexpr int kOffP = kOffBias + 4 * kBD;           // 4 x [128][kLdT]
+constexpr int kOffQ = kOffP + 4 * kBRows * kLdT;    // [32][kLdT] q
+constexpr int kOffDO = kOffQ + kMaxQT * kLdT;       // [32][kLdT] dout
+constexpr int kOffXQ = kOffDO + kMaxQT * kLdT;      // [32][4] query xyz
+constexpr int kOffXYZ = kOffXQ + kMaxQT * 4;        // [128][4] gathered xyz, then rel
+constexpr int kOffDrel = kOffXYZ + kBRows * 4;      // [128][4] drel
+constexpr int kBwdSmem = (kOffDrel + kBRows * 4) * static_cast<int>(sizeof(float));
+// the partials' layout: dwd1 [3][D] | dbd1 | dwd2 [D][D] | dbd2 | dwg1 | dbg1 | dwg2 | dbg2
+constexpr int kAccWd2 = 4 * kBD, kAccBd2 = kAccWd2 + kBD * kBD;
+constexpr int kAccWg1 = kAccBd2 + kBD, kAccBg1 = kAccWg1 + kBD * kBD;
+constexpr int kAccWg2 = kAccBg1 + kBD, kAccBg2 = kAccWg2 + kBD * kBD;
+constexpr int kNAcc = kAccBg2 + kBD;
 
-// acc[f][e] += sum_j act(a[j][f]) * g[j][e]  (f < fin, e < D), and, if bias_acc,
-// bias_acc[e] += sum_j g[j][e]; each element owned by one thread.
-__device__ __forceinline__ void outer_acc(const float* a, int fin, bool relu, const float* g,
-                                          float* acc, float* bias_acc, int K, int D) {
-  for (int it = threadIdx.x; it < fin * D; it += kThreads) {
-    const int f = it / D, e = it - f * D;
-    float s = acc[it];
-    for (int j = 0; j < K; ++j) {
-      const float x = a[j * fin + f];
-      s = fmaf(relu ? fmaxf(x, 0.f) : x, g[j * D + e], s);
+// acc (16 x 64, fragments) += A (16 x 64, fragments) W at 3xTF32, W
+// [64][kLdW] in shared memory, read transposed (W^T) when T.
+template <bool T>
+__device__ __forceinline__ void chain_product(const float (&a)[8][4], const float* W,
+                                              float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    float av[4];
+    mocopci::c_to_a(a[ks], av);
+    mocopci::FragA fa;
+    fa.set(av);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int k = ks * 8 + tig, n = nt * 8 + gid;
+      const int i0 = T ? n * kLdW + k : k * kLdW + n;
+      const int i1 = T ? i0 + 4 : i0 + 4 * kLdW;
+      mocopci::FragB fb;
+      fb.set(W[i0], W[i1]);
+      mocopci::mma_3xtf32(acc[nt], fa, fb);
     }
-    acc[it] = s;
-  }
-  for (int e = threadIdx.x; e < D; e += kThreads) {
-    float s = bias_acc[e];
-    for (int j = 0; j < K; ++j) s += g[j * D + e];
-    bias_acc[e] = s;
   }
 }
 
-// Backward of the tail, one query at a time per block (queries qf = blockIdx.x
-// + t*gridDim.x of the flattened (B, N)).  The forward chain is recomputed in
-// shared memory, the per-channel softmax over the K neighbours included, so the
-// forward's running (m, l) are not needed: the TPU kernel saves them only
-// because its forward softmax is online over a k-innermost grid.
-__global__ void __launch_bounds__(kThreads) transformer_tail_bwd_kernel(
+// out (16 x 64, fragments) = A W + b on FMAs, each sum over k = 0..63 in
+// order and then the bias (as a float32 GEMM and its bias add); A this warp's
+// 16 rows of a [128][kLdT] buffer, W [64][kLdW].
+__device__ __forceinline__ void fma_product(const float* A, const float* W, const float* b,
+                                            float (&out)[8][4]) {
+  const int tig = threadIdx.x & 3;
+  const float* a0 = A + ((threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2)) * kLdT;
+  const float* a1 = a0 + 8 * kLdT;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) out[nt][0] = out[nt][1] = out[nt][2] = out[nt][3] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < kBD; k += 4) {
+    const float4 v0 = *reinterpret_cast<const float4*>(a0 + k);
+    const float4 v1 = *reinterpret_cast<const float4*>(a1 + k);
+    const float x0[4] = {v0.x, v0.y, v0.z, v0.w}, x1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* wr = W + (k + u) * kLdW + 2 * tig;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 w = *reinterpret_cast<const float2*>(wr + nt * 8);
+        out[nt][0] = fmaf(x0[u], w.x, out[nt][0]);
+        out[nt][1] = fmaf(x0[u], w.y, out[nt][1]);
+        out[nt][2] = fmaf(x1[u], w.x, out[nt][2]);
+        out[nt][3] = fmaf(x1[u], w.y, out[nt][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[nt][i] += b[nt * 8 + 2 * tig + (i & 1)];
+}
+
+// acc (this warp's 16 x 32 slice, rows m0.., columns n0..) += X^T Y over the
+// tile's 128 rows, X and Y [128][kLdT]; the tile's sum added to acc once.
+__device__ __forceinline__ void tile_xty(const float* X, const float* Y, int m0, int n0,
+                                         float (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  float t[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) t[nt][0] = t[nt][1] = t[nt][2] = t[nt][3] = 0.f;
+#pragma unroll 4
+  for (int ks = 0; ks < kBRows / 8; ++ks) {
+    const float* a = X + (ks * 8 + tig) * kLdT + m0 + gid;
+    mocopci::FragA fa;
+    fa.set({a[0], a[8], a[4 * kLdT], a[4 * kLdT + 8]});
+    const float* b = Y + (ks * 8 + tig) * kLdT + n0 + gid;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      mocopci::FragB fb;
+      fb.set(b[nt * 8], b[4 * kLdT + nt * 8]);
+      mocopci::mma_3xtf32(t[nt], fa, fb);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] += t[nt][i];
+}
+
+// The column sum of a staged [128][kLdT] buffer for column threadIdx.x / 4:
+// 4 threads a column, each over every fourth row, added in a fixed order.
+__device__ __forceinline__ float column_sum(const float* P) {
+  const int c = threadIdx.x >> 2, part = threadIdx.x & 3;
+  float s = 0.f;
+#pragma unroll 8
+  for (int r = part; r < kBRows; r += 4) s += P[r * kLdT + c];
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s + __shfl_xor_sync(0xffffffffu, s, 2);
+}
+
+// This warp's 16 rows (gid and gid + 8 of each fragment) of a [128][kLdT]
+// buffer, as 8 accumulator fragments: load or store.
+__device__ __forceinline__ void load_rows(const float* P, float (&x)[8][4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const float* r0 = P + ((threadIdx.x >> 5) * 16 + gid) * kLdT + 2 * tig;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 a = *reinterpret_cast<const float2*>(r0 + nt * 8);
+    const float2 b = *reinterpret_cast<const float2*>(r0 + 8 * kLdT + nt * 8);
+    x[nt][0] = a.x, x[nt][1] = a.y, x[nt][2] = b.x, x[nt][3] = b.y;
+  }
+}
+
+__device__ __forceinline__ void store_rows(float* P, const float (&x)[8][4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  float* r0 = P + ((threadIdx.x >> 5) * 16 + gid) * kLdT + 2 * tig;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    *reinterpret_cast<float2*>(r0 + nt * 8) = make_float2(x[nt][0], x[nt][1]);
+    *reinterpret_cast<float2*>(r0 + 8 * kLdT + nt * 8) = make_float2(x[nt][2], x[nt][3]);
+  }
+}
+
+// Over the K rows of each query within the fragment's 16 rows (K = 16: all
+// of them; K = 4: rows 4m..4m+3), for v0 (row gid) and v1 (row gid + 8).
+template <int K>
+__device__ __forceinline__ void query_max(float& v0, float& v1) {
+  if constexpr (K == 16) {
+    v0 = fmaxf(v0, v1);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, off));
+    v1 = v0;
+  } else {
+#pragma unroll
+    for (int off = 4; off < 16; off <<= 1) {
+      v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, off));
+      v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, off));
+    }
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void query_sum(float& v0, float& v1) {
+  if constexpr (K == 16) {
+    v0 += v1;
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) v0 += __shfl_xor_sync(0xffffffffu, v0, off);
+    v1 = v0;
+  } else {
+#pragma unroll
+    for (int off = 4; off < 16; off <<= 1) {
+      v0 += __shfl_xor_sync(0xffffffffu, v0, off);
+      v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+    }
+  }
+}
+
+// r0 = relu(rel Wd1 + bd1) (or h0 itself, unclamped, when !RELU) as fragments
+template <bool RELU>
+__device__ __forceinline__ void pos_hidden(const float (&rel)[2][3], const float* wd1,
+                                           const float* bd1, float (&x)[8][4]) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = nt * 8 + 2 * tig + (i & 1), h = i >> 1;
+      const float v =
+          fmaf(rel[h][2], wd1[2 * kBD + c], fmaf(rel[h][1], wd1[kBD + c], rel[h][0] * wd1[c])) +
+          bd1[c];
+      x[nt][i] = RELU ? fmaxf(v, 0.f) : v;
+    }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
     const float* __restrict__ table, const int* __restrict__ idx,
     const float* __restrict__ xyzq, const float* __restrict__ q,
     const float* __restrict__ wd1, const float* __restrict__ bd1,
@@ -167,164 +362,304 @@ __global__ void __launch_bounds__(kThreads) transformer_tail_bwd_kernel(
     const float* __restrict__ wg1, const float* __restrict__ bg1,
     const float* __restrict__ wg2, const float* __restrict__ bg2,
     const float* __restrict__ dout, float* __restrict__ d_rows, float* __restrict__ dxq,
-    float* __restrict__ dq, float* __restrict__ partial, int B, int M, int N, int K, int D) {
-  extern __shared__ float sm[];
-  const int DD = D * D;
-  const int KD = K * D;
-  float* s_wd1 = sm;               // [3][D]
-  float* s_wd2 = s_wd1 + 3 * D;    // [D][D]
-  float* s_wg1 = s_wd2 + DD;
-  float* s_wg2 = s_wg1 + DD;
-  float* s_b = s_wg2 + DD;         // bd1 | bd2 | bg1 | bg2
-  float* t_wd1 = s_b + 4 * D;      // [D][3]  transposed copies
-  float* t_wd2 = t_wd1 + 3 * D;    // [D][D]
-  float* t_wg1 = t_wd2 + DD;
-  float* t_wg2 = t_wg1 + DD;
-  float* acc = t_wg2 + DD;         // dwd1 [3][D] | dbd1 | dwd2 [D][D] | dbd2 | dwg1 | dbg1 | dwg2 | dbg2
-  float* a_wd1 = acc;
-  float* a_bd1 = a_wd1 + 3 * D;
-  float* a_wd2 = a_bd1 + D;
-  float* a_bd2 = a_wd2 + DD;
-  float* a_wg1 = a_bd2 + D;
-  float* a_bg1 = a_wg1 + DD;
-  float* a_wg2 = a_bg1 + D;
-  float* a_bg2 = a_wg2 + DD;
-  float* rel = a_bg2 + D;          // [K][3]
-  float* drel = rel + 3 * K;       // [K][3]
-  float* qv = drel + 3 * K;        // [D]
-  float* dov = qv + D;             // [D]
-  float* outv = dov + D;           // [D]
-  float* H0 = outv + D;            // [K][D] pre-relu hidden of the pos MLP
-  float* POS = H0 + KD;
-  float* GV = POS + KD;            // q - k + pos
-  float* H1 = GV + KD;             // pre-relu hidden of the gamma MLP
-  float* A = H1 + KD;              // logits, then softmax weights
-  float* WV = A + KD;              // v + pos, then its gradient
-  float* DG2 = WV + KD;            // d(logit before the 1/sqrt(D) scale)
-  float* DH1 = DG2 + KD;
-  float* DGV = DH1 + KD;
-  float* DPOS = DGV + KD;
-  float* DH0 = DPOS + KD;
-  const int tid = threadIdx.x;
-  const int nacc = 3 * DD + 7 * D;
-  for (int e = tid; e < 3 * D; e += kThreads) {
-    s_wd1[e] = wd1[e];
-    t_wd1[(e % D) * 3 + e / D] = wd1[e];
-  }
-  for (int e = tid; e < DD; e += kThreads) {
-    const int f = e / D, c = e - f * D;
-    s_wd2[e] = wd2[e];
-    s_wg1[e] = wg1[e];
-    s_wg2[e] = wg2[e];
-    t_wd2[c * D + f] = wd2[e];
-    t_wg1[c * D + f] = wg1[e];
-    t_wg2[c * D + f] = wg2[e];
-  }
-  for (int e = tid; e < D; e += kThreads) {
-    s_b[e] = bd1[e];
-    s_b[D + e] = bd2[e];
-    s_b[2 * D + e] = bg1[e];
-    s_b[3 * D + e] = bg2[e];
-  }
-  for (int e = tid; e < nacc; e += kThreads) acc[e] = 0.f;
-  const int W = 3 + 2 * D;
-  const float inv = 1.f / sqrtf(static_cast<float>(D));
+    float* __restrict__ dq, float* __restrict__ partial, int B, int M, int N) {
+  constexpr int QT = kBRows / K;          // queries a tile
+  constexpr int QW = 16 / K;              // queries a warp
+  extern __shared__ __align__(16) float sm[];
+  float* Wd2s = sm + kOffWd2;
+  float* Wg1s = sm + kOffWg1;
+  float* Wg2s = sm + kOffWg2;
+  float* wd1s = sm + kOffWd1;
+  float* bias = sm + kOffBias;
+  float* P0 = sm + kOffP;                 // k, then gv, then dgv
+  float* P1 = P0 + kBRows * kLdT;         // v, then r1, then r0
+  float* P2 = P1 + kBRows * kLdT;         // r0, then dG2, dh1, dpos, dh0
+  float* P3 = P2 + kBRows * kLdT;         // w = v + pos, then its gradient dout a
+  float* Qs = sm + kOffQ;
+  float* DOs = sm + kOffDO;
+  float* XQs = sm + kOffXQ;
+  float* XYZ = sm + kOffXYZ;
+  float* DREL = sm + kOffDrel;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int R0 = warp * 16 + gid, R1 = R0 + 8;     // this thread's rows of the fragments
+  const int qa = R0 / K, qb = R1 / K;              // ... and their queries in the tile
+  const float inv = 0.125f;                        // 1 / sqrt(64)
 
-  for (int qf = blockIdx.x; qf < B * N; qf += gridDim.x) {
-    const int b = qf / N;
-    const float* tb = table + static_cast<size_t>(b) * M * W;
-    const int* in = idx + static_cast<size_t>(qf) * K;
-    __syncthreads();
-    for (int e = tid; e < 3 * K; e += kThreads) {
-      const int j = e / 3, c = e - j * 3;
-      rel[e] = xyzq[static_cast<size_t>(qf) * 3 + c] - tb[static_cast<size_t>(in[j]) * W + c];
-    }
-    for (int e = tid; e < D; e += kThreads) {
-      qv[e] = q[static_cast<size_t>(qf) * D + e];
-      dov[e] = dout[static_cast<size_t>(qf) * D + e];
-    }
-    __syncthreads();
-    dense(rel, 3, s_wd1, s_b, H0, K, D, false);
-    __syncthreads();
-    for (int it = tid; it < KD; it += kThreads) A[it] = fmaxf(H0[it], 0.f);   // scratch: r0
-    __syncthreads();
-    dense(A, D, s_wd2, s_b + D, POS, K, D, false);
-    __syncthreads();
-    for (int it = tid; it < KD; it += kThreads) {
-      const int j = it / D, e = it - j * D;
-      const float* row = tb + static_cast<size_t>(in[j]) * W;
-      GV[it] = (qv[e] - row[3 + e]) + POS[it];
-      WV[it] = row[3 + D + e] + POS[it];
-    }
-    __syncthreads();
-    dense(GV, D, s_wg1, s_b + 2 * D, H1, K, D, false);
-    __syncthreads();
-    for (int it = tid; it < KD; it += kThreads) DH1[it] = fmaxf(H1[it], 0.f);  // scratch: r1
-    __syncthreads();
-    dense(DH1, D, s_wg2, s_b + 3 * D, A, K, D, false);
-    __syncthreads();
-    // per-channel softmax over j, out, then the softmax VJP
-    for (int e = tid; e < D; e += kThreads) {
-      float m = -__int_as_float(0x7f800000);
-      for (int j = 0; j < K; ++j) m = fmaxf(m, A[j * D + e] * inv);
-      float s = 0.f;
-      for (int j = 0; j < K; ++j) {
-        const float a = expf(A[j * D + e] * inv - m);
-        A[j * D + e] = a;
-        s += a;
-      }
-      float o = 0.f;
-      for (int j = 0; j < K; ++j) {
-        A[j * D + e] /= s;
-        o = fmaf(A[j * D + e], WV[j * D + e], o);
-      }
-      outv[e] = o;
-      const float g = dov[e];
-      for (int j = 0; j < K; ++j) {
-        const float a = A[j * D + e];
-        DG2[j * D + e] = a * (g * WV[j * D + e] - g * o) * inv;
-        WV[j * D + e] = g * a;                          // d(v + pos)
-      }
-    }
-    __syncthreads();
-    dense_t(DG2, t_wg2, DH1, K, D, D);
-    __syncthreads();
-    for (int it = tid; it < KD; it += kThreads) DH1[it] = H1[it] > 0.f ? DH1[it] : 0.f;
-    __syncthreads();
-    dense_t(DH1, t_wg1, DGV, K, D, D);
-    __syncthreads();
-    for (int it = tid; it < KD; it += kThreads) DPOS[it] = DGV[it] + WV[it];
-    __syncthreads();
-    dense_t(DPOS, t_wd2, DH0, K, D, D);
-    __syncthreads();
-    for (int it = tid; it < KD; it += kThreads) DH0[it] = H0[it] > 0.f ? DH0[it] : 0.f;
-    __syncthreads();
-    dense_t(DH0, t_wd1, drel, K, D, 3);
-    __syncthreads();
-    // d_rows = [-drel | -dgv | d(v + pos)], dxq = sum_j drel, dq = sum_j dgv
-    float* dr = d_rows + static_cast<size_t>(qf) * K * W;
-    for (int it = tid; it < K * W; it += kThreads) {
-      const int j = it / W, c = it - j * W;
-      dr[it] = c < 3 ? -drel[j * 3 + c] : (c < 3 + D ? -DGV[j * D + c - 3] : WV[j * D + c - 3 - D]);
-    }
-    for (int c = tid; c < 3 + D; c += kThreads) {
-      float s = 0.f;
-      if (c < 3) {
-        for (int j = 0; j < K; ++j) s += drel[j * 3 + c];
-        dxq[static_cast<size_t>(qf) * 3 + c] = s;
-      } else {
-        for (int j = 0; j < K; ++j) s += DGV[j * D + c - 3];
-        dq[static_cast<size_t>(qf) * D + c - 3] = s;
-      }
-    }
-    outer_acc(rel, 3, false, DH0, a_wd1, a_bd1, K, D);
-    outer_acc(H0, D, true, DPOS, a_wd2, a_bd2, K, D);
-    outer_acc(GV, D, false, DH1, a_wg1, a_bg1, K, D);
-    outer_acc(H1, D, true, DG2, a_wg2, a_bg2, K, D);
+  for (int e = tid; e < kBD * kBD; e += kBThreads) {
+    const int r = e >> 6, c = e & 63;
+    Wd2s[r * kLdW + c] = wd2[e];
+    Wg1s[r * kLdW + c] = wg1[e];
+    Wg2s[r * kLdW + c] = wg2[e];
   }
-  __syncthreads();
-  float* pb = partial + static_cast<size_t>(blockIdx.x) * nacc;
-  for (int e = tid; e < nacc; e += kThreads) pb[e] = acc[e];
+  for (int e = tid; e < 3 * kBD; e += kBThreads) wd1s[e] = wd1[e];
+  for (int e = tid; e < kBD; e += kBThreads) {
+    bias[e] = bd1[e];
+    bias[kBD + e] = bd2[e];
+    bias[2 * kBD + e] = bg1[e];
+    bias[3 * kBD + e] = bg2[e];
+  }
+  // the warp's slice of the three D x D weight gradients
+  const int m0 = (warp >> 1) * 16, n0 = (warp & 1) * 32;
+  float aWd2[4][4], aWg1[4][4], aWg2[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) aWd2[nt][i] = aWg1[nt][i] = aWg2[nt][i] = 0.f;
+  // column tid / 4's bias gradients and dWd1 column
+  float aBd1 = 0.f, aBd2 = 0.f, aBg1 = 0.f, aBg2 = 0.f, aWd1[3] = {0.f, 0.f, 0.f};
+
+  const int BN = B * N;
+  const int ntiles = (BN + QT - 1) / QT;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int qf0 = tile * QT;
+    const int nq = min(QT, BN - qf0);
+    __syncthreads();        // the previous tile's buffers are free
+    // gather: this warp's 16 rows [xyz | k | v]; rows of absent queries zero
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = warp * 16 + rr, qi = r / K;
+      float* dk = P0 + r * kLdT - 3;
+      float* dv = P1 + r * kLdT - 3 - kBD;
+      if (qi < nq) {
+        const int qf = qf0 + qi;
+        const int row = idx[static_cast<size_t>(qf) * K + (r - qi * K)];
+        const float* src = table + (static_cast<size_t>(qf / N) * M + row) * kBW;
+        for (int c = lane; c < kBW; c += 32)
+          mocopci::cp_async4(c < 3 ? XYZ + r * 4 + c : c < 3 + kBD ? dk + c : dv + c, src + c);
+      } else {
+        for (int c = lane; c < kBW; c += 32)
+          *(c < 3 ? XYZ + r * 4 + c : c < 3 + kBD ? dk + c : dv + c) = 0.f;
+      }
+    }
+    for (int e = tid; e < QT * (kBD / 4); e += kBThreads) {
+      const int qi = e / (kBD / 4), c = (e - qi * (kBD / 4)) * 4;
+      if (qi < nq) {
+        const size_t src = static_cast<size_t>(qf0 + qi) * kBD + c;
+        mocopci::cp_async16(Qs + qi * kLdT + c, q + src);
+        mocopci::cp_async16(DOs + qi * kLdT + c, dout + src);
+      } else {
+        *reinterpret_cast<float4*>(Qs + qi * kLdT + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(DOs + qi * kLdT + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    for (int e = tid; e < QT * 3; e += kBThreads) {
+      const int qi = e / 3, c = e - qi * 3;
+      if (qi < nq)
+        mocopci::cp_async4(XQs + qi * 4 + c, xyzq + static_cast<size_t>(qf0) * 3 + e);
+      else
+        XQs[qi * 4 + c] = 0.f;
+    }
+    mocopci::cp_async_commit();
+    mocopci::cp_async_wait0();
+    __syncthreads();        // the tile has landed
+
+    // ---- the recompute, on this warp's rows ----
+    float rel[2][3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      rel[0][c] = XQs[qa * 4 + c] - XYZ[R0 * 4 + c];
+      rel[1][c] = XQs[qb * 4 + c] - XYZ[R1 * 4 + c];
+    }
+    __syncwarp();
+    if (tig == 0) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) XYZ[R0 * 4 + c] = rel[0][c], XYZ[R1 * 4 + c] = rel[1][c];
+    }
+    float x[8][4], y[8][4];
+    pos_hidden<false>(rel, wd1s, bias, x);
+    uint32_t mask0 = 0u, mask1 = 0u;        // bit 4 nt + i: h0 (h1) > 0
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mask0 |= static_cast<uint32_t>(x[nt][i] > 0.f) << (4 * nt + i);
+        x[nt][i] = fmaxf(x[nt][i], 0.f);
+      }
+    store_rows(P2, x);                               // r0
+    __syncwarp();
+    fma_product(P2, Wd2s, bias + kBD, y);            // pos
+    // gv = (q - k) + pos into P0, w = v + pos into P3
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? R1 : R0, c = nt * 8 + 2 * tig;
+        const float2 kk = *reinterpret_cast<const float2*>(P0 + r * kLdT + c);
+        const float2 vv = *reinterpret_cast<const float2*>(P1 + r * kLdT + c);
+        const float2 qq = *reinterpret_cast<const float2*>(Qs + (h ? qb : qa) * kLdT + c);
+        const float p0 = y[nt][2 * h], p1 = y[nt][2 * h + 1];
+        *reinterpret_cast<float2*>(P0 + r * kLdT + c) =
+            make_float2((qq.x - kk.x) + p0, (qq.y - kk.y) + p1);
+        *reinterpret_cast<float2*>(P3 + r * kLdT + c) = make_float2(vv.x + p0, vv.y + p1);
+      }
+    __syncwarp();
+    fma_product(P0, Wg1s, bias + 2 * kBD, y);        // h1
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mask1 |= static_cast<uint32_t>(y[nt][i] > 0.f) << (4 * nt + i);
+        y[nt][i] = fmaxf(y[nt][i], 0.f);
+      }
+    store_rows(P1, y);                               // r1
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[nt][i] = bias[3 * kBD + nt * 8 + 2 * tig + (i & 1)];
+    chain_product<false>(y, Wg2s, x);                // logit
+    // the per-channel softmax over each query's K rows, out, and its VJP:
+    // x <- dG2 = a (dout w - dout out) / sqrt(D), P3 <- d(v + pos) = dout a
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * tig + e;
+        const float l0 = x[nt][e] * inv, l1 = x[nt][2 + e] * inv;
+        float m0v = l0, m1v = l1;
+        query_max<K>(m0v, m1v);
+        float a0 = expf(l0 - m0v), a1 = expf(l1 - m1v);
+        float s0 = a0, s1 = a1;
+        query_sum<K>(s0, s1);
+        a0 /= s0;
+        a1 /= s1;
+        const float w0 = P3[R0 * kLdT + c], w1 = P3[R1 * kLdT + c];
+        float o0 = a0 * w0, o1 = a1 * w1;
+        query_sum<K>(o0, o1);
+        const float g0 = DOs[qa * kLdT + c], g1 = DOs[qb * kLdT + c];
+        x[nt][e] = a0 * (g0 * w0 - g0 * o0) * inv;
+        x[nt][2 + e] = a1 * (g1 * w1 - g1 * o1) * inv;
+        P3[R0 * kLdT + c] = g0 * a0;
+        P3[R1 * kLdT + c] = g1 * a1;
+      }
+    store_rows(P2, x);                               // dG2
+    __syncthreads();        // r1 and dG2 of every row are staged
+
+    // ---- the VJP ----
+    tile_xty(P1, P2, m0, n0, aWg2);
+    aBg2 += column_sum(P2);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) y[nt][0] = y[nt][1] = y[nt][2] = y[nt][3] = 0.f;
+    chain_product<true>(x, Wg2s, y);                 // dr1
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[nt][i] = (mask1 >> (4 * nt + i)) & 1u ? y[nt][i] : 0.f;
+    __syncthreads();        // every warp is done with r1 and dG2
+    store_rows(P2, y);                               // dh1
+    pos_hidden<true>(rel, wd1s, bias, x);
+    store_rows(P1, x);                               // r0, as in the recompute
+    __syncthreads();
+    tile_xty(P0, P2, m0, n0, aWg1);
+    aBg1 += column_sum(P2);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) x[nt][0] = x[nt][1] = x[nt][2] = x[nt][3] = 0.f;
+    chain_product<true>(y, Wg1s, x);                 // dgv
+    load_rows(P3, y);                                // d(v + pos)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[nt][i] += x[nt][i];   // dpos = dgv + d(v + pos)
+    __syncthreads();        // every warp is done with gv and dh1
+    store_rows(P0, x);                               // dgv
+    store_rows(P2, y);                               // dpos
+    __syncwarp();
+    // dq = sum over the query's rows of dgv, in j order
+    for (int e = lane; e < QW * kBD; e += 32) {
+      const int qi = warp * QW + e / kBD, c = e % kBD;
+      if (qi < nq) {
+        float s = 0.f;
+        for (int j = 0; j < K; ++j) s += P0[(qi * K + j) * kLdT + c];
+        dq[static_cast<size_t>(qf0 + qi) * kBD + c] = s;
+      }
+    }
+    __syncthreads();        // dpos of every row is staged
+    tile_xty(P1, P2, m0, n0, aWd2);
+    aBd2 += column_sum(P2);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) x[nt][0] = x[nt][1] = x[nt][2] = x[nt][3] = 0.f;
+    chain_product<true>(y, Wd2s, x);                 // dr0
+    float dr[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float d = (mask0 >> (4 * nt + i)) & 1u ? x[nt][i] : 0.f;    // dh0
+        x[nt][i] = d;
+        const int c = nt * 8 + 2 * tig + (i & 1);
+#pragma unroll
+        for (int f = 0; f < 3; ++f) dr[i >> 1][f] = fmaf(d, wd1s[f * kBD + c], dr[i >> 1][f]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        dr[h][f] += __shfl_xor_sync(0xffffffffu, dr[h][f], 1);
+        dr[h][f] += __shfl_xor_sync(0xffffffffu, dr[h][f], 2);
+      }
+    if (tig == 0) {
+#pragma unroll
+      for (int f = 0; f < 3; ++f) DREL[R0 * 4 + f] = dr[0][f], DREL[R1 * 4 + f] = dr[1][f];
+    }
+    __syncthreads();        // every warp is done with r0 and dpos
+    store_rows(P2, x);                               // dh0
+    __syncwarp();
+    // dxq = sum over the query's rows of drel, in j order
+    for (int e = lane; e < QW * 3; e += 32) {
+      const int qi = warp * QW + e / 3, f = e % 3;
+      if (qi < nq) {
+        float s = 0.f;
+        for (int j = 0; j < K; ++j) s += DREL[(qi * K + j) * 4 + f];
+        dxq[static_cast<size_t>(qf0 + qi) * 3 + f] = s;
+      }
+    }
+    __syncthreads();        // dh0 and drel of every row are staged
+    {                       // dWd1 = rel^T dh0 and dbd1, column tid / 4
+      const int c = tid >> 2, part = tid & 3;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int r = part; r < kBRows; r += 4) {
+        const float d = P2[r * kLdT + c];
+        s[0] = fmaf(XYZ[r * 4], d, s[0]);
+        s[1] = fmaf(XYZ[r * 4 + 1], d, s[1]);
+        s[2] = fmaf(XYZ[r * 4 + 2], d, s[2]);
+        s[3] += d;
+      }
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        s[f] += __shfl_xor_sync(0xffffffffu, s[f], 1);
+        s[f] += __shfl_xor_sync(0xffffffffu, s[f], 2);
+      }
+      aWd1[0] += s[0], aWd1[1] += s[1], aWd1[2] += s[2], aBd1 += s[3];
+    }
+    // d_rows = [-drel | -dgv | d(v + pos)], the tile's rows contiguous
+    float* dr_out = d_rows + static_cast<size_t>(qf0) * K * kBW;
+    for (int e = tid; e < nq * K * kBW; e += kBThreads) {
+      const int r = e / kBW, c = e - r * kBW;
+      dr_out[e] = c < 3 ? -DREL[r * 4 + c]
+                        : c < 3 + kBD ? -P0[r * kLdT + c - 3] : P3[r * kLdT + c - 3 - kBD];
+    }
+  }
+
+  float* pb = partial + static_cast<size_t>(blockIdx.x) * kNAcc;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = (m0 + gid + 8 * (i >> 1)) * kBD + n0 + nt * 8 + 2 * tig + (i & 1);
+      pb[kAccWd2 + o] = aWd2[nt][i];
+      pb[kAccWg1 + o] = aWg1[nt][i];
+      pb[kAccWg2 + o] = aWg2[nt][i];
+    }
+  if ((tid & 3) == 0) {
+    const int c = tid >> 2;
+    pb[c] = aWd1[0];
+    pb[kBD + c] = aWd1[1];
+    pb[2 * kBD + c] = aWd1[2];
+    pb[3 * kBD + c] = aBd1;
+    pb[kAccBd2 + c] = aBd2;
+    pb[kAccBg1 + c] = aBg1;
+    pb[kAccBg2 + c] = aBg2;
+  }
 }
 
 }  // namespace
@@ -349,28 +684,24 @@ MOCOPCI_API int mocopci_transformer_tail(const float* table, const int* idx,
   return cudaGetLastError();
 }
 
-static size_t transformer_tail_bwd_floats(int K, int D) {
-  const size_t DD = static_cast<size_t>(D) * D, KD = static_cast<size_t>(K) * D;
-  return 3 * D + 3 * DD + 4 * D + 3 * D + 3 * DD + (3 * DD + 7 * D) + 6 * K + 3 * D + 11 * KD;
-}
-
 // Backward of mocopci_transformer_tail given dout (B, N, D): d_rows (B, N, K,
 // 3+2D) (the gathered rows' gradient), dxq (B, N, 3), dq (B, N, D), and dw =
-// [dwd1 (3, D) | dbd1 | dwd2 (D, D) | dbd2 | dwg1 | dbg1 | dwg2 | dbg2].
-// partial: nblk * (3D^2 + 7D) floats of scratch, reduced in block order.
+// [dwd1 (3, D) | dbd1 | dwd2 (D, D) | dbd2 | dwg1 | dbg1 | dwg2 | dbg2], for
+// D = 64 and K = 16 or 4.  partial: nblk * (3D^2 + 7D) floats of scratch,
+// reduced in block order.
 MOCOPCI_API int mocopci_transformer_tail_bwd(
     const float* table, const int* idx, const float* xyzq, const float* q, const float* wd1,
     const float* bd1, const float* wd2, const float* bd2, const float* wg1, const float* bg1,
     const float* wg2, const float* bg2, const float* dout, float* d_rows, float* dxq,
     float* dq, float* dw, float* partial, int B, int M, int N, int K, int D, int nblk,
     void* stream) {
+  if (D != kBD || (K != 16 && K != 4) || nblk < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = transformer_tail_bwd_floats(K, D) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(transformer_tail_bwd_kernel, smem);
+  auto kernel = K == 16 ? transformer_tail_bwd_kernel<16> : transformer_tail_bwd_kernel<4>;
+  cudaError_t err = mocopci::allow_smem(kernel, kBwdSmem);
   if (err != cudaSuccess) return err;
-  transformer_tail_bwd_kernel<<<nblk, kThreads, smem, st>>>(
-      table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, dout, d_rows, dxq, dq,
-      partial, B, M, N, K, D);
+  kernel<<<nblk, kBThreads, kBwdSmem, st>>>(table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1,
+                                             wg2, bg2, dout, d_rows, dxq, dq, partial, B, M, N);
   MOCOPCI_CHECK_LAUNCH();
-  return mocopci::reduce_partials(partial, dw, nblk, 3 * D * D + 7 * D, st);
+  return mocopci::reduce_partials(partial, dw, nblk, kNAcc, st);
 }

@@ -45,6 +45,7 @@ SIGNATURES = {
     "chamfer_pair": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "scatter_add": [_P] * 4 + [_I] * 5 + [_P],
     "attention_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _F, _P],
+    "attention_train_fwd_wide": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _F, _P],
     "attention_train_bwd": [_P] * 10 + [_I] * 4 + [_F, _P, _I, _F, _P],
     "attention_train_bwd_wide": [_P] * 10 + [_I] * 4 + [_F, _P, _I, _F, _P],
     "cross_tail_bwd": [_P] * 11 + [_I] * 7 + [_P],

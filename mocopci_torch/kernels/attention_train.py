@@ -7,11 +7,17 @@ group, row, column), rebuilt bit for bit by the forward kernel, the backward
 kernel and the twin; the twin computes it in int64 masked to 32 bits, as
 PyTorch has little uint32 arithmetic.  Operations bound it.
 
-The backward has two routes, each its own counted entry point, both one pass
-over the pairs (each pair computed once) between a dot prologue and a dq
-epilogue: head dims D <= ``MAX_BWD_D`` take ``attention_train_bwd`` (FMAs),
-wider heads (the ``CrossFrameBlock``'s D = 256) ``attention_train_bwd_wide``
-(the five products on the tensor cores at float32 grade).
+Each direction has two routes, each its own counted entry point, picked by
+the head dim D alone.  The forward: D <= ``MAX_FWD_D`` takes
+``attention_train_fwd`` (one pass over the keys, streamed through shared
+memory, with an online softmax), wider heads (the ``CrossFrameBlock``'s D =
+256) ``attention_train_fwd_wide`` (a block per 8 queries, their logit rows
+in shared memory).  The backward, both routes one pass over the pairs (each
+pair computed once) between a dot prologue and a dq epilogue: D <=
+``MAX_BWD_D`` takes ``attention_train_bwd`` (FMAs), wider heads
+``attention_train_bwd_wide`` (the five products on the tensor cores at
+float32 grade).  Both routes of a direction return the same (out, lse) or
+(dq, dk, dv).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ REPLACES_BWD = "mocopci_tpu/ops/pallas/attention_train.py:206"  # backward palla
 
 MAX_SEQ = 4096
 MAX_D = 2048
+MAX_FWD_D = 64      # the one-pass forward's widest head (csrc kMaxFwdD)
 MAX_BWD_D = 64      # the one-pass backward's widest head (csrc kMaxBwdD)
 BWD_KEYS = 64       # its keys per block (csrc kBwdKeys): dq partials per key tile
 WIDE_KEYS = 32      # the wide route's keys per block (csrc kWKeys)
@@ -103,15 +110,18 @@ def _check_seed(seed, q):
 
 
 def attention_train_fwd(q, k, v, seed, scale, rate):
-    """Kernel forward: (out (G, N, D), lse (G, N)) on the card; seed a (1,)
-    int32 tensor on the card (read there, so drawing it costs no sync)."""
+    """Kernel forward: (out (G, N, D), lse (G, N)) on the card, by
+    ``attention_train_fwd`` for D <= MAX_FWD_D and ``attention_train_fwd_wide``
+    above; seed a (1,) int32 tensor on the card (read there, so drawing it
+    costs no sync)."""
     _check(q, k, v)
     _check_seed(seed, q)
     G, N, D = q.shape
     thr, kscale = dropout_constants(rate)
     out = torch.empty_like(q)
     lse = torch.empty((G, N), dtype=torch.float32, device=q.device)
-    _lib.launch("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _lib.launch("attention_train_fwd" if D <= MAX_FWD_D else "attention_train_fwd_wide",
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), G, N, k.shape[1], D, float(scale),
                 seed.data_ptr(), thr, kscale, _lib.stream(q))
     return out, lse

@@ -6,7 +6,9 @@ rows from the table by index; the backward returns the rows' gradient, which
 :func:`~mocopci_torch.kernels.scatter_add.gather_backward` scatters into the
 table (through the ``scatter_add`` kernel at the refine head's shape, as JAX's
 gather VJP).  The backward kernel recomputes the per-channel softmax instead
-of reading a saved (m, l).  Operations bound both.
+of reading a saved (m, l), and runs the chain's products on the tensor cores
+at float32 grade over tiles of 128 pair rows; it takes the (K, D) of the
+model's refine heads, ``BWD_SHAPES``.  Operations bound both.
 """
 from __future__ import annotations
 
@@ -23,6 +25,10 @@ REPLACES_BWD = "mocopci_tpu/ops/pallas/transformer_tail.py:237"
 
 _MAX_SMEM = 227 * 1024
 BWD_BLOCKS = 132      # one per SM of an H100 (the backward's shared memory fills one)
+BWD_ROWS = 128        # the backward's pair rows a tile: 128 / K queries
+# (K, D) the backward kernel takes: ModelConfig() (refine_k 16) and the tiny
+# configs (refine_k 4), both at the refine head's width 64
+BWD_SHAPES = ((16, 64), (4, 64))
 
 
 def _tail(rows, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2):
@@ -65,10 +71,20 @@ def _check(table, idx, xyzq, q, weights):
         want = (D,) if i % 2 else ((3, D) if i == 0 else (D, D))
         if tuple(t.shape) != want:
             raise ValueError(f"transformer_tail weight {i}: {tuple(t.shape)} != {want}")
-    bwd_floats = 9 * D * D + 20 * D + 6 * K + 11 * K * D
-    if (3 * D * D + 8 * D + 3 * K + 3 * K * D) * 4 > _MAX_SMEM or bwd_floats * 4 > _MAX_SMEM:
+    if (3 * D * D + 8 * D + 3 * K + 3 * K * D) * 4 > _MAX_SMEM:
         raise ValueError(f"transformer_tail kernel: D={D}, K={K} exceed shared memory")
     return B, M, N, K, D
+
+
+def _check_bwd(K, D):
+    if (K, D) not in BWD_SHAPES:
+        raise ValueError(f"transformer_tail backward kernel covers (K, D) in {BWD_SHAPES}; "
+                         f"got ({K}, {D})")
+
+
+def bwd_grid(B: int, N: int, K: int) -> int:
+    """The backward's blocks: one an SM, at most one a tile of 128 / K queries."""
+    return min(BWD_BLOCKS, -(-B * N * K // BWD_ROWS))
 
 
 def transformer_tail_fwd(table, idx, xyzq, q, *weights):
@@ -85,6 +101,7 @@ def transformer_tail_bwd(table, idx, xyzq, q, *weights_and_dout):
     """Kernel backward: (d_rows (B, N, K, 3+2D), dxq, dq, 8 weight grads)."""
     *weights, dout = weights_and_dout
     B, M, N, K, D = _check(table, idx, xyzq, q, weights)
+    _check_bwd(K, D)
     _lib.check_cuda("transformer_tail dout", dout, torch.float32, 3)
     dev = table.device
     d_rows = torch.empty((B, N, K, 3 + 2 * D), dtype=torch.float32, device=dev)
@@ -92,7 +109,7 @@ def transformer_tail_bwd(table, idx, xyzq, q, *weights_and_dout):
     dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
     sizes = [3 * D, D, D * D, D, D * D, D, D * D, D]
     dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    nblk = min(BWD_BLOCKS, B * N)
+    nblk = bwd_grid(B, N, K)
     partial = torch.empty(nblk * sum(sizes), dtype=torch.float32, device=dev)
     _lib.launch("transformer_tail_bwd", table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
                 q.data_ptr(), *(t.data_ptr() for t in weights), dout.data_ptr(),
@@ -110,6 +127,8 @@ class _TransformerTail(torch.autograd.Function):
         ctx.save_for_backward(table, idx, xyzq, q, *weights)
         if cpu:
             return transformer_tail_plain(table, idx, xyzq, q, *weights)
+        if any(ctx.needs_input_grad):
+            _check_bwd(idx.shape[2], q.shape[2])      # before the forward's launch
         return transformer_tail_fwd(table, idx, xyzq, q, *weights)
 
     @staticmethod

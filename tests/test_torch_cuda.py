@@ -301,7 +301,10 @@ def test_scatter_add_kernel_matches_twin_and_repeats(card, planes):
     (3, 333, 517, 16),     # N, M not multiples of the query chunk or key tile
     (3, 333, 517, 32),
     (2, 129, 70, 6),       # D % 4 != 0, padded to 8
+    (2, 150, 333, 12),     # D padded to 16
     (2, 100, 130, 64),
+    (1, 70, 4096, 8),      # M = MAX_SEQ
+    (1, 129, 4096, 64),
     (2, 33, 64, 256),      # the wide route
     (16, 256, 256, 256),   # its train step shape (CrossFrameBlock at L3)
     (3, 100, 77, 70),      # D not a multiple of 8
@@ -309,10 +312,11 @@ def test_scatter_add_kernel_matches_twin_and_repeats(card, planes):
     (1, 40, 50, 512),      # more head dims than a block holds: two slices
 ])
 def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
-    """Output and gradients against the plain version, the backward's bits
-    repeated, and the backward's route (one pass up to D = 64, wide above)
-    counted."""
-    from mocopci_torch.kernels.attention_train import (MAX_BWD_D, attention_train_bwd,
+    """Output, its log-sum-exp and the gradients against the plain version,
+    the backward's bits repeated, and each direction's route (one pass up to
+    D = 64, wide above) counted."""
+    from mocopci_torch.kernels.attention_train import (MAX_BWD_D, MAX_FWD_D,
+                                                       attention_train_bwd,
                                                        attention_train_bwd_plain,
                                                        attention_train_fwd)
 
@@ -323,13 +327,16 @@ def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
     kernels.reset_launches()
     out = kernels.attention_train(*leaves, seed, D ** -0.5, rate)
     out.backward(do)
-    route = "attention_train_bwd" if D <= MAX_BWD_D else "attention_train_bwd_wide"
-    assert kernels.LAUNCHES[route] == 1, kernels.LAUNCHES
+    fwd = "attention_train_fwd" if D <= MAX_FWD_D else "attention_train_fwd_wide"
+    bwd = "attention_train_bwd" if D <= MAX_BWD_D else "attention_train_bwd_wide"
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {fwd: 1, bwd: 1}, kernels.LAUNCHES
     want = kernels.attention_train_plain(q, k, v, -987654, D ** -0.5, rate)
     torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=1e-4)
     for leaf, w in zip(leaves, attention_train_bwd_plain(q, k, v, -987654, D ** -0.5, rate, do)):
         torch.testing.assert_close(leaf.grad, w, atol=1e-4, rtol=1e-4)
     o, lse = attention_train_fwd(q, k, v, seed, D ** -0.5, rate)
+    torch.testing.assert_close(lse, torch.logsumexp(q @ k.transpose(1, 2) * D ** -0.5, -1),
+                               atol=1e-5, rtol=1e-4)
     again = attention_train_bwd(q, k, v, o, lse, do, seed, D ** -0.5, rate)
     for leaf, a in zip(leaves, again):
         assert _bits_equal(leaf.grad, a)
@@ -370,7 +377,10 @@ def test_cross_tail_bwd_kernel_matches_twin_with_ties(card, N, K, C, C2):
     assert all(_bits_equal(a, c) for a, c in zip(got, again))
 
 
-def test_transformer_tail_bwd_kernel_matches_twin(card):
+@pytest.mark.parametrize("N,K", [(300, 16), (301, 4), (2048, 16)])
+def test_transformer_tail_bwd_kernel_matches_twin(card, N, K):
+    """At the refine head's K = 16 (8 queries a tile) and the tiny configs'
+    K = 4 (32 a tile), with a ragged last tile at N = 300 and 301."""
     from mocopci_torch.kernels.transformer_tail import (
         transformer_tail_bwd,
         transformer_tail_bwd_plain,
@@ -379,12 +389,12 @@ def test_transformer_tail_bwd_kernel_matches_twin(card):
     g = torch.Generator().manual_seed(13)
     D = 64
     table = _x(g, 2, 700, 3 + 2 * D).to(card)
-    xq, q = _x(g, 2, 300, 3).to(card), _x(g, 2, 300, D).to(card)
+    xq, q = _x(g, 2, N, 3).to(card), _x(g, 2, N, D).to(card)
     ws = []
     for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
         ws += [_x(g, ci, co, scale=ci ** -0.5).to(card), _x(g, co, scale=0.1).to(card)]
-    idx = torch.randint(0, 700, (2, 300, 16), generator=g, dtype=torch.int32).to(card)
-    dout = _x(g, 2, 300, D).to(card)
+    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32).to(card)
+    dout = _x(g, 2, N, D).to(card)
     got = transformer_tail_bwd(table, idx, xq, q, *ws, dout)
     want = transformer_tail_bwd_plain(table, idx, xq, q, *ws, dout)
     for i, (a, c) in enumerate(zip(got, want)):
@@ -502,8 +512,9 @@ def test_forward_only_kernels_refuse_grad(card):
 # the kernels one train step launches (exact kNN mode)
 TRAIN_KERNELS = {"fps", "fps_pyramid", "knn", "cross_tail", "cross_tail_bwd",
                  "transformer_tail", "transformer_tail_bwd", "attention_train_fwd",
-                 "attention_train_bwd", "attention_train_bwd_wide", "fusion_pair_planes", "fusion_head_train_fwd",
-                 "fusion_head_train_bwd", "chamfer_pair", "scatter_add"}
+                 "attention_train_fwd_wide", "attention_train_bwd", "attention_train_bwd_wide",
+                 "fusion_pair_planes", "fusion_head_train_fwd", "fusion_head_train_bwd",
+                 "chamfer_pair", "scatter_add"}
 
 
 def test_tiny_train_step_on_card_matches_cpu(card):

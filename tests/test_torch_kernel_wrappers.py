@@ -1,5 +1,5 @@
-"""The CUDA-side wrappers of the train attention's backward, the train
-fusion head, the cost-volume tail and FPS, driven with CPU tensors: the
+"""The CUDA-side wrappers of the train attention, the train fusion head, the
+cost-volume tail, the transformer tail's backward and FPS, driven with CPU tensors: the
 launch is replaced by a check of its arguments against the C signature
 (``_lib.SIGNATURES``), so the route each shape takes, the shapes and
 constants handed to the kernel and the refusals before any launch are held
@@ -17,6 +17,7 @@ attention_train = importlib.import_module("mocopci_torch.kernels.attention_train
 cross_tail = importlib.import_module("mocopci_torch.kernels.cross_tail")
 fps = importlib.import_module("mocopci_torch.kernels.fps")
 fusion_head_train = importlib.import_module("mocopci_torch.kernels.fusion_head_train")
+transformer_tail = importlib.import_module("mocopci_torch.kernels.transformer_tail")
 
 
 @pytest.fixture
@@ -53,11 +54,33 @@ def test_attention_train_bwd_takes_its_route_with_the_shape_and_dropout_constant
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
 
+@pytest.mark.parametrize("D,route", [(8, "attention_train_fwd"), (12, "attention_train_fwd"),
+                                     (64, "attention_train_fwd"),
+                                     (65, "attention_train_fwd_wide"),
+                                     (256, "attention_train_fwd_wide"),
+                                     (2048, "attention_train_fwd_wide")])
+def test_attention_train_fwd_takes_its_route_with_the_shape_and_dropout_constants(launches, D,
+                                                                                route):
+    """The one-pass forward up to MAX_FWD_D, the wide route above, by D alone."""
+    G, N, M = 2, 33, 40
+    q, k = torch.zeros(G, N, D), torch.zeros(G, M, D)
+    seed = torch.zeros(1, dtype=torch.int32)
+    out, lse = attention_train.attention_train_fwd(q, k, k, seed, 0.125, 0.05)
+    assert [name for name, _ in launches] == [route]
+    args = launches[0][1]
+    assert args[3:5] == (out.data_ptr(), lse.data_ptr())
+    assert args[5:10] == (G, N, M, D, 0.125)
+    assert args[11:13] == attention_train.dropout_constants(0.05)
+    assert out.shape == q.shape and lse.shape == (G, N)
+
+
 def test_attention_train_bwd_refuses_head_dims_past_the_widest(launches):
     q = torch.zeros(1, 8, attention_train.MAX_D + 1)
     with pytest.raises(ValueError):
         attention_train.attention_train_bwd(q, q, q, q, torch.zeros(1, 8), q,
                                             torch.zeros(1, dtype=torch.int32), 1.0, 0.0)
+    with pytest.raises(ValueError):
+        attention_train.attention_train_fwd(q, q, q, torch.zeros(1, dtype=torch.int32), 1.0, 0.0)
     assert not launches
 
 
@@ -167,3 +190,42 @@ def test_cross_tail_bwd_takes_the_argmax_on_the_fixed_grid(launches):
     assert args[11:18] == (6, 50, 2048, 32, 64, 64, cross_tail.BWD_BLOCKS)
     assert d_rows.shape == (6, 2048, 32, 64) and d_base.shape == (6, 2048, 64)
     assert dw.shape == (64, 64) and db.shape == (64,)
+
+
+def _transformer_tail_inputs(B, M, N, K, D):
+    ws = []
+    for ci in (3, D, D, D):
+        ws += [torch.zeros(ci, D), torch.zeros(D)]
+    return (torch.zeros(B, M, 3 + 2 * D), torch.zeros(B, N, K, dtype=torch.int32),
+            torch.zeros(B, N, 3), torch.zeros(B, N, D), *ws, torch.zeros(B, N, D))
+
+
+@pytest.mark.parametrize("B,N,K,blocks", [(6, 2048, 16, 132), (2, 300, 16, 75),
+                                          (2, 301, 4, 19), (1, 2048, 4, 64)])
+def test_transformer_tail_bwd_grid_and_partial_sums(launches, B, N, K, blocks):
+    """One block a tile of 128 pair rows (128 / K queries), at most one an SM;
+    a block's partial sums are the eight weight and bias gradients."""
+    D = 64
+    inputs = _transformer_tail_inputs(B, 50, N, K, D)
+    d_rows, dxq, dq, *dws = transformer_tail.transformer_tail_bwd(*inputs)
+    assert [name for name, _ in launches] == ["transformer_tail_bwd"]
+    args = launches[0][1]
+    assert args[18:24] == (B, 50, N, K, D, blocks)
+    assert transformer_tail.bwd_grid(B, N, K) == blocks
+    nacc = 3 * D * D + 7 * D
+    assert [tuple(t.shape) for t in dws] == [(3, D), (D,), (D, D), (D,), (D, D), (D,), (D, D),
+                                            (D,)]
+    assert sum(t.numel() for t in dws) == nacc
+    assert d_rows.shape == (B, N, K, 3 + 2 * D) and dxq.shape == (B, N, 3)
+    assert dq.shape == (B, N, D)
+
+
+@pytest.mark.parametrize("K,D", [(8, 64), (16, 32), (4, 128)])
+def test_transformer_tail_bwd_refuses_other_shapes_before_any_launch(launches, K, D):
+    inputs = _transformer_tail_inputs(1, 50, 40, K, D)
+    with pytest.raises(ValueError, match="transformer_tail backward"):
+        transformer_tail.transformer_tail_bwd(*inputs)
+    leaves = [t.clone().requires_grad_() if t.is_floating_point() else t for t in inputs[:-1]]
+    with pytest.raises(ValueError, match="transformer_tail backward"):
+        transformer_tail.transformer_tail(*leaves)
+    assert not launches
