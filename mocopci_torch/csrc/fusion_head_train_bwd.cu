@@ -71,6 +71,23 @@ __host__ __device__ constexpr int bwd_red_size(int mode, int F) {
                    : 4 * kC1 + kC1;
 }
 
+// The A fragment of k-step ks of a 16-row activation held as accumulator
+// fragments c[n-tile][4]: column tig (tig + 4) of n-tile ks sits in quad lane
+// tig / 2 (2 + tig / 2), element tig % 2 of its row pair.
+__device__ __forceinline__ void c_to_a(const float (&c)[4], float (&a)[4]) {
+  const int lane = threadIdx.x & 31, tig = lane & 3, quad = lane & ~3;
+  const int s0 = quad | (tig >> 1), s1 = quad | (2 + (tig >> 1));
+  const float e0 = __shfl_sync(0xffffffffu, c[0], s0), o0 = __shfl_sync(0xffffffffu, c[1], s0);
+  const float e2 = __shfl_sync(0xffffffffu, c[2], s0), o2 = __shfl_sync(0xffffffffu, c[3], s0);
+  const float e1 = __shfl_sync(0xffffffffu, c[0], s1), o1 = __shfl_sync(0xffffffffu, c[1], s1);
+  const float e3 = __shfl_sync(0xffffffffu, c[2], s1), o3 = __shfl_sync(0xffffffffu, c[3], s1);
+  const bool odd = tig & 1;
+  a[0] = odd ? o0 : e0;
+  a[1] = odd ? o2 : e2;
+  a[2] = odd ? o1 : e1;
+  a[3] = odd ? o3 : e3;
+}
+
 // acc[NT] += A (16 x 8 KS) * W: W [k][n] row-major with row stride ld, or
 // read transposed (W^T, W stored [n][k]) when T.  EXACT: W is the hi plane
 // of three (hi, mid, lo at kPlane apart), 6xTF32, each k-step's sum added to
@@ -85,7 +102,7 @@ __device__ __forceinline__ void product(const float (&a)[NA][4], const float* W,
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     float av[4];
-    mocopci::c_to_a(a[ks], av);
+    c_to_a(a[ks], av);
     using FA = typename std::conditional<EXACT, mocopci::FragA3, mocopci::FragA>::type;
     using FB = typename std::conditional<EXACT, mocopci::FragB3, mocopci::FragB>::type;
     FA fa;

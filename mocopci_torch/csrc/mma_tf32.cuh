@@ -28,6 +28,15 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// The same split by bit masks, without the conversion unit (which converts
+// 16 values a clock on an SM, an eighth of its FMA rate): hi = x with its low
+// 13 bits cleared, lo = the rest likewise, both toward zero, so x - hi - lo is
+// below 2^-20 |x| (2^-22 when split_tf32 rounds to nearest).
+__device__ __forceinline__ void split_tf32_rz(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
@@ -43,24 +52,11 @@ struct FragA {
 #pragma unroll
     for (int i = 0; i < 4; ++i) split_tf32(a[i], hi[i], lo[i]);
   }
+  __device__ __forceinline__ void set_rz(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32_rz(a[i], hi[i], lo[i]);
+  }
 };
-
-// The A fragment of k-step ks of a 16-row activation held as accumulator
-// fragments c[n-tile][4]: column tig (tig + 4) of n-tile ks sits in quad lane
-// tig / 2 (2 + tig / 2), element tig % 2 of its row pair.
-__device__ __forceinline__ void c_to_a(const float (&c)[4], float (&a)[4]) {
-  const int lane = threadIdx.x & 31, tig = lane & 3, quad = lane & ~3;
-  const int s0 = quad | (tig >> 1), s1 = quad | (2 + (tig >> 1));
-  const float e0 = __shfl_sync(0xffffffffu, c[0], s0), o0 = __shfl_sync(0xffffffffu, c[1], s0);
-  const float e2 = __shfl_sync(0xffffffffu, c[2], s0), o2 = __shfl_sync(0xffffffffu, c[3], s0);
-  const float e1 = __shfl_sync(0xffffffffu, c[0], s1), o1 = __shfl_sync(0xffffffffu, c[1], s1);
-  const float e3 = __shfl_sync(0xffffffffu, c[2], s1), o3 = __shfl_sync(0xffffffffu, c[3], s1);
-  const bool odd = tig & 1;
-  a[0] = odd ? o0 : e0;
-  a[1] = odd ? o2 : e2;
-  a[2] = odd ? o1 : e1;
-  a[3] = odd ? o3 : e3;
-}
 
 // A B fragment split into hi and lo parts.
 struct FragB {
@@ -68,6 +64,10 @@ struct FragB {
   __device__ __forceinline__ void set(float b0, float b1) {
     split_tf32(b0, hi[0], lo[0]);
     split_tf32(b1, hi[1], lo[1]);
+  }
+  __device__ __forceinline__ void set_rz(float b0, float b1) {
+    split_tf32_rz(b0, hi[0], lo[0]);
+    split_tf32_rz(b1, hi[1], lo[1]);
   }
 };
 

@@ -142,8 +142,8 @@ __global__ void __launch_bounds__(kThreads) transformer_tail_kernel(
 //     fragment's rows (a query's K rows lie in one warp);
 //   dr1 = dG2 Wg2^T, dgv = dh1 Wg1^T, dr0 = dpos Wd2^T at 3xTF32 (the weights
 //     read transposed), drel = dh0 Wd1^T on FMAs.
-// An accumulator becomes the next product's A fragment by shuffles within
-// its quad (c_to_a).  (The two mask-deciding products at 6xTF32, an exact
+// An accumulator is the next product's A fragment as it stands (each
+// k-step's k index permuted, chain_product).  (The two mask-deciding products at 6xTF32, an exact
 // split, came within 1.5e-6 of float64, but the plain version itself flips
 // masks against float64 on most random draws at the step's shape, so they
 // differed from it by up to 9.3e-3 over max(1, |value|).)  The operands of the weight gradients (r1, dG2, gv, dh1,
@@ -161,7 +161,7 @@ constexpr int kBW = 3 + 2 * kBD;         // row width of the table
 constexpr int kBRows = 128;              // pair rows a tile
 constexpr int kBWarps = 8;
 constexpr int kBThreads = 32 * kBWarps;
-constexpr int kLdW = kBD + 4;            // weight row stride (floats)
+constexpr int kLdW = kBD + 8;            // weight row stride (floats)
 constexpr int kLdT = kBD + 8;            // tile row stride
 constexpr int kMaxQT = 32;               // queries a tile, at most (K = 4)
 // shared memory, in floats
@@ -183,62 +183,74 @@ constexpr int kAccWg1 = kAccBd2 + kBD, kAccBg1 = kAccWg1 + kBD * kBD;
 constexpr int kAccWg2 = kAccBg1 + kBD, kAccBg2 = kAccWg2 + kBD * kBD;
 constexpr int kNAcc = kAccBg2 + kBD;
 
-// acc (16 x 64, fragments) += A (16 x 64, fragments) W at 3xTF32, W
-// [64][kLdW] in shared memory, read transposed (W^T) when T.
+// acc (16 x 64, fragments) += A W at 3xTF32: A (16 x 64) this warp's
+// accumulator fragments, W [64][kLdW] in shared memory, read transposed (W^T)
+// when T.  Each k-step's k index is permuted (the fragment's k = tig and
+// tig + 4 take columns 2 tig and 2 tig + 1 of the step), so an accumulator
+// fragment is the next product's A fragment as it stands, and W^T is read as
+// float2.
 template <bool T>
 __device__ __forceinline__ void chain_product(const float (&a)[8][4], const float* W,
                                               float (&acc)[8][4]) {
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
-    float av[4];
-    mocopci::c_to_a(a[ks], av);
     mocopci::FragA fa;
-    fa.set(av);
+    fa.set_rz({a[ks][0], a[ks][2], a[ks][1], a[ks][3]});
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      const int k = ks * 8 + tig, n = nt * 8 + gid;
-      const int i0 = T ? n * kLdW + k : k * kLdW + n;
-      const int i1 = T ? i0 + 4 : i0 + 4 * kLdW;
+      const int k = ks * 8 + 2 * tig, n = nt * 8 + gid;
       mocopci::FragB fb;
-      fb.set(W[i0], W[i1]);
+      if constexpr (T) {
+        const float2 w = *reinterpret_cast<const float2*>(W + n * kLdW + k);
+        fb.set_rz(w.x, w.y);
+      } else {
+        fb.set_rz(W[k * kLdW + n], W[(k + 1) * kLdW + n]);
+      }
       mocopci::mma_3xtf32(acc[nt], fa, fb);
     }
   }
 }
 
-// out (16 x 64, fragments) = A W + b on FMAs, each sum over k = 0..63 in
-// order and then the bias (as a float32 GEMM and its bias add); A this warp's
-// 16 rows of a [128][kLdT] buffer, W [64][kLdW].
+// out = A W + b on FMAs for this warp's 16 rows, each sum over k = 0..63 in
+// order and then the bias (as a float32 GEMM and its bias add); A rows of a
+// [128][kLdT] buffer, W [64][kLdW].  Lane (rg, cg) = (lane / 8, lane % 8)
+// owns rows rg + 4 i and columns 4 cg + j, 32 + 4 cg + j (out[i][j], out[i][4
+// + j]), so every shared-memory read is a float4 without bank conflicts.
 __device__ __forceinline__ void fma_product(const float* A, const float* W, const float* b,
-                                            float (&out)[8][4]) {
-  const int tig = threadIdx.x & 3;
-  const float* a0 = A + ((threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2)) * kLdT;
-  const float* a1 = a0 + 8 * kLdT;
+                                            float (&out)[4][8]) {
+  const int lane = threadIdx.x & 31, rg = lane >> 3, cg = lane & 7;
+  const float* a = A + ((threadIdx.x >> 5) * 16 + rg) * kLdT;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) out[nt][0] = out[nt][1] = out[nt][2] = out[nt][3] = 0.f;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[i][j] = 0.f;
 #pragma unroll 2
   for (int k = 0; k < kBD; k += 4) {
-    const float4 v0 = *reinterpret_cast<const float4*>(a0 + k);
-    const float4 v1 = *reinterpret_cast<const float4*>(a1 + k);
-    const float x0[4] = {v0.x, v0.y, v0.z, v0.w}, x1[4] = {v1.x, v1.y, v1.z, v1.w};
+    float x[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(a + 4 * i * kLdT + k);
+      x[i][0] = v.x, x[i][1] = v.y, x[i][2] = v.z, x[i][3] = v.w;
+    }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const float* wr = W + (k + u) * kLdW + 2 * tig;
+      const float* wr = W + (k + u) * kLdW + 4 * cg;
+      const float4 w0 = *reinterpret_cast<const float4*>(wr);
+      const float4 w1 = *reinterpret_cast<const float4*>(wr + 32);
+      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float2 w = *reinterpret_cast<const float2*>(wr + nt * 8);
-        out[nt][0] = fmaf(x0[u], w.x, out[nt][0]);
-        out[nt][1] = fmaf(x0[u], w.y, out[nt][1]);
-        out[nt][2] = fmaf(x1[u], w.x, out[nt][2]);
-        out[nt][3] = fmaf(x1[u], w.y, out[nt][3]);
-      }
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) out[i][j] = fmaf(x[i][u], w[j], out[i][j]);
     }
   }
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int j = 0; j < 8; ++j) {
+    const float bj = b[(j >> 2) * 32 + 4 * cg + (j & 3)];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) out[nt][i] += b[nt * 8 + 2 * tig + (i & 1)];
+    for (int i = 0; i < 4; ++i) out[i][j] += bj;
+  }
 }
 
 // acc (this warp's 16 x 32 slice, rows m0.., columns n0..) += X^T Y over the
@@ -253,12 +265,12 @@ __device__ __forceinline__ void tile_xty(const float* X, const float* Y, int m0,
   for (int ks = 0; ks < kBRows / 8; ++ks) {
     const float* a = X + (ks * 8 + tig) * kLdT + m0 + gid;
     mocopci::FragA fa;
-    fa.set({a[0], a[8], a[4 * kLdT], a[4 * kLdT + 8]});
+    fa.set_rz({a[0], a[8], a[4 * kLdT], a[4 * kLdT + 8]});
     const float* b = Y + (ks * 8 + tig) * kLdT + n0 + gid;
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       mocopci::FragB fb;
-      fb.set(b[nt * 8], b[4 * kLdT + nt * 8]);
+      fb.set_rz(b[nt * 8], b[4 * kLdT + nt * 8]);
       mocopci::mma_3xtf32(t[nt], fa, fb);
     }
   }
@@ -477,31 +489,50 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
       }
     store_rows(P2, x);                               // r0
     __syncwarp();
-    fma_product(P2, Wd2s, bias + kBD, y);            // pos
-    // gv = (q - k) + pos into P0, w = v + pos into P3
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = h ? R1 : R0, c = nt * 8 + 2 * tig;
-        const float2 kk = *reinterpret_cast<const float2*>(P0 + r * kLdT + c);
-        const float2 vv = *reinterpret_cast<const float2*>(P1 + r * kLdT + c);
-        const float2 qq = *reinterpret_cast<const float2*>(Qs + (h ? qb : qa) * kLdT + c);
-        const float p0 = y[nt][2 * h], p1 = y[nt][2 * h + 1];
-        *reinterpret_cast<float2*>(P0 + r * kLdT + c) =
-            make_float2((qq.x - kk.x) + p0, (qq.y - kk.y) + p1);
-        *reinterpret_cast<float2*>(P3 + r * kLdT + c) = make_float2(vv.x + p0, vv.y + p1);
-      }
-    __syncwarp();
-    fma_product(P0, Wg1s, bias + 2 * kBD, y);        // h1
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    {
+      // pos, then gv = (q - k) + pos into P0 and w = v + pos into P3; then
+      // r1 = relu(h1) into P1, each lane at its positions of fma_product
+      const int rg = lane >> 3, cg = lane & 7;
+      float o[4][8];
+      fma_product(P2, Wd2s, bias + kBD, o);          // pos
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        mask1 |= static_cast<uint32_t>(y[nt][i] > 0.f) << (4 * nt + i);
-        y[nt][i] = fmaxf(y[nt][i], 0.f);
+        const int r = warp * 16 + rg + 4 * i;
+        const float* qr = Qs + (r / K) * kLdT;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 32 * h + 4 * cg;
+          const float4 kk = *reinterpret_cast<const float4*>(P0 + r * kLdT + c);
+          const float4 vv = *reinterpret_cast<const float4*>(P1 + r * kLdT + c);
+          const float4 qq = *reinterpret_cast<const float4*>(qr + c);
+          const float* p = o[i] + 4 * h;
+          *reinterpret_cast<float4*>(P0 + r * kLdT + c) =
+              make_float4((qq.x - kk.x) + p[0], (qq.y - kk.y) + p[1], (qq.z - kk.z) + p[2],
+                          (qq.w - kk.w) + p[3]);
+          *reinterpret_cast<float4*>(P3 + r * kLdT + c) =
+              make_float4(vv.x + p[0], vv.y + p[1], vv.z + p[2], vv.w + p[3]);
+        }
       }
-    store_rows(P1, y);                               // r1
+      __syncwarp();
+      fma_product(P0, Wg1s, bias + 2 * kBD, o);      // h1
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = warp * 16 + rg + 4 * i;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* p = o[i] + 4 * h;
+          *reinterpret_cast<float4*>(P1 + r * kLdT + 32 * h + 4 * cg) =
+              make_float4(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f), fmaxf(p[2], 0.f),
+                          fmaxf(p[3], 0.f));
+        }
+      }
+    }
+    __syncwarp();
+    load_rows(P1, y);                                // r1, as fragments
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mask1 |= static_cast<uint32_t>(y[nt][i] > 0.f) << (4 * nt + i);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
