@@ -1310,6 +1310,20 @@ def run_train(kernels, cfg, dev):
                       "loss": [a["loss"] for a in auxes], **busy}
 
 
+def call_bound(kind, B, N, M, C, k=0, wide=False) -> float:
+    """bound_ms of one call of the step, counted as the kernel rows count it:
+    the train attention forward ("fwd", 4 C + 3 flops a pair) and backward
+    ("bwd", 10 C + 6 at f32; 10 C at 3xTF32 on the wide route), (B, N, M, C) =
+    (G, N, M, D); ``knn_approx`` ("knn", 2 C + 2 a pair, k indices written)."""
+    if kind == "fwd":
+        return bound((2 * B * N * C + 2 * B * M * C + B * N) * F32, B * N * M * (4.0 * C + 3))[0]
+    if kind == "bwd":
+        nbytes = (4 * B * N * C + 4 * B * M * C + B * N) * F32
+        return (bound(nbytes, B * N * M * 10.0 * C, PEAK_3XTF32_FLOPS) if wide
+                else bound(nbytes, B * N * M * (10.0 * C + 6)))[0]
+    return bound((B * N * C + B * M * C) * F32 + B * N * k * I32, B * N * M * (2.0 * C + 2))[0]
+
+
 def profile_attention_calls(step):
     """One profiled train step (``profile``), with each train attention
     backward logged: (G, N, M, D, rate), its route and the device ms of its
@@ -1317,7 +1331,9 @@ def profile_attention_calls(step):
     order; then each forward, (G, N, M, D, rate), its route and the device ms
     of its kernel; then each ``knn_approx`` launch, (B, N, M, C), k and its
     metric; each of these by CUDA events around the launch and, where the
-    profiler traced every one of their kernels, by the profiler."""
+    profiler traced every one of their kernels, by the profiler.  Beside
+    each call its bound (``call_bound``), and for each kernel the time lost
+    over the step: the sum of device ms minus bound over its calls."""
     from torch.autograd import DeviceType
 
     attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
@@ -1346,16 +1362,18 @@ def profile_attention_calls(step):
 
     def per_call(prof):
         spans = spans_of(prof, "attention_train_bwd")
-        total = 0.0
+        total = lost = 0.0
         for shape in calls:
             ms = sum(end - start for start, end in spans[:3]) / 1e3
             spans = spans[3:]
-            total += ms
+            wide = shape[3] > attention_train.MAX_BWD_D
+            b_ms = call_bound("bwd", *shape[:4], wide=wide)
+            total, lost = total + ms, lost + ms - b_ms
             log(f"train attention bwd (G, N, M, D, rate) {shape}: "
-                f"{'one-pass' if shape[3] <= attention_train.MAX_BWD_D else 'wide'} route, "
-                f"device ms {ms:.4f}")
-        log(f"train attention bwd: {len(calls)} calls, device ms {total:.4f}; kernels not "
-            f"matched to a call {len(spans)}")
+                f"{'wide' if wide else 'one-pass'} route, device ms {ms:.4f}, bound_ms "
+                f"{b_ms:.5f}")
+        log(f"train attention bwd: {len(calls)} calls, device ms {total:.4f}, lost {lost:.4f}; "
+            f"kernels not matched to a call {len(spans)}")
         if not calls:
             raise SystemExit("profile: the train step called no attention backward")
         for prefix, what in (("attention_train_fwd", "train attention fwd"),
@@ -1363,20 +1381,22 @@ def profile_attention_calls(step):
             mine = [c for c in launched if c[0].startswith(prefix)]
             spans = spans_of(prof, prefix)
             traced = len(spans) == len(mine)
-            total = 0.0
+            total = lost = 0.0
             for i, (name, args, start, end) in enumerate(mine):
                 ms = start.elapsed_time(end)
-                total += ms
                 if prefix == "knn_approx":
                     shape = f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}"
+                    b_ms = call_bound("knn", *args[3:7], k=args[7])
                 else:
                     rate = 0.0 if args[11] == 0 and args[12] == 1.0 else 1.0 - 1.0 / args[12]
                     shape = f"(G, N, M, D, rate) {(*args[5:9], round(rate, 6))}, route {name}"
+                    b_ms = call_bound("fwd", *args[5:9])
+                total, lost = total + ms, lost + ms - b_ms
                 log(f"{what} {shape}: device ms {ms:.4f} by CUDA events, "
                     + (f"{(spans[i][1] - spans[i][0]) / 1e3:.4f} by the profiler" if traced
-                       else "not matched in the profile"))
-            log(f"{what}: {len(mine)} launches, device ms {total:.4f} by CUDA events; the "
-                f"profiler traced {len(spans)} of their kernels, device ms "
+                       else "not matched in the profile") + f", bound_ms {b_ms:.5f}")
+            log(f"{what}: {len(mine)} launches, device ms {total:.4f} by CUDA events, lost "
+                f"{lost:.4f}; the profiler traced {len(spans)} of their kernels, device ms "
                 f"{sum(b - a for a, b in spans) / 1e3:.4f}")
 
     attention_train.attention_train_bwd, _lib.launch = recorded, spied

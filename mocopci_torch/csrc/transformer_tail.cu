@@ -125,37 +125,42 @@ __global__ void __launch_bounds__(kThreads) transformer_tail_kernel(
 // gv Wg1, r1 Wg2; the VJP dG2 Wg2^T, dh1 Wg1^T, dpos Wd2^T; the weight
 // gradients r1^T dG2, gv^T dh1, r0^T dpos), 6 (3 D^2 + 3 D) flops a pair.
 // Design: a fixed grid of blocks, each walking over tiles of 128 pair rows
-// (8 queries at K = 16, 32 at K = 4), 8 warps a block, D = 64.  The tile's
-// rows [xyz | k | v] are gathered into shared memory by cp.async (each warp
-// its own 16 rows, a row's 131 floats by consecutive lanes), the queries' q,
-// dout and xyz beside them.  Warp w owns rows [16 w, 16 w + 16) and runs the
-// chain on them as mma.sync m16n8k8 accumulator fragments (16 x 64 in 32
-// registers a thread), the weights as B fragments from shared memory:
+// (8 queries at K = 16, 32 at K = 4), 8 warps a block, D = 64.  Warp w owns
+// rows [16 w, 16 w + 16) and their queries: it gathers their [xyz | k | v]
+// rows (a row's 131 floats by consecutive lanes) and the queries' q, dout
+// and xyz into shared memory by cp.async, the next tile's as soon as it has
+// written this tile's d_rows, so the copies overlap the tile's last block
+// barrier and column sums.  It runs the chain on its rows as mma.sync m16n8k8
+// accumulator fragments (16 x 64 in 32 registers a thread), the weights as B
+// fragments from shared memory:
 //   rel = xq - xyz, h0 = rel Wd1 + bd1 and r0 = relu(h0) on FMAs;
 //   pos = r0 Wd2 + bd2 and h1 = (q - k + pos) Wg1 + bg1 on FMAs too, each sum
 //     over k in order and then the bias, as a float32 GEMM sums, so that the
 //     ReLU masks of h0 and h1 take the plain version's side of a near-zero
 //     pre-activation (fma_product);
 //   logit = r1 Wg2 + bg2 at 3xTF32;
-//   the per-channel softmax over each query's K rows, out and the softmax
-//     VJP dlogit = a (dout w - dout out) / sqrt(D), by shuffles over the
-//     fragment's rows (a query's K rows lie in one warp);
+//   the per-channel softmax over each query's K rows (__expf, __fdividef),
+//     out and the softmax VJP dlogit = a (dout w - dout out) / sqrt(D), by
+//     shuffles over the fragment's rows (a query's K rows lie in one warp);
 //   dr1 = dG2 Wg2^T, dgv = dh1 Wg1^T, dr0 = dpos Wd2^T at 3xTF32 (the weights
 //     read transposed), drel = dh0 Wd1^T on FMAs.
 // An accumulator is the next product's A fragment as it stands (each
-// k-step's k index permuted, chain_product).  (The two mask-deciding products at 6xTF32, an exact
+// k-step's k index permuted, chain_product), and every tensor-core operand
+// is split into its TF32 hi and lo parts by bit masks (split_tf32_rz), not by
+// the conversion unit.  (The two mask-deciding products at 6xTF32, an exact
 // split, came within 1.5e-6 of float64, but the plain version itself flips
 // masks against float64 on most random draws at the step's shape, so they
-// differed from it by up to 9.3e-3 over max(1, |value|).)  The operands of the weight gradients (r1, dG2, gv, dh1,
-// r0 recomputed, dpos) are staged in four [128][72] tile buffers, each a
-// warp's rows written by that warp, and after a block barrier every warp
-// computes a 16 x 32 slice of X^T dY over the 128 rows at 3xTF32, kept in
-// registers across the block's tiles; the bias gradients and dWd1 = rel^T dh0
-// are column sums over the staged rows (4 threads a column, in a fixed
-// order).  d_rows = [-drel | -dgv | d(v + pos)] goes out from the staged tile
-// in coalesced rows of 3 + 2D floats; dxq and dq are summed per query over
-// its rows in j order.  The block partials are summed in block order
-// (reduce_partials), so the result repeats bit for bit.
+// differed from it by up to 9.3e-3 over max(1, |value|).)  The operands of
+// the weight gradients (r1, dG2, gv, dh1, r0 recomputed, dpos) are staged in
+// four [128][72] tile buffers, each a warp's rows written by that warp, and
+// after a block barrier every warp computes a 16 x 32 slice of X^T dY over
+// the 128 rows at 3xTF32, kept in registers across the block's tiles; the
+// bias gradients and dWd1 = rel^T dh0 are column sums over the staged rows (4
+// threads a column, in a fixed order).  Each warp writes its rows of d_rows =
+// [-drel | -dgv | d(v + pos)] from the staged tile in coalesced rows of 3 +
+// 2D floats; dxq and dq are summed per query over its rows in j order.  The
+// block partials are summed in block order (reduce_partials), so the result
+// repeats bit for bit.
 constexpr int kBD = 64;                  // head dim of the backward
 constexpr int kBW = 3 + 2 * kBD;         // row width of the table
 constexpr int kBRows = 128;              // pair rows a tile
@@ -174,8 +179,9 @@ constexpr int kOffP = kOffBias + 4 * kBD;           // 4 x [128][kLdT]
 constexpr int kOffQ = kOffP + 4 * kBRows * kLdT;    // [32][kLdT] q
 constexpr int kOffDO = kOffQ + kMaxQT * kLdT;       // [32][kLdT] dout
 constexpr int kOffXQ = kOffDO + kMaxQT * kLdT;      // [32][4] query xyz
-constexpr int kOffXYZ = kOffXQ + kMaxQT * 4;        // [128][4] gathered xyz, then rel
-constexpr int kOffDrel = kOffXYZ + kBRows * 4;      // [128][4] drel
+constexpr int kOffXYZ = kOffXQ + kMaxQT * 4;        // [128][4] gathered xyz
+constexpr int kOffRel = kOffXYZ + kBRows * 4;       // [128][4] rel
+constexpr int kOffDrel = kOffRel + kBRows * 4;      // [128][4] drel
 constexpr int kBwdSmem = (kOffDrel + kBRows * 4) * static_cast<int>(sizeof(float));
 // the partials' layout: dwd1 [3][D] | dbd1 | dwd2 [D][D] | dbd2 | dwg1 | dbg1 | dwg2 | dbg2
 constexpr int kAccWd2 = 4 * kBD, kAccBd2 = kAccWd2 + kBD * kBD;
@@ -391,6 +397,7 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
   float* DOs = sm + kOffDO;
   float* XQs = sm + kOffXQ;
   float* XYZ = sm + kOffXYZ;
+  float* REL = sm + kOffRel;
   float* DREL = sm + kOffDrel;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -423,11 +430,10 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
 
   const int BN = B * N;
   const int ntiles = (BN + QT - 1) / QT;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int qf0 = tile * QT;
-    const int nq = min(QT, BN - qf0);
-    __syncthreads();        // the previous tile's buffers are free
-    // gather: this warp's 16 rows [xyz | k | v]; rows of absent queries zero
+  // Queues the copies of tile t's rows [xyz | k | v] of this warp's 16 rows
+  // and the q, dout and xyz of its queries; rows of absent queries are zero.
+  auto gather = [&](int t) {
+    const int qf0 = t * QT, nq = min(QT, BN - qf0);
     for (int rr = 0; rr < 16; ++rr) {
       const int r = warp * 16 + rr, qi = r / K;
       float* dk = P0 + r * kLdT - 3;
@@ -443,8 +449,8 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
           *(c < 3 ? XYZ + r * 4 + c : c < 3 + kBD ? dk + c : dv + c) = 0.f;
       }
     }
-    for (int e = tid; e < QT * (kBD / 4); e += kBThreads) {
-      const int qi = e / (kBD / 4), c = (e - qi * (kBD / 4)) * 4;
+    for (int e = lane; e < QW * (kBD / 4); e += 32) {
+      const int qi = warp * QW + e / (kBD / 4), c = (e % (kBD / 4)) * 4;
       if (qi < nq) {
         const size_t src = static_cast<size_t>(qf0 + qi) * kBD + c;
         mocopci::cp_async16(Qs + qi * kLdT + c, q + src);
@@ -454,16 +460,22 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
         *reinterpret_cast<float4*>(DOs + qi * kLdT + c) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    for (int e = tid; e < QT * 3; e += kBThreads) {
-      const int qi = e / 3, c = e - qi * 3;
+    for (int e = lane; e < QW * 3; e += 32) {
+      const int qi = warp * QW + e / 3, c = e % 3;
       if (qi < nq)
-        mocopci::cp_async4(XQs + qi * 4 + c, xyzq + static_cast<size_t>(qf0) * 3 + e);
+        mocopci::cp_async4(XQs + qi * 4 + c, xyzq + static_cast<size_t>(qf0 + qi) * 3 + c);
       else
         XQs[qi * 4 + c] = 0.f;
     }
     mocopci::cp_async_commit();
+  };
+  if (static_cast<int>(blockIdx.x) < ntiles) gather(blockIdx.x);
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int qf0 = tile * QT;
+    const int nq = min(QT, BN - qf0);
     mocopci::cp_async_wait0();
-    __syncthreads();        // the tile has landed
+    __syncthreads();        // the tile has landed; the weights and the last tile are done
 
     // ---- the recompute, on this warp's rows ----
     float rel[2][3];
@@ -472,10 +484,9 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
       rel[0][c] = XQs[qa * 4 + c] - XYZ[R0 * 4 + c];
       rel[1][c] = XQs[qb * 4 + c] - XYZ[R1 * 4 + c];
     }
-    __syncwarp();
     if (tig == 0) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) XYZ[R0 * 4 + c] = rel[0][c], XYZ[R1 * 4 + c] = rel[1][c];
+      for (int c = 0; c < 3; ++c) REL[R0 * 4 + c] = rel[0][c], REL[R1 * 4 + c] = rel[1][c];
     }
     float x[8][4], y[8][4];
     pos_hidden<false>(rel, wd1s, bias, x);
@@ -548,11 +559,11 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
         const float l0 = x[nt][e] * inv, l1 = x[nt][2 + e] * inv;
         float m0v = l0, m1v = l1;
         query_max<K>(m0v, m1v);
-        float a0 = expf(l0 - m0v), a1 = expf(l1 - m1v);
+        float a0 = __expf(l0 - m0v), a1 = __expf(l1 - m1v);
         float s0 = a0, s1 = a1;
         query_sum<K>(s0, s1);
-        a0 /= s0;
-        a1 /= s1;
+        a0 = __fdividef(a0, s0);
+        a1 = __fdividef(a1, s1);
         const float w0 = P3[R0 * kLdT + c], w1 = P3[R1 * kLdT + c];
         float o0 = a0 * w0, o1 = a1 * w1;
         query_sum<K>(o0, o1);
@@ -643,16 +654,27 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
         dxq[static_cast<size_t>(qf0 + qi) * 3 + f] = s;
       }
     }
-    __syncthreads();        // dh0 and drel of every row are staged
+    // d_rows = [-drel | -dgv | d(v + pos)] of this warp's rows, contiguous
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = warp * 16 + rr;
+      if (r >= nq * K) break;
+      float* out = d_rows + (static_cast<size_t>(qf0) * K + r) * kBW;
+      for (int c = lane; c < kBW; c += 32)
+        out[c] = c < 3 ? -DREL[r * 4 + c]
+                       : c < 3 + kBD ? -P0[r * kLdT + c - 3] : P3[r * kLdT + c - 3 - kBD];
+    }
+    __syncwarp();
+    if (tile + static_cast<int>(gridDim.x) < ntiles) gather(tile + gridDim.x);
+    __syncthreads();        // dh0 of every row is staged
     {                       // dWd1 = rel^T dh0 and dbd1, column tid / 4
       const int c = tid >> 2, part = tid & 3;
       float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
       for (int r = part; r < kBRows; r += 4) {
         const float d = P2[r * kLdT + c];
-        s[0] = fmaf(XYZ[r * 4], d, s[0]);
-        s[1] = fmaf(XYZ[r * 4 + 1], d, s[1]);
-        s[2] = fmaf(XYZ[r * 4 + 2], d, s[2]);
+        s[0] = fmaf(REL[r * 4], d, s[0]);
+        s[1] = fmaf(REL[r * 4 + 1], d, s[1]);
+        s[2] = fmaf(REL[r * 4 + 2], d, s[2]);
         s[3] += d;
       }
 #pragma unroll
@@ -661,13 +683,6 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
         s[f] += __shfl_xor_sync(0xffffffffu, s[f], 2);
       }
       aWd1[0] += s[0], aWd1[1] += s[1], aWd1[2] += s[2], aBd1 += s[3];
-    }
-    // d_rows = [-drel | -dgv | d(v + pos)], the tile's rows contiguous
-    float* dr_out = d_rows + static_cast<size_t>(qf0) * K * kBW;
-    for (int e = tid; e < nq * K * kBW; e += kBThreads) {
-      const int r = e / kBW, c = e - r * kBW;
-      dr_out[e] = c < 3 ? -DREL[r * 4 + c]
-                        : c < 3 + kBD ? -P0[r * kLdT + c - 3] : P3[r * kLdT + c - 3 - kBD];
     }
   }
 

@@ -1,6 +1,6 @@
 """The CUDA-side wrappers of the train attention, the train fusion head, the
-cost-volume tail, the transformer tail's backward and FPS, driven with CPU tensors: the
-launch is replaced by a check of its arguments against the C signature
+cost-volume tail, the transformer tail's backward and FPS, driven with CPU
+tensors: the launch is replaced by a check of its arguments against the C signature
 (``_lib.SIGNATURES``), so the route each shape takes, the shapes and
 constants handed to the kernel and the refusals before any launch are held
 here; the kernels themselves are held against their plain versions on the
