@@ -79,20 +79,25 @@ __device__ __forceinline__ float keep_factor(uint32_t gseed, int row, int col, i
 // ---- forward for head dims D <= 64: one pass over the keys ----
 //
 // One block per (group, tile of QT queries): QT = 128, or 64 or 32 where the
-// grid would not give every SM a block.  LPK lanes a query, as the backward
-// splits a key (1 up to DP = 16, 2 at 32, 4 at 64; D padded with zeros to DP
-// = 8, 16, 32 or 64): lane l holds head dims [l*DT, (l+1)*DT) of its query's
-// q (times scale * log2(e)) and of its running numerator acc, and the row's
-// running max m (in log2 units) and denominator in registers.  The keys and
-// values stream through shared memory in tiles of 64, double-buffered by
-// cp.async (rows past M zero-filled).  Per chunk of 16 keys: the 16 logits
-// (the LPK lanes add their partial dots by shuffles, reading k as float4
-// broadcasts), one max and one rescale of acc and the denominator, then per
-// key p = 2^(s - m) into the denominator and, where the keep factor keeps
-// the pair, p v into acc (no hash at rate 0).  The denominator sums every
-// exp, kept or dropped, so dropout acts after the softmax.  At the end out =
-// acc * kscale / denominator and lse = m ln 2 + ln(denominator).  Every
-// output element has one owner adding its keys in ascending order.
+// grid would not give every SM a block.  LPK lanes a query's head dims, as
+// the backward splits a key (1 up to DP = 16, 2 at 32, 4 at 64; D padded
+// with zeros to DP = 8, 16, 32 or 64), and KS groups of them its keys: 2
+// where even 32-query tiles leave fewer than 128 query lanes an SM, else 1.
+// Lane (s, l) holds head dims [l*DT, (l+1)*DT) of its query's q (times scale
+// * log2(e)) and of its running numerator acc, and the running max m (in log2
+// units) and denominator of key split s, in registers.  The keys and values
+// stream through shared memory in tiles of 64, double-buffered by cp.async
+// (rows past M zero-filled); split s takes chunks s, s + KS, ... of 16 keys
+// of each tile.  Per chunk: the 16 logits (the LPK lanes add their partial
+// dots by shuffles, reading k as float4 broadcasts), one max and one rescale
+// of acc and the denominator, then per key p = 2^(s - m) into the
+// denominator and, where the keep factor keeps the pair, p v into acc (no
+// hash at rate 0).  The denominator sums every exp, kept or dropped, so
+// dropout acts after the softmax.  At the end the splits merge by a shuffle,
+// and out = acc * kscale / denominator and lse = m ln 2 + ln(denominator).
+// Every output element is summed in one fixed order.  (4 splits, or 2 on
+// larger grids, ran up to 5x slower at the step's shapes: each split's share
+// of a tile no longer hides the tile's copy.)
 constexpr int kFwdKeys = 64;        // keys per tile
 constexpr int kFwdChunk = 16;       // keys per online-softmax step
 constexpr int kMaxFwdD = 64;
@@ -136,15 +141,15 @@ template <int DP, bool DROP>
 __global__ void __launch_bounds__(kFwdMaxThreads) attention_train_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, float* __restrict__ lse, int N, int M, int D, float scale,
-    const int* __restrict__ seed, int thr, float kscale) {
+    const int* __restrict__ seed, int thr, float kscale, int KS) {
   constexpr int LPK = FwdTile<DP>::LPK, DT = FwdTile<DP>::DT;
   constexpr int TK = kFwdKeys, CH = kFwdChunk;
   extern __shared__ __align__(16) float sm[];
   float* kts = sm;                    // [2][TK][DP]
   float* vts = kts + 2 * TK * DP;     // [2][TK][DP]
-  const int tid = threadIdx.x, l = tid % LPK;
+  const int tid = threadIdx.x, l = tid % LPK, split = (tid / LPK) % KS;
   const int g = blockIdx.y;
-  const int i = blockIdx.x * (blockDim.x / LPK) + tid / LPK;
+  const int i = blockIdx.x * (blockDim.x / (LPK * KS)) + tid / (LPK * KS);
   const bool row_ok = i < N;
   // the hash of pair (i, j) is fmix32(rg ^ j), rg = (i << 12) ^ fmix32(g ^ seed)
   uint32_t rg = 0u;
@@ -174,7 +179,8 @@ __global__ void __launch_bounds__(kFwdMaxThreads) attention_train_fwd_kernel(
     }
   }
 
-  float m = -__int_as_float(0x7f800000), den = 0.f;
+  // m starts finite: a split that has met no key yet rescales by 2^0 = 1
+  float m = -FLT_MAX, den = 0.f;
   for (int t = 0; t < ntiles; ++t) {
     const int b = t & 1, j0 = t * TK;
     if (t + 1 < ntiles)
@@ -185,7 +191,8 @@ __global__ void __launch_bounds__(kFwdMaxThreads) attention_train_fwd_kernel(
     const float* kb = kts + b * TK * DP + l * DT;
     const float* vb = vts + b * TK * DP + l * DT;
     const int nk = min(TK, M - j0);
-    for (int jj = 0; jj < nk; jj += CH) {
+    for (int jc = 0; jc < nk; jc += KS * CH) {     // the same trips in every lane
+      const int jj = jc + split * CH;
       float s[CH];
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
@@ -236,7 +243,17 @@ __global__ void __launch_bounds__(kFwdMaxThreads) attention_train_fwd_kernel(
     __syncthreads();        // every thread is done with buffer b before tile t + 2 lands in it
   }
 
-  if (row_ok) {
+  if (KS > 1) {       // split 1's sums into split 0's (the lane LPK up)
+    const float mo = __shfl_down_sync(0xffffffffu, m, LPK);
+    const float dno = __shfl_down_sync(0xffffffffu, den, LPK);
+    const float mn = fmaxf(m, mo), fa = exp2f(m - mn), fb = exp2f(mo - mn);
+    den = den * fa + dno * fb;
+#pragma unroll
+    for (int e = 0; e < DT; ++e)
+      acc[e] = acc[e] * fa + __shfl_down_sync(0xffffffffu, acc[e], LPK) * fb;
+    m = mn;
+  }
+  if (row_ok && split == 0) {
     const size_t row = static_cast<size_t>(g) * N + i;
     const float f = kscale / den;
 #pragma unroll
@@ -255,11 +272,13 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* ou
   cudaError_t err = mocopci::allow_smem(attention_train_fwd_kernel<DP, DROP>,
                                         FwdTile<DP>::smem_bytes);
   if (err != cudaSuccess) return err;
+  constexpr int LPK = FwdTile<DP>::LPK;
   int qt = 128;
   while (qt > 32 && static_cast<long long>(G) * mocopci::ceil_div(N, qt) < kSMs) qt >>= 1;
+  const int ks = static_cast<long long>(G) * N * LPK < 128LL * kSMs ? 2 : 1;
   attention_train_fwd_kernel<DP, DROP>
-      <<<dim3(mocopci::ceil_div(N, qt), G), qt * FwdTile<DP>::LPK, FwdTile<DP>::smem_bytes,
-         st>>>(q, k, v, out, lse, N, M, D, scale, seed, thr, kscale);
+      <<<dim3(mocopci::ceil_div(N, qt), G), qt * LPK * ks, FwdTile<DP>::smem_bytes, st>>>(
+          q, k, v, out, lse, N, M, D, scale, seed, thr, kscale, ks);
   return cudaGetLastError();
 }
 
