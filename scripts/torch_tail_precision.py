@@ -5,10 +5,11 @@ against float64, on several random draws at the train step's shape.
     python3 scripts/torch_tail_precision.py [--parent TREE] [--seeds 4]
 
 At (B, N, K, D) = (6, 2048, 16, 64), inputs drawn as ``chip_smoke.py`` draws
-them (seed s), each of the backward's 11 outputs over max(1, |value|): the
-plain float32 version against the same computation in float64 (the ReLU
-masks of h0 and h1 flip where a pre-activation lies within float32 rounding
-of 0, and then a row's gradient moves), and the kernel against both; with
+them (seed s), the backward's outputs (d_rows, dxq, dq and the weight and
+bias gradients as one) each over max(1, |value|): the plain float32 version
+against the same computation in float64 (the ReLU masks of h0 and h1 flip
+where a pre-activation lies within float32 rounding of 0, and then a row's
+gradient moves), and the kernel against both; with
 ``--parent``, another checkout's kernel (built as ``chip_smoke.py --parent``
 builds it) beside, and both timed in turns by CUDA events.  Also the count
 of pre-activations within 1e-6 of 0 in float64.  Prints the card's name and
@@ -24,11 +25,11 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("d_rows", "dxq", "dq", "dwd1", "dbd1", "dwd2", "dbd2", "dwg1", "dbg1", "dwg2", "dbg2")
+NAMES = ("d_rows", "dxq", "dq", "dw")     # dw: the 8 weight and bias gradients together
 
 
 def flat(outputs):
-    """The 11 outputs, the 8 weight and bias gradients as one flat tensor."""
+    """d_rows, dxq, dq, and the 8 weight and bias gradients as one flat tensor."""
     return [*outputs[:3], torch.cat([t.reshape(-1) for t in outputs[3:]])]
 
 
