@@ -30,6 +30,7 @@ Phases, each fatal on failure:
      step at ``tiny_model_config(4096)`` on the card against the CPU (loss
      components within rel 1e-4, the whole gradient within rel L2 1e-3, each
      leaf within 5e-2: see ``run_train_parity``);
+     one train step at ``refine_k = 8`` (the tail backward's general route);
      the train CLI for one epoch, then ``--resume`` to a second;
   7. the op paths that reach the last four kernels (path "ops"): approx
      selection (``_topk_min_indices``) on the fusion query's distances at B=2,
@@ -47,12 +48,16 @@ each with and without dropout, beside SDPA's float32 backward without
 dropout); the cost-volume tail's forward with its argmax against the twin's
 first argmax, and its backward from that argmax.  FPS at the train step's
 (6, 8192) -> 2048 and the encoder's pyramid (2, 8192) -> 2048/512/256/64 in
-one launch, each bit-equal to its plain version.  With ``--parent TREE``
+one launch, each bit-equal to its plain version.  ``knn_approx`` also at the
+train step's largest call, (12, 8192, 8192, 3) k=32, and its cosine calls,
+(2, 2048, 2048, 64) k=16; the wide attention forward at rate 0.05 and 0, its
+bits repeated; the transformer tail's backward on both routes (the tensor
+cores at refine_k 16, the general route at 8).  With ``--parent TREE``
 (another checkout, for example the parent commit unpacked with ``git
-archive``) that tree's ``cross_tail.cu``, ``fps.cu`` and ``common.cu`` are
-built alone and timed beside this tree's at the same shapes, in turns (its
-pyramid as that tree samples it: a launch a level and the gathers between,
-where it has no pyramid entry).  The op kernels (select_min_k, the one-hot scatter,
+archive``) that tree's ``PARENT_SOURCES`` are built alone and timed beside
+this tree's at the same shapes, in turns (its pyramid as that tree samples
+it: a launch a level and the gathers between, where it has no pyramid
+entry; the wide attention forward beside SDPA too).  The op kernels (select_min_k, the one-hot scatter,
 the pair planes' rows forward and backward) at the shapes of phase 7; the
 one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
 by CUDA events and by device time under torch.profiler.
@@ -277,6 +282,7 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
         lambda: torch.topk(torch.cdist(p1, p2), k, dim=-1, largest=False),
         2 * p1.numel() * F32 + p1.shape[0] * n0 * k * I32,
         8.0 * p1.shape[0] * n0 * n0, gap, qtol)
+    check_knn_approx_step(kernels, cfg, p1, p2, rnd, parent)
 
     # attention: Multi_Frame_Att at L1, (B*F*H, N, hd) = (5*8, n1, c1/8); then
     # EI at L2 / L3 and Cross_Frame_Att (head width c3) for the other widths
@@ -378,6 +384,49 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
     return rows
 
 
+def check_knn_approx_step(kernels, cfg, p1, p2, rnd, parent=None):
+    """knn_approx at the train step's largest call, the B=2 fusion query over
+    12 clouds of 8192 points, k = fusion_k, and at the kernel row's 6 clouds
+    (bit-equal to its plain version), and at the step's cosine calls, up_1's
+    cost volume at B=2, (2, 2048, 2048, 64)
+    k = flow_nei / 2 (within the key quantisation, >= 99% equal); each timed
+    beside its bound and, with a parent, beside that tree's kernel in turns."""
+    from mocopci_torch.kernels.knn_approx import tiling
+    from mocopci_torch.ops.distance import _normalise
+
+    k, kc, n1, c1 = cfg.fusion_k, cfg.flow_nei // 2, cfg.pyramid[0], cfg.enc_channels[1]
+    big_q, big_r = torch.cat([p1, p2]).contiguous(), torch.cat([p2, p1]).contiguous()
+    fq, fr = (_normalise(rnd(2, n1, c1)).contiguous() for _ in range(2))
+    for what, q, r, kk, metric in (("euclidean", big_q, big_r, k, "euclidean"),
+                                   ("euclidean", p1, p2, k, "euclidean"),
+                                   ("cosine", fq, fr, kc, "cosine")):
+        B, N, C = q.shape
+        M = r.shape[1]
+        got = kernels.knn_approx(q, r, kk, metric)
+        want = kernels.knn_approx_plain(q, r, kk, metric)
+        same = torch.equal(got, kernels.knn_approx(q, r, kk, metric))
+        mism = int((got != want).sum())
+        gap = 0.0
+        if metric == "cosine":      # the Euclidean indices must be equal
+            d = kernels.knn.distances(q.double(), r.double(), metric)
+            gap = float((d.gather(2, got.long()) - d.gather(2, want.long())).abs().max())
+            del d
+        ms = median_ms(lambda: kernels.knn_approx(q, r, kk, metric))
+        b_ms = call_bound("knn", B, N, M, C, k=kk)
+        msg = (f"knn_approx {what} (B, N, M, C) {(B, N, M, C)} k={kk}: index mismatches {mism} "
+               f"({1 - mism / got.numel():.5f} equal), max distance gap {gap:.3e}, repeat "
+               f"equal {same}; ms {ms:.4f}, bound_ms {b_ms:.5f}")
+        if parent is not None:
+            msg += (f"; the parent's indices differ in {int((parent.knn_approx(q, r, kk, metric) != got).sum())}: "
+                    + beside(lambda: parent.knn_approx(q, r, kk, metric),
+                             lambda: kernels.knn_approx(q, r, kk, metric)))
+        log(msg)
+        tol = 4.0 * 2.0 ** (tiling(M, kk)[1] - 23)
+        if not same or (metric == "euclidean" and mism) or (metric == "cosine" and (
+                gap > tol or mism > 0.01 * got.numel())):
+            raise SystemExit(f"knn_approx {what}: indices differ from the plain version")
+
+
 def bits_equal(a, b) -> bool:
     return all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
                for x, y in zip(a, b))
@@ -412,12 +461,12 @@ def time_chamfer_vjp(kernels, pc1, pc2, what):
 
 
 PARENT_SOURCES = ("cross_tail.cu", "fps.cu", "attention_train.cu", "transformer_tail.cu",
-                  "common.cu")
+                  "knn_approx.cu", "common.cu")
 
 
 def build_parent(tree):
-    """Start building another checkout's cost-volume tail, FPS, train attention
-    and transformer tail kernels (``PARENT_SOURCES``) into a library of their
+    """Start building another checkout's cost-volume tail, FPS, train attention,
+    transformer tail and approximate kNN kernels (``PARENT_SOURCES``) into a library of their
     own; returns a function that waits for the build and gives a
     :class:`Parent`."""
     from mocopci_torch.kernels import _lib
@@ -452,7 +501,9 @@ class Parent:
     one launch a level and a gather between levels, and its cross_tail
     backward recomputes the max from the forward's output (no argmax), on
     that tree's grid (``BWD_BLOCKS``).  The attention forward is that tree's
-    ``attention_train_fwd`` entry for every head dim."""
+    ``attention_train_fwd`` entry, or ``attention_train_fwd_wide`` for the
+    wide route; ``knn_approx`` takes that tree's arguments (a launch grid
+    where its signature has one)."""
 
     def __init__(self, tree, path):
         import ctypes
@@ -467,7 +518,7 @@ class Parent:
                                                  for name in ("cross_tail", "transformer_tail"))
         self.lib = ctypes.CDLL(path)
         for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid", "attention_train_fwd",
-                     "transformer_tail_bwd"):
+                     "attention_train_fwd_wide", "transformer_tail_bwd", "knn_approx"):
             if name in self.sig:
                 fn = getattr(self.lib, f"mocopci_{name}")
                 fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
@@ -529,16 +580,30 @@ class Parent:
                    nblk)
         return d_rows, d_base, dwb[:C * C2].view(C, C2), dwb[C * C2:]
 
-    def attention_train_fwd(self, q, k, v, seed, scale, rate):
+    def attention_train_fwd(self, q, k, v, seed, scale, rate, entry="attention_train_fwd"):
         from mocopci_torch.kernels.attention_train import dropout_constants
 
         G, N, D = q.shape
         out = torch.empty_like(q)
         lse = torch.empty((G, N), dtype=torch.float32, device=q.device)
-        self._call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        self._call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    out.data_ptr(), lse.data_ptr(), G, N, k.shape[1], D, float(scale),
                    seed.data_ptr(), *dropout_constants(rate))
         return out, lse
+
+    def knn_approx(self, query, ref, k, metric):
+        from mocopci_torch.kernels.knn import DIRECT_MAX_C, METRICS
+        from mocopci_torch.kernels.knn_approx import launch_grid, tiling
+
+        B, N, C = query.shape
+        M = ref.shape[1]
+        tr, bits, fold = tiling(M, k)
+        out = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
+        rn = (ref * ref).sum(-1).contiguous() if metric == "euclidean" and C > DIRECT_MAX_C else ref
+        grid = launch_grid(B, N, M, C, tr, metric) if len(self.sig["knn_approx"]) == 17 else ()
+        self._call("knn_approx", query.data_ptr(), ref.data_ptr(), rn.data_ptr(), B, N, M, C, k,
+                   METRICS[metric], tr, bits, int(fold), *grid, out.data_ptr())
+        return out
 
     def transformer_tail_bwd(self, table, idx, xyzq, q, *weights_and_dout):
         """(d_rows, dxq, dq, dw) from that tree's backward, dw the eight weight
@@ -701,13 +766,38 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
     q, k, vv, do = rnd(Gw, n3, c3), rnd(Gw, n3, c3), rnd(Gw, n3, c3), rnd(Gw, n3, c3)
     sc = c3 ** -0.5
     out, lse = attention_train.attention_train_fwd(q, k, vv, seed, sc, rate)
+    for r_ in (rate, 0.0):
+        o1, l1 = attention_train.attention_train_fwd(q, k, vv, seed, sc, r_)
+        same = bits_equal([o1, l1], attention_train.attention_train_fwd(q, k, vv, seed, sc, r_))
+        err = float((o1 - attention_train.attention_train_plain(q, k, vv, seed_i, sc, r_))
+                    .abs().max())
+        err_lse = float((l1 - torch.logsumexp(q @ k.transpose(1, 2) * sc, -1)).abs().max())
+        msg = (f"attention_train fwd wide (G, N, M, D, rate) {(Gw, n3, n3, c3, r_)}: max_abs_err "
+               f"{err:.3e}, lse {err_lse:.3e} (tol 1e-5), repeat bit-equal {same}")
+        if parent is not None:
+            gap = float((parent.attention_train_fwd(q, k, vv, seed, sc, r_,
+                                                    "attention_train_fwd_wide")[0] - o1)
+                        .abs().max())
+            msg += (f"; the parent's output differs by {gap:.3e}: "
+                    + beside(lambda: parent.attention_train_fwd(q, k, vv, seed, sc, r_,
+                                                                "attention_train_fwd_wide"),
+                             lambda: attention_train.attention_train_fwd(q, k, vv, seed, sc, r_))
+                    + "; SDPA (no dropout) device us "
+                    + device_us(lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, vv, scale=sc)))
+        log(msg)
+        if not same or err > 1e-5 or err_lse > 1e-5:
+            raise SystemExit("attention_train_fwd_wide disagrees with its plain version or did "
+                             "not repeat its bits")
+    # the bound: its two products (4 D flops a pair) on the tensor cores at
+    # float32 grade
     add_row(rows, "attention_train_fwd_wide", attention_train.SOURCE, attention_train.REPLACES,
             lambda: attention_train.attention_train_fwd(q, k, vv, seed, sc, rate),
             lambda: attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, vv, scale=sc),
-            (4 * q.numel() + Gw * n3) * F32, Gw * n3 * n3 * (4.0 * c3 + 3),
+            (4 * q.numel() + Gw * n3) * F32, Gw * n3 * n3 * 4.0 * c3,
             float((out - attention_train.attention_train_plain(q, k, vv, seed_i, sc, rate))
-                  .abs().max()), 1e-5)
+                  .abs().max()), 1e-5, peak=PEAK_3XTF32_FLOPS)
     got = attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed, sc, rate)
     same = bits_equal(got, attention_train.attention_train_bwd(q, k, vv, out, lse, do, seed,
                                                                sc, rate))
@@ -824,6 +914,34 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
             f"|value|)): "
             + beside(lambda: parent.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
                      lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout)))
+    del table, xq, qq, dout, got, want
+
+    # transformer_tail backward on its general route: the refine head at
+    # refine_k = 8 (any (K, D) off BWD_SHAPES that fits), on FMAs
+    K = 8
+    table, xq, qq, dout = rnd(G, M, 3 + 2 * D), rnd(G, N, 3), rnd(G, N, D), rnd(G, N, D)
+    ws = []
+    for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
+        ws += [rnd(ci, co, scale=ci ** -0.5), rnd(co, scale=0.1)]
+    idx = idx_of(G, N, K, high=M)
+    kernels.reset_launches()
+    got = transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout)
+    route = {n: c for n, c in kernels.LAUNCHES.items() if c}
+    want = transformer_tail.transformer_tail_bwd_plain(table, idx, xq, qq, *ws, dout)
+    same = bits_equal(got, transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout))
+    err = rel_err(got, want)
+    log(f"transformer_tail bwd general {tuple(idx.shape)}: launches {route}, repeat bit-equal "
+        f"{same}; error over max(1, |value|) {err:.3e}")
+    if not same or route != {"transformer_tail_bwd_general": 1}:
+        raise SystemExit("transformer_tail_bwd_general: not launched, or a run did not repeat "
+                         "its bits")
+    add_row(rows, "transformer_tail_bwd_general", transformer_tail.SOURCE,
+            transformer_tail.REPLACES_BWD,
+            lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
+            lambda: transformer_tail.transformer_tail_bwd_plain(table, idx, xq, qq, *ws, dout),
+            None, (table.numel() + 2 * xq.numel() + 3 * qq.numel() + 2 * sum(
+                t.numel() for t in ws) + G * N * K * (3 + 2 * D)) * F32 + idx.numel() * I32,
+            G * N * K * 6.0 * (3 * D * D + 3 * D), err, 1e-4)
     del table, xq, qq, dout, got, want
 
     # fusion_pair planes and fusion_head_train: G x n0 queries x 2k pairs, 3 groups
@@ -1164,8 +1282,12 @@ def run_slice(kernels, cfg, dataset, dev, model, cpu_model, mode):
     peak = torch.cuda.max_memory_allocated()
     log(f"slice {mode}: ModelConfig() B=1 eval forward median {fwd_ms:.3f} ms over 12 runs "
         f"(min {min(times):.3f}, max {max(times):.3f}), peak memory {peak / 2**20:.1f} MiB")
-    busy = (profile_fps_calls(lambda: interpolate(model, *pairs[0]), "forward")
-            if mode == "approx" else {})
+    busy, launched = {}, []
+    if mode == "approx":
+        with recording(launched, ("knn_approx",)):
+            busy = profile_fps_calls(
+                lambda: interpolate(model, *pairs[0]), "forward",
+                lambda prof: log_calls(prof, launched, "knn_approx", "forward knn_approx"))
     return launches, {"forward_ms": fwd_ms, "forward_ms_min": min(times),
                       "forward_ms_max": max(times), "cd_max": max(cds),
                       "peak_mib": peak / 2**20, **busy}
@@ -1312,16 +1434,80 @@ def run_train(kernels, cfg, dev):
 
 def call_bound(kind, B, N, M, C, k=0, wide=False) -> float:
     """bound_ms of one call of the step, counted as the kernel rows count it:
-    the train attention forward ("fwd", 4 C + 3 flops a pair) and backward
-    ("bwd", 10 C + 6 at f32; 10 C at 3xTF32 on the wide route), (B, N, M, C) =
-    (G, N, M, D); ``knn_approx`` ("knn", 2 C + 2 a pair, k indices written)."""
+    the train attention forward ("fwd", 4 C + 3 flops a pair at f32; on the
+    wide route 4 C at 3xTF32) and backward ("bwd", 10 C + 6 at f32; 10 C at
+    3xTF32 on the wide route), (B, N, M, C) = (G, N, M, D); ``knn_approx``
+    ("knn", 2 C + 2 a pair at f32, k indices written)."""
     if kind == "fwd":
-        return bound((2 * B * N * C + 2 * B * M * C + B * N) * F32, B * N * M * (4.0 * C + 3))[0]
+        nbytes = (2 * B * N * C + 2 * B * M * C + B * N) * F32
+        return (bound(nbytes, B * N * M * 4.0 * C, PEAK_3XTF32_FLOPS) if wide
+                else bound(nbytes, B * N * M * (4.0 * C + 3)))[0]
     if kind == "bwd":
         nbytes = (4 * B * N * C + 4 * B * M * C + B * N) * F32
         return (bound(nbytes, B * N * M * 10.0 * C, PEAK_3XTF32_FLOPS) if wide
                 else bound(nbytes, B * N * M * (10.0 * C + 6)))[0]
     return bound((B * N * C + B * M * C) * F32 + B * N * k * I32, B * N * M * (2.0 * C + 2))[0]
+
+
+class recording:
+    """Within: each ``_lib.launch`` of an entry whose name starts with one of
+    ``prefixes`` is appended to ``launched`` as (name, args, start, end), CUDA
+    events recorded around it."""
+
+    def __init__(self, launched, prefixes):
+        self.launched, self.prefixes = launched, prefixes
+
+    def __enter__(self):
+        lib = importlib.import_module("mocopci_torch.kernels._lib")
+        launch = self.saved = lib.launch
+
+        def spied(name, *args):
+            if not name.startswith(self.prefixes):
+                return launch(name, *args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(name, *args)
+            end.record()
+            self.launched.append((name, args, start, end))
+        lib.launch = spied
+        return self
+
+    def __exit__(self, *exc):
+        importlib.import_module("mocopci_torch.kernels._lib").launch = self.saved
+
+
+def log_calls(prof, launched, prefix, what):
+    """Each recorded launch of an entry starting with ``prefix`` (the train
+    attention forward or ``knn_approx``): its shape, device ms by CUDA events
+    and, where the profiler traced every one, by the profiler, and its bound;
+    then the sums and the lost time (device ms less the calls' bounds)."""
+    from torch.autograd import DeviceType
+
+    symbols = [key for key, v in KERNEL_SYMBOLS.items() if v.startswith(prefix)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and any(sym in e.name for sym in symbols))
+    mine = [c for c in launched if c[0].startswith(prefix)]
+    traced = len(spans) == len(mine)
+    total = lost = bounds = 0.0
+    for i, (name, args, start, end) in enumerate(mine):
+        ms = start.elapsed_time(end)
+        if prefix == "knn_approx":
+            shape = f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}"
+            b_ms = call_bound("knn", *args[3:7], k=args[7])
+        else:
+            rate = 0.0 if args[11] == 0 and args[12] == 1.0 else 1.0 - 1.0 / args[12]
+            shape = f"(G, N, M, D, rate) {(*args[5:9], round(rate, 6))}, route {name}"
+            b_ms = call_bound("fwd", *args[5:9], wide=name.endswith("_wide"))
+        total, lost, bounds = total + ms, lost + ms - b_ms, bounds + b_ms
+        log(f"{what} {shape}: device ms {ms:.4f} by CUDA events, "
+            + (f"{(spans[i][1] - spans[i][0]) / 1e3:.4f} by the profiler" if traced
+               else "not matched in the profile") + f", bound_ms {b_ms:.5f}")
+    # CUDA events also time the host's gap before a launch; the profiler's
+    # device time, less the calls' bounds, is the lost time to rank by
+    traced_ms = sum(b - a for a, b in spans) / 1e3
+    log(f"{what}: {len(mine)} launches, device ms {total:.4f} by CUDA events (lost "
+        f"{lost:.4f}); the profiler traced {len(spans)} of their kernels, device ms "
+        f"{traced_ms:.4f}, lost {traced_ms - bounds:.4f} (bounds {bounds:.4f})")
 
 
 def profile_attention_calls(step):
@@ -1337,31 +1523,18 @@ def profile_attention_calls(step):
     from torch.autograd import DeviceType
 
     attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
-    _lib = importlib.import_module("mocopci_torch.kernels._lib")
     calls, launched = [], []
-    bwd, launch = attention_train.attention_train_bwd, _lib.launch
+    bwd = attention_train.attention_train_bwd
 
     def recorded(q, k, v, out, lse, dout, seed, scale, rate):
         calls.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2], rate))
         return bwd(q, k, v, out, lse, dout, seed, scale, rate)
 
-    def spied(name, *args):
-        if not (name.startswith("attention_train_fwd") or name == "knn_approx"):
-            return launch(name, *args)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        launch(name, *args)
-        end.record()
-        launched.append((name, args, start, end))
-
-    def spans_of(prof, prefix):
-        symbols = [k for k, v in KERNEL_SYMBOLS.items() if v.startswith(prefix)]
-        return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and any(sym in e.name for sym in symbols))
-
     def per_call(prof):
-        spans = spans_of(prof, "attention_train_bwd")
+        symbols = [k for k, v in KERNEL_SYMBOLS.items() if v.startswith("attention_train_bwd")]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and any(sym in e.name for sym in symbols))
         total = lost = 0.0
         for shape in calls:
             ms = sum(end - start for start, end in spans[:3]) / 1e3
@@ -1376,37 +1549,15 @@ def profile_attention_calls(step):
             f"kernels not matched to a call {len(spans)}")
         if not calls:
             raise SystemExit("profile: the train step called no attention backward")
-        for prefix, what in (("attention_train_fwd", "train attention fwd"),
-                             ("knn_approx", "train knn_approx")):
-            mine = [c for c in launched if c[0].startswith(prefix)]
-            spans = spans_of(prof, prefix)
-            traced = len(spans) == len(mine)
-            total = lost = bounds = 0.0
-            for i, (name, args, start, end) in enumerate(mine):
-                ms = start.elapsed_time(end)
-                if prefix == "knn_approx":
-                    shape = f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}"
-                    b_ms = call_bound("knn", *args[3:7], k=args[7])
-                else:
-                    rate = 0.0 if args[11] == 0 and args[12] == 1.0 else 1.0 - 1.0 / args[12]
-                    shape = f"(G, N, M, D, rate) {(*args[5:9], round(rate, 6))}, route {name}"
-                    b_ms = call_bound("fwd", *args[5:9])
-                total, lost, bounds = total + ms, lost + ms - b_ms, bounds + b_ms
-                log(f"{what} {shape}: device ms {ms:.4f} by CUDA events, "
-                    + (f"{(spans[i][1] - spans[i][0]) / 1e3:.4f} by the profiler" if traced
-                       else "not matched in the profile") + f", bound_ms {b_ms:.5f}")
-            # CUDA events also time the host's gap before a launch; the profiler's
-            # device time, less the calls' bounds, is the lost time to rank by
-            traced_ms = sum(b - a for a, b in spans) / 1e3
-            log(f"{what}: {len(mine)} launches, device ms {total:.4f} by CUDA events (lost "
-                f"{lost:.4f}); the profiler traced {len(spans)} of their kernels, device ms "
-                f"{traced_ms:.4f}, lost {traced_ms - bounds:.4f} (bounds {bounds:.4f})")
+        log_calls(prof, launched, "attention_train_fwd", "train attention fwd")
+        log_calls(prof, launched, "knn_approx", "train knn_approx")
 
-    attention_train.attention_train_bwd, _lib.launch = recorded, spied
+    attention_train.attention_train_bwd = recorded
     try:
-        return profile_fps_calls(step, "train step", per_call)
+        with recording(launched, ("attention_train_fwd", "knn_approx")):
+            return profile_fps_calls(step, "train step", per_call)
     finally:
-        attention_train.attention_train_bwd, _lib.launch = bwd, launch
+        attention_train.attention_train_bwd = bwd
 
 
 def sm_clock() -> str:
@@ -1538,6 +1689,41 @@ def run_train_parity(kernels, dev):
     return {"loss_gap": loss_gap, "grad_gap_whole": whole, "worst_leaves": worst}
 
 
+def run_train_refine_k(kernels, dev, refine_k=8):
+    """One train step at ``ModelConfig()`` with ``refine_k`` (B=2, synthetic
+    pairs, seed 4): finite losses, and the refine head's transformer-tail
+    backward on its general route (``BWD_SHAPES`` holds refine_k 16 and 4)."""
+    import dataclasses
+
+    from mocopci_torch import ModelConfig, ops
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.data import SyntheticInterpolationDataset, batches
+    from mocopci_torch.training import create_train_state, train_step
+
+    ops.set_knn_mode("approx")
+    cfg = dataclasses.replace(ModelConfig(), refine_k=refine_k)
+    tcfg = TrainConfig()
+    data = SyntheticInterpolationDataset(length=tcfg.batch_size, num_points=cfg.npoints, seed=4)
+    batch = next(iter(batches(data, tcfg.batch_size, shuffle=False)))
+    _, state = create_train_state(cfg, tcfg, steps_per_epoch=1, device=dev)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, aux = train_step(state, batch, rng)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    aux = {k: float(v) for k, v in aux.items()}
+    log(f"train refine_k={refine_k}: one step {step_ms:.1f} ms, "
+        + json.dumps({k: round(v, 6) for k, v in aux.items()}) + f", launches {launches}")
+    if not all(np.isfinite(v) for v in aux.values()):
+        raise SystemExit(f"train refine_k={refine_k}: loss not finite")
+    if launches["transformer_tail_bwd_general"] == 0 or launches["transformer_tail_bwd"]:
+        raise SystemExit(f"train refine_k={refine_k}: the tail backward took another route")
+    return launches, {"step_ms": step_ms, "loss": aux["loss"]}
+
+
 def run_train_cli(kernels):
     """The train CLI in-process at ModelConfig() on 4 synthetic samples: one
     epoch, then a resume to the second."""
@@ -1584,6 +1770,7 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                   "attention_train_bwd_wide_kernel": "attention_train_bwd_wide",
                   "cross_tail_bwd_kernel": "cross_tail_bwd",
                   "transformer_tail_bwd_kernel": "transformer_tail_bwd",
+                  "transformer_tail_bwd_general_kernel": "transformer_tail_bwd_general",
                   "fusion_pair_planes_kernel": "fusion_pair_planes",
                   "fusion_head_fwd_kernel": "fusion_head_train_fwd",
                   "fusion_head_bwd_kernel": "fusion_head_train_bwd",
@@ -1640,8 +1827,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="TREE",
-                    help="another checkout whose FPS and cost-volume tail kernels are timed "
-                         "beside this tree's")
+                    help="another checkout whose kernels in PARENT_SOURCES are timed beside "
+                         "this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1686,13 +1873,15 @@ def main() -> int:
     del model, cpu_model
     paths["train"], stats["train"] = run_train(kernels, cfg, dev)
     stats["train_parity"] = run_train_parity(kernels, dev)
+    paths["train_refine_k8"], stats["train_refine_k8"] = run_train_refine_k(kernels, dev)
     stats["train_cli"] = run_train_cli(kernels)
     torch.cuda.empty_cache()
     paths["ops"], stats["ops"] = run_ops(kernels, cfg, dev)
     # each kernel's launches on the path it belongs to: the default forward,
     # the exact-mode forward for knn_exact, eval_step for chamfer_pair, the
     # train steps for the train kernels, the op paths for the op kernels
-    home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair")}
+    home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair"),
+            "transformer_tail_bwd_general": ("train_refine_k8", "transformer_tail_bwd_general")}
     home.update({name: ("ops", name) for name in OPS_KERNELS if name != "chamfer_pair"})
     home.update({name: ("train", name) for name in TRAIN_KERNELS
                  if name.endswith(("_bwd", "_fwd", "_wide")) or name in ("scatter_add",

@@ -13,11 +13,11 @@
 //   forward, head dims D <= 64: one pass over the keys, streamed through
 //             shared memory, with an online softmax (see the block comment
 //             above attention_train_fwd_kernel), no hash at rate 0;
-//   forward, D > 64 (the "wide" route): one block per (group, tile of 8
-//             queries); the tile's logit rows stay in shared memory (as
-//             csrc/attention.cu), the keep factor is applied to the
-//             numerators, and the row's log-sum-exp is written for the
-//             backward;
+//   forward, D > 64 (the "wide" route): one pass over the keys as well,
+//             its two products on the tensor cores at float32 grade (see the
+//             block comment above attention_train_fwd_wide_kernel); the keep
+//             factor is applied to the numerators, and the row's
+//             log-sum-exp is written for the backward;
 //   backward, head dims D <= 64: one pass over the pairs, each pair's logit,
 //             do.v, exp and keep factor computed once (see the block comment
 //             above attention_train_bwd_kernel), no hash at rate 0;
@@ -34,12 +34,12 @@
 namespace {
 
 using mocopci::cp_async16;
+using mocopci::cp_async16z;
 using mocopci::cp_async4;
+using mocopci::cp_async4z;
 using mocopci::cp_async_commit;
 using mocopci::cp_async_wait0;
 
-constexpr int kThreads = 256;
-constexpr int kTQ = 8;        // the wide forward's query tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -49,18 +49,6 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
-}
-
-__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4z(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0) : "memory");
 }
 
 // every group but the newest has landed (for this thread's copies)
@@ -74,6 +62,15 @@ __device__ __forceinline__ float keep_factor(uint32_t gseed, int row, int col, i
   const uint32_t ctr = (static_cast<uint32_t>(row) << 12) ^ static_cast<uint32_t>(col);
   const uint32_t h = fmix32(ctr ^ gseed);
   return static_cast<int>(h & 0xFFFFFFu) >= thr ? kscale : 0.f;
+}
+
+// An A fragment from (hi, lo) pairs a0..a3 in the fragment's order.
+__device__ __forceinline__ void frag_of_pairs(mocopci::FragA& fa, uint2 a0, uint2 a1, uint2 a2,
+                                              uint2 a3) {
+  fa.hi[0] = a0.x, fa.lo[0] = a0.y;
+  fa.hi[1] = a1.x, fa.lo[1] = a1.y;
+  fa.hi[2] = a2.x, fa.lo[2] = a2.y;
+  fa.hi[3] = a3.x, fa.lo[3] = a3.y;
 }
 
 // ---- forward for head dims D <= 64: one pass over the keys ----
@@ -298,90 +295,255 @@ cudaError_t launch_fwd_dp(int DP, const float* q, const float* k, const float* v
   }
 }
 
-// ---- forward for head dims D > 64 (the wide route) ----
-__global__ void __launch_bounds__(kThreads) attention_train_fwd_wide_kernel(
+// ---- forward for head dims D > 64 (the wide route): one pass on the tensor cores ----
+//
+// One block per (group, tile of 32 queries, slice of 256 head dims of the
+// output), 8 warps.  The keys stream in tiles of 64; each tile's logits sum
+// over the head dims in chunks of 64: stage (key tile t, chunk c) brings the
+// q chunk ([32][68] floats) and the k chunk ([64][68]) into shared memory by
+// cp.async, double-buffered, and the tile's v rows of the slice ([64][264])
+// come with stage (t, 1) into their one buffer (with the first stage for
+// t = 0), after every warp is done with tile t - 1.  Rows past N or M and
+// dims past D are filled with zeros.  Every product runs on mma.sync
+// m16n8k8 at float32 grade (3xTF32, operands split by bit masks,
+// mma_tf32.cuh).  Per key tile:
+//   S = q k^T: warp w holds the 16 x 16 logits of query half w / 4 and keys
+//     [16 (w % 4), 16 (w % 4) + 16) in registers over the chunks, then
+//     writes them, scaled to log2 units (keys past M at -inf), to shared
+//     memory;
+//   the online softmax: 8 lanes a query row, 8 keys each; the row max by
+//     shuffles, one rescale factor alpha a row (to shared memory), the
+//     denominator (kept in registers, the row's 8 lanes alike) times alpha
+//     plus every exp, kept or dropped, added over the 8 lanes in a fixed
+//     order; P = 2^(s - m) times the keep factor (the numerators only; no
+//     hash at rate 0) to shared memory as (hi, lo) TF32 pairs;
+//   O = alpha O + P v: warp w holds both query halves x head dims
+//     [32 w, 32 w + 32) of the slice, 32 registers a thread.
+// At the end out = O kscale / den, and the slice-0 blocks write lse = m ln 2
+// + ln(den).  Each logit is computed once for a slice of 256 head dims (once
+// at the CrossFrameBlock's D = 256).  Each output element has one owner
+// summing in a fixed order, so the result repeats bit for bit.
+constexpr int kYQ = 32;                    // queries a block
+constexpr int kYK = 64;                    // keys a tile
+constexpr int kYC = 64;                    // head dims a chunk of the logits
+constexpr int kYV = 256;                   // head dims a slice of the output
+constexpr int kYWarps = 8;
+constexpr int kYThreads = 32 * kYWarps;
+constexpr int kYLd = kYC + 4;              // q / k chunk and logit row stride (floats)
+constexpr int kYLdV = kYV + 8;             // v row stride (floats)
+constexpr int kYLdP = kYK + 4;             // P row stride ((hi, lo) pairs)
+constexpr int kYStage = (kYQ + kYK) * kYLd;          // floats a stage: q chunk, k chunk
+constexpr size_t kYSmem = (2 * kYStage + kYK * kYLdV + kYQ * kYLd + 2 * kYQ * kYLdP + kYQ) *
+                          sizeof(float);
+
+// Queues the copies of rows [r0, r0 + R) and dims [c0, c0 + W) of a (Rows, D)
+// matrix into a [R][ld] tile, zero past Rows and D.
+template <int R, int W>
+__device__ __forceinline__ void stage_y(const float* __restrict__ src, int r0, int Rows, int D,
+                                        int c0, float* dst, int ld) {
+  if ((D & 3) == 0) {
+    for (int e = threadIdx.x; e < R * W / 4; e += kYThreads) {
+      const int r = e / (W / 4), c = (e - r * (W / 4)) << 2;
+      const bool ok = r0 + r < Rows && c0 + c < D;
+      cp_async16z(dst + r * ld + c, src + (ok ? static_cast<size_t>(r0 + r) * D + c0 + c : 0),
+                  ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * W; e += kYThreads) {
+      const int r = e / W, c = e - r * W;
+      const bool ok = r0 + r < Rows && c0 + c < D;
+      cp_async4z(dst + r * ld + c, src + (ok ? static_cast<size_t>(r0 + r) * D + c0 + c : 0),
+                 ok);
+    }
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(kYThreads, 1) attention_train_fwd_wide_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, float* __restrict__ lse, int N, int M, int D, float scale,
     const int* __restrict__ seed, int thr, float kscale) {
-  extern __shared__ float sm[];
-  float* qs = sm;                      // [kTQ][D]
-  float* lg = qs + kTQ * D;            // [kTQ][M]  logits, then numerators * keep
-  float* red = lg + kTQ * M;           // [kThreads][kTQ]
-  float* rsum = red + kThreads * kTQ;  // [kTQ]
-  const int g = blockIdx.y;
-  const int n0 = blockIdx.x * kTQ;
-  const int tid = threadIdx.x;
-  const int rows = min(kTQ, N - n0);
-  const uint32_t gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
-  const float* qg = q + (static_cast<size_t>(g) * N + n0) * D;
-  const float* kg = k + static_cast<size_t>(g) * M * D;
-  const float* vg = v + static_cast<size_t>(g) * M * D;
+  extern __shared__ __align__(16) float sm[];
+  float* stg = sm;                                      // [2][q chunk, k chunk]
+  float* vs = stg + 2 * kYStage;                        // [kYK][kYLdV] v rows of the slice
+  float* ss = vs + kYK * kYLdV;                         // [kYQ][kYLd] logits
+  uint2* ps = reinterpret_cast<uint2*>(ss + kYQ * kYLd); // [kYQ][kYLdP] P (hi, lo)
+  float* as = reinterpret_cast<float*>(ps + kYQ * kYLdP); // [kYQ] alpha
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int i0 = blockIdx.x * kYQ, d0 = blockIdx.y * kYV, g = blockIdx.z;
+  const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
+  const float* qg = q + gq;
+  const float* kg = k + gk;
+  const float* vg = v + gk;
+  const int nchunks = (D + kYC - 1) / kYC, ntiles = (M + kYK - 1) / kYK;
+  const int nstages = nchunks * ntiles;
+  uint32_t gseed = 0u;
+  if (DROP) gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
+  const float c2 = scale * kLog2e;
+  // the logits: query half mh, keys [16 kq, 16 kq + 16) of the tile
+  const int mh = warp >> 2, kq = warp & 3;
+  // the softmax: row sr, keys sl + 8 j
+  const int sr = tid >> 3, sl = tid & 7;
+  const uint32_t rg = DROP ? (static_cast<uint32_t>(i0 + sr) << 12) ^ gseed : 0u;
 
-  for (int e = tid; e < kTQ * D; e += kThreads) qs[e] = e < rows * D ? qg[e] : 0.f;
-  __syncthreads();
+  stage_y<kYQ, kYC>(qg, i0, N, D, 0, stg, kYLd);
+  stage_y<kYK, kYC>(kg, 0, M, D, 0, stg + kYQ * kYLd, kYLd);
+  stage_y<kYK, kYV>(vg, 0, M, D, d0, vs, kYLdV);
+  cp_async_commit();
 
-  for (int j = tid; j < M; j += kThreads) {
-    float acc[kTQ];
+  float o[2][4][4], s[2][4];
 #pragma unroll
-    for (int i = 0; i < kTQ; ++i) acc[i] = 0.f;
-    const float* kr = kg + static_cast<size_t>(j) * D;
-    for (int d = 0; d < D; ++d) {
-      const float kv = kr[d];
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int i = 0; i < kTQ; ++i) acc[i] = fmaf(qs[i * D + d], kv, acc[i]);
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[m][n][r] = 0.f;
+  // m starts finite, so the first rescale is by 2^(-inf) = 0 of an empty sum
+  float mrow = -FLT_MAX, den = 0.f;
+
+  for (int st = 0; st < nstages; ++st) {
+    const int t = st / nchunks, c = st - t * nchunks, b = st & 1;
+    cp_async_wait0();
+    __syncthreads();        // stage st has landed; every warp is done with stage st - 1
+    if (st + 1 < nstages) {
+      const int t1 = (st + 1) / nchunks, c1 = st + 1 - t1 * nchunks;
+      float* nb = stg + (b ^ 1) * kYStage;
+      stage_y<kYQ, kYC>(qg, i0, N, D, c1 * kYC, nb, kYLd);
+      stage_y<kYK, kYC>(kg, t1 * kYK, M, D, c1 * kYC, nb + kYQ * kYLd, kYLd);
+      if (t1 > 0 && c1 == 1) stage_y<kYK, kYV>(vg, t1 * kYK, M, D, d0, vs, kYLdV);
+      cp_async_commit();
     }
+    if (c == 0) {
 #pragma unroll
-    for (int i = 0; i < kTQ; ++i) lg[i * M + j] = acc[i] * scale;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int i = warp; i < kTQ; i += kThreads / 32) {
-    float m = -__int_as_float(0x7f800000);
-    for (int j = lane; j < M; j += 32) m = fmaxf(m, lg[i * M + j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float s = 0.f;
-    for (int j = lane; j < M; j += 32) {
-      const float e = expf(lg[i * M + j] - m);
-      lg[i * M + j] = e * keep_factor(gseed, n0 + i, j, thr, kscale);
-      s += e;
+      for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     }
+    {                       // S += q_c k_c^T
+      const float* qa = stg + b * kYStage + (mh * 16 + gid) * kYLd + tig;
+      const float* kb = stg + b * kYStage + kYQ * kYLd + (kq * 16 + gid) * kYLd + tig;
+#pragma unroll 4
+      for (int kk = 0; kk < kYC; kk += 8) {
+        mocopci::FragA fa;
+        fa.set_rz({qa[kk], qa[kk + 8 * kYLd], qa[kk + 4], qa[kk + 8 * kYLd + 4]});
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      rsum[i] = s;
-      if (i < rows) lse[static_cast<size_t>(g) * N + n0 + i] = m + logf(s);
-    }
-  }
-  __syncthreads();
-
-  for (int d0 = 0; d0 < D; d0 += kThreads) {
-    const int dw = min(kThreads, D - d0);
-    const int js = kThreads / dw;
-    const int d = d0 + tid % dw;
-    const int sl = tid / dw;
-    float acc[kTQ];
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) acc[i] = 0.f;
-    if (sl < js) {
-      for (int j = sl; j < M; j += js) {
-        const float vv = vg[static_cast<size_t>(j) * D + d];
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i) acc[i] = fmaf(lg[i * M + j], vv, acc[i]);
+        for (int n = 0; n < 2; ++n) {
+          const float* kn = kb + n * 8 * kYLd + kk;
+          mocopci::FragB fb;
+          fb.set_rz(kn[0], kn[4]);
+          mocopci::mma_3xtf32(s[n], fa, fb);
+        }
       }
     }
+    if (c + 1 < nchunks) continue;
+
+    const int j0 = t * kYK;
 #pragma unroll
-    for (int i = 0; i < kTQ; ++i) red[tid * kTQ + i] = acc[i];
-    __syncthreads();
-    for (int e = tid; e < kTQ * dw; e += kThreads) {
-      const int i = e / dw, c = e - i * dw;
-      float s = 0.f;
-      for (int t = 0; t < js; ++t) s += red[(t * dw + c) * kTQ + i];
-      if (i < rows) out[(static_cast<size_t>(g) * N + n0 + i) * D + d0 + c] = s / rsum[i];
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = kq * 16 + n * 8 + 2 * tig + (r & 1);
+        ss[(mh * 16 + gid + 8 * (r >> 1)) * kYLd + col] =
+            j0 + col < M ? s[n][r] * c2 : -__int_as_float(0x7f800000);
+      }
+    __syncthreads();        // the tile's logits are complete
+
+    {                       // the online softmax of row sr, keys sl + 8 j
+      float x[8], mx = mrow;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[j] = ss[sr * kYLd + sl + 8 * j];
+        mx = fmaxf(mx, x[j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float alpha = exp2f(mrow - mx);
+      mrow = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = sl + 8 * j;
+        float p = exp2f(x[j] - mx);
+        sum += p;
+        if (DROP && p != 0.f) {
+          const uint32_t h = fmix32(rg ^ static_cast<uint32_t>(j0 + col));
+          if (static_cast<int>(h & 0xFFFFFFu) < thr) p = 0.f;
+        }
+        uint2 hp;
+        mocopci::split_tf32_rz(p, hp.x, hp.y);
+        ps[sr * kYLdP + col] = hp;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      den = den * alpha + sum;
+      if (sl == 0) as[sr] = alpha;
     }
-    __syncthreads();
+    __syncthreads();        // P and alpha are complete
+
+    // O = alpha O + P v over the tile's keys: both query halves, dims [32 warp, + 32)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float a0 = as[m * 16 + gid], a1 = as[m * 16 + gid + 8];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        o[m][n][0] *= a0;
+        o[m][n][1] *= a0;
+        o[m][n][2] *= a1;
+        o[m][n][3] *= a1;
+      }
+    }
+    const float* vb = vs + tig * kYLdV + warp * 32 + gid;
+#pragma unroll 2
+    for (int ks = 0; ks < kYK / 8; ++ks) {
+      mocopci::FragA fa[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint2* pa = ps + (m * 16 + gid) * kYLdP + ks * 8 + tig;
+        frag_of_pairs(fa[m], pa[0], pa[8 * kYLdP], pa[4], pa[8 * kYLdP + 4]);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float* vn = vb + ks * 8 * kYLdV + n * 8;
+        mocopci::FragB fb;
+        fb.set_rz(vn[0], vn[4 * kYLdV]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mocopci::mma_3xtf32(o[m][n], fa[m], fb);
+      }
+    }
   }
+
+  // den of rows gid (+ 8) of each half: the softmax lanes of row r are tid 8 r .. 8 r + 7
+  __syncthreads();
+  if (sl == 0) as[sr] = den;
+  if (sl == 0 && blockIdx.y == 0 && i0 + sr < N)
+    lse[static_cast<size_t>(g) * N + i0 + sr] = mrow * 0.6931471805599453f + logf(den);
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m * 16 + gid + 8 * h, i = i0 + row;
+      if (i >= N) continue;
+      const float f = kscale / as[row];
+      float* orow = out + gq + static_cast<size_t>(i) * D;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int d = d0 + warp * 32 + n * 8 + 2 * tig;
+        if (d < D) orow[d] = o[m][n][2 * h] * f;
+        if (d + 1 < D) orow[d + 1] = o[m][n][2 * h + 1] * f;
+      }
+    }
+}
+
+template <bool DROP>
+cudaError_t launch_fwd_wide(const float* q, const float* k, const float* v, float* out,
+                            float* lse, int G, int N, int M, int D, float scale, const int* seed,
+                            int thr, float kscale, cudaStream_t st) {
+  cudaError_t err = mocopci::allow_smem(attention_train_fwd_wide_kernel<DROP>, kYSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(mocopci::ceil_div(N, kYQ), mocopci::ceil_div(D, kYV), G);
+  attention_train_fwd_wide_kernel<DROP><<<grid, kYThreads, kYSmem, st>>>(
+      q, k, v, out, lse, N, M, D, scale, seed, thr, kscale);
+  return cudaGetLastError();
 }
 
 // ---- backward for head dims D <= 64: one pass over the pairs ----
@@ -767,14 +929,6 @@ __device__ __forceinline__ void stage_wide(const float* __restrict__ qg,
   }
 }
 
-__device__ __forceinline__ void frag_of_pairs(mocopci::FragA& fa, uint2 a0, uint2 a1, uint2 a2,
-                                              uint2 a3) {
-  fa.hi[0] = a0.x, fa.lo[0] = a0.y;
-  fa.hi[1] = a1.x, fa.lo[1] = a1.y;
-  fa.hi[2] = a2.x, fa.lo[2] = a2.y;
-  fa.hi[3] = a3.x, fa.lo[3] = a3.y;
-}
-
 template <bool DROP>
 __global__ void __launch_bounds__(kWThreads, 1) attention_train_bwd_wide_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -1027,20 +1181,20 @@ MOCOPCI_API int mocopci_attention_train_fwd(const float* q, const float* k, cons
                                      kscale, st);
 }
 
-// The wide route, D > 64: the same outputs for any D <= 2048, a block per
-// 8 queries with their logit rows in shared memory (M <= 4096).
+// The wide route, D > 64: the same outputs for any D <= 2048, in one pass
+// over the keys on the tensor cores (M <= 4096).  Rate 0 (thr 0, kscale 1)
+// takes the kernel without the keep factor.
 MOCOPCI_API int mocopci_attention_train_fwd_wide(const float* q, const float* k, const float* v,
                                                  float* out, float* lse, int G, int N, int M,
                                                  int D, float scale, const int* seed, int thr,
                                                  float kscale, void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(kTQ) * (D + M) + kThreads * kTQ + kTQ) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(attention_train_fwd_wide_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(mocopci::ceil_div(N, kTQ), G);
-  attention_train_fwd_wide_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, lse, N, M, D, scale, seed, thr, kscale);
-  return cudaGetLastError();
+  if (D <= kYC) return cudaErrorInvalidValue;     // the v rows come with each tile's chunk 1
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool drop = thr > 0 || kscale != 1.f;
+  return drop ? launch_fwd_wide<true>(q, k, v, out, lse, G, N, M, D, scale, seed, thr, kscale,
+                                      st)
+              : launch_fwd_wide<false>(q, k, v, out, lse, G, N, M, D, scale, seed, thr, kscale,
+                                       st);
 }
 
 // The wide route, D > 64: the saved forward (q, k, v, out, lse) and dout ->

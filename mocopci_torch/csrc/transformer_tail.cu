@@ -119,6 +119,222 @@ __global__ void __launch_bounds__(kThreads) transformer_tail_kernel(
   }
 }
 
+// dst[j][f] = sum_e src[j][e] * wt[e][f] for j < K, f < fout (wt = W^T, [D][fout])
+__device__ __forceinline__ void dense_t(const float* src, const float* wt, float* dst, int K,
+                                        int D, int fout) {
+  for (int it = threadIdx.x; it < K * fout; it += kThreads) {
+    const int j = it / fout, f = it - j * fout;
+    const float* s = src + j * D;
+    float acc = 0.f;
+    for (int e = 0; e < D; ++e) acc = fmaf(s[e], wt[e * fout + f], acc);
+    dst[it] = acc;
+  }
+}
+
+// acc[f][e] += sum_j act(a[j][f]) * g[j][e]  (f < fin, e < D), and, if bias_acc,
+// bias_acc[e] += sum_j g[j][e]; each element owned by one thread.
+__device__ __forceinline__ void outer_acc(const float* a, int fin, bool relu, const float* g,
+                                          float* acc, float* bias_acc, int K, int D) {
+  for (int it = threadIdx.x; it < fin * D; it += kThreads) {
+    const int f = it / D, e = it - f * D;
+    float s = acc[it];
+    for (int j = 0; j < K; ++j) {
+      const float x = a[j * fin + f];
+      s = fmaf(relu ? fmaxf(x, 0.f) : x, g[j * D + e], s);
+    }
+    acc[it] = s;
+  }
+  for (int e = threadIdx.x; e < D; e += kThreads) {
+    float s = bias_acc[e];
+    for (int j = 0; j < K; ++j) s += g[j * D + e];
+    bias_acc[e] = s;
+  }
+}
+
+// ---- backward, the general route: any (K, D) whose working set fits ----
+//
+// For the (K, D) the tensor-core kernel below does not take (other refine_k
+// or head widths).  One query at a time per block (queries qf = blockIdx.x +
+// t*gridDim.x of the flattened (B, N)), 256 threads, everything in shared
+// memory: the weights and their transposed copies, the eight weight and bias
+// gradients (one owner thread per element, accumulated over the block's
+// queries), and the query's K x D activations of each stage.  The forward
+// chain is recomputed, the per-channel softmax over the K neighbours included,
+// so the forward's running (m, l) are not needed: the TPU kernel saves them
+// only because its forward softmax is online over a k-innermost grid.  Every
+// product sums over its input channels in order on FMAs, as a float32 GEMM
+// does, and the block partials are summed in block order, so the result
+// repeats bit for bit.  Working set: 9 D^2 + 20 D + 6 K + 11 K D floats
+// (58 112 at most: K <= 28 at D = 64).  Operations bound it, 6 (3 D^2 + 3 D)
+// flops a pair on FMAs.
+__global__ void __launch_bounds__(kThreads) transformer_tail_bwd_general_kernel(
+    const float* __restrict__ table, const int* __restrict__ idx,
+    const float* __restrict__ xyzq, const float* __restrict__ q,
+    const float* __restrict__ wd1, const float* __restrict__ bd1,
+    const float* __restrict__ wd2, const float* __restrict__ bd2,
+    const float* __restrict__ wg1, const float* __restrict__ bg1,
+    const float* __restrict__ wg2, const float* __restrict__ bg2,
+    const float* __restrict__ dout, float* __restrict__ d_rows, float* __restrict__ dxq,
+    float* __restrict__ dq, float* __restrict__ partial, int B, int M, int N, int K, int D) {
+  extern __shared__ float sm[];
+  const int DD = D * D;
+  const int KD = K * D;
+  float* s_wd1 = sm;               // [3][D]
+  float* s_wd2 = s_wd1 + 3 * D;    // [D][D]
+  float* s_wg1 = s_wd2 + DD;
+  float* s_wg2 = s_wg1 + DD;
+  float* s_b = s_wg2 + DD;         // bd1 | bd2 | bg1 | bg2
+  float* t_wd1 = s_b + 4 * D;      // [D][3]  transposed copies
+  float* t_wd2 = t_wd1 + 3 * D;    // [D][D]
+  float* t_wg1 = t_wd2 + DD;
+  float* t_wg2 = t_wg1 + DD;
+  float* acc = t_wg2 + DD;         // dwd1 [3][D] | dbd1 | dwd2 [D][D] | dbd2 | dwg1 | dbg1 | dwg2 | dbg2
+  float* a_wd1 = acc;
+  float* a_bd1 = a_wd1 + 3 * D;
+  float* a_wd2 = a_bd1 + D;
+  float* a_bd2 = a_wd2 + DD;
+  float* a_wg1 = a_bd2 + D;
+  float* a_bg1 = a_wg1 + DD;
+  float* a_wg2 = a_bg1 + D;
+  float* a_bg2 = a_wg2 + DD;
+  float* rel = a_bg2 + D;          // [K][3]
+  float* drel = rel + 3 * K;       // [K][3]
+  float* qv = drel + 3 * K;        // [D]
+  float* dov = qv + D;             // [D]
+  float* outv = dov + D;           // [D]
+  float* H0 = outv + D;            // [K][D] pre-relu hidden of the pos MLP
+  float* POS = H0 + KD;
+  float* GV = POS + KD;            // q - k + pos
+  float* H1 = GV + KD;             // pre-relu hidden of the gamma MLP
+  float* A = H1 + KD;              // logits, then softmax weights
+  float* WV = A + KD;              // v + pos, then its gradient
+  float* DG2 = WV + KD;            // d(logit before the 1/sqrt(D) scale)
+  float* DH1 = DG2 + KD;
+  float* DGV = DH1 + KD;
+  float* DPOS = DGV + KD;
+  float* DH0 = DPOS + KD;
+  const int tid = threadIdx.x;
+  const int nacc = 3 * DD + 7 * D;
+  for (int e = tid; e < 3 * D; e += kThreads) {
+    s_wd1[e] = wd1[e];
+    t_wd1[(e % D) * 3 + e / D] = wd1[e];
+  }
+  for (int e = tid; e < DD; e += kThreads) {
+    const int f = e / D, c = e - f * D;
+    s_wd2[e] = wd2[e];
+    s_wg1[e] = wg1[e];
+    s_wg2[e] = wg2[e];
+    t_wd2[c * D + f] = wd2[e];
+    t_wg1[c * D + f] = wg1[e];
+    t_wg2[c * D + f] = wg2[e];
+  }
+  for (int e = tid; e < D; e += kThreads) {
+    s_b[e] = bd1[e];
+    s_b[D + e] = bd2[e];
+    s_b[2 * D + e] = bg1[e];
+    s_b[3 * D + e] = bg2[e];
+  }
+  for (int e = tid; e < nacc; e += kThreads) acc[e] = 0.f;
+  const int W = 3 + 2 * D;
+  const float inv = 1.f / sqrtf(static_cast<float>(D));
+
+  for (int qf = blockIdx.x; qf < B * N; qf += gridDim.x) {
+    const int b = qf / N;
+    const float* tb = table + static_cast<size_t>(b) * M * W;
+    const int* in = idx + static_cast<size_t>(qf) * K;
+    __syncthreads();
+    for (int e = tid; e < 3 * K; e += kThreads) {
+      const int j = e / 3, c = e - j * 3;
+      rel[e] = xyzq[static_cast<size_t>(qf) * 3 + c] - tb[static_cast<size_t>(in[j]) * W + c];
+    }
+    for (int e = tid; e < D; e += kThreads) {
+      qv[e] = q[static_cast<size_t>(qf) * D + e];
+      dov[e] = dout[static_cast<size_t>(qf) * D + e];
+    }
+    __syncthreads();
+    dense(rel, 3, s_wd1, s_b, H0, K, D, false);
+    __syncthreads();
+    for (int it = tid; it < KD; it += kThreads) A[it] = fmaxf(H0[it], 0.f);   // scratch: r0
+    __syncthreads();
+    dense(A, D, s_wd2, s_b + D, POS, K, D, false);
+    __syncthreads();
+    for (int it = tid; it < KD; it += kThreads) {
+      const int j = it / D, e = it - j * D;
+      const float* row = tb + static_cast<size_t>(in[j]) * W;
+      GV[it] = (qv[e] - row[3 + e]) + POS[it];
+      WV[it] = row[3 + D + e] + POS[it];
+    }
+    __syncthreads();
+    dense(GV, D, s_wg1, s_b + 2 * D, H1, K, D, false);
+    __syncthreads();
+    for (int it = tid; it < KD; it += kThreads) DH1[it] = fmaxf(H1[it], 0.f);  // scratch: r1
+    __syncthreads();
+    dense(DH1, D, s_wg2, s_b + 3 * D, A, K, D, false);
+    __syncthreads();
+    // per-channel softmax over j, out, then the softmax VJP
+    for (int e = tid; e < D; e += kThreads) {
+      float m = -__int_as_float(0x7f800000);
+      for (int j = 0; j < K; ++j) m = fmaxf(m, A[j * D + e] * inv);
+      float s = 0.f;
+      for (int j = 0; j < K; ++j) {
+        const float a = expf(A[j * D + e] * inv - m);
+        A[j * D + e] = a;
+        s += a;
+      }
+      float o = 0.f;
+      for (int j = 0; j < K; ++j) {
+        A[j * D + e] /= s;
+        o = fmaf(A[j * D + e], WV[j * D + e], o);
+      }
+      outv[e] = o;
+      const float g = dov[e];
+      for (int j = 0; j < K; ++j) {
+        const float a = A[j * D + e];
+        DG2[j * D + e] = a * (g * WV[j * D + e] - g * o) * inv;
+        WV[j * D + e] = g * a;                          // d(v + pos)
+      }
+    }
+    __syncthreads();
+    dense_t(DG2, t_wg2, DH1, K, D, D);
+    __syncthreads();
+    for (int it = tid; it < KD; it += kThreads) DH1[it] = H1[it] > 0.f ? DH1[it] : 0.f;
+    __syncthreads();
+    dense_t(DH1, t_wg1, DGV, K, D, D);
+    __syncthreads();
+    for (int it = tid; it < KD; it += kThreads) DPOS[it] = DGV[it] + WV[it];
+    __syncthreads();
+    dense_t(DPOS, t_wd2, DH0, K, D, D);
+    __syncthreads();
+    for (int it = tid; it < KD; it += kThreads) DH0[it] = H0[it] > 0.f ? DH0[it] : 0.f;
+    __syncthreads();
+    dense_t(DH0, t_wd1, drel, K, D, 3);
+    __syncthreads();
+    // d_rows = [-drel | -dgv | d(v + pos)], dxq = sum_j drel, dq = sum_j dgv
+    float* dr = d_rows + static_cast<size_t>(qf) * K * W;
+    for (int it = tid; it < K * W; it += kThreads) {
+      const int j = it / W, c = it - j * W;
+      dr[it] = c < 3 ? -drel[j * 3 + c] : (c < 3 + D ? -DGV[j * D + c - 3] : WV[j * D + c - 3 - D]);
+    }
+    for (int c = tid; c < 3 + D; c += kThreads) {
+      float s = 0.f;
+      if (c < 3) {
+        for (int j = 0; j < K; ++j) s += drel[j * 3 + c];
+        dxq[static_cast<size_t>(qf) * 3 + c] = s;
+      } else {
+        for (int j = 0; j < K; ++j) s += DGV[j * D + c - 3];
+        dq[static_cast<size_t>(qf) * D + c - 3] = s;
+      }
+    }
+    outer_acc(rel, 3, false, DH0, a_wd1, a_bd1, K, D);
+    outer_acc(H0, D, true, DPOS, a_wd2, a_bd2, K, D);
+    outer_acc(GV, D, false, DH1, a_wg1, a_bg1, K, D);
+    outer_acc(H1, D, true, DG2, a_wg2, a_bg2, K, D);
+  }
+  __syncthreads();
+  float* pb = partial + static_cast<size_t>(blockIdx.x) * nacc;
+  for (int e = tid; e < nacc; e += kThreads) pb[e] = acc[e];
+}
+
 // ---- backward on the tensor cores ----
 //
 // Bound on the H100: operations, the chain's products (the recompute r0 Wd2,
@@ -750,4 +966,31 @@ MOCOPCI_API int mocopci_transformer_tail_bwd(
                                              wg2, bg2, dout, d_rows, dxq, dq, partial, B, M, N);
   MOCOPCI_CHECK_LAUNCH();
   return mocopci::reduce_partials(partial, dw, nblk, kNAcc, st);
+}
+
+static size_t transformer_tail_bwd_general_floats(int K, int D) {
+  const size_t DD = static_cast<size_t>(D) * D, KD = static_cast<size_t>(K) * D;
+  return 9 * DD + 20 * static_cast<size_t>(D) + 6 * static_cast<size_t>(K) + 11 * KD;
+}
+
+// The general route of mocopci_transformer_tail_bwd: the same outputs for any
+// (K, D) whose working set (9 D^2 + 20 D + 6 K + 11 K D floats) fits in shared
+// memory; partial: nblk * (3D^2 + 7D) floats of scratch, reduced in block
+// order.
+MOCOPCI_API int mocopci_transformer_tail_bwd_general(
+    const float* table, const int* idx, const float* xyzq, const float* q, const float* wd1,
+    const float* bd1, const float* wd2, const float* bd2, const float* wg1, const float* bg1,
+    const float* wg2, const float* bg2, const float* dout, float* d_rows, float* dxq,
+    float* dq, float* dw, float* partial, int B, int M, int N, int K, int D, int nblk,
+    void* stream) {
+  if (K < 1 || D < 1 || nblk < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = transformer_tail_bwd_general_floats(K, D) * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(transformer_tail_bwd_general_kernel, smem);
+  if (err != cudaSuccess) return err;
+  transformer_tail_bwd_general_kernel<<<nblk, kThreads, smem, st>>>(
+      table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, dout, d_rows, dxq, dq,
+      partial, B, M, N, K, D);
+  MOCOPCI_CHECK_LAUNCH();
+  return mocopci::reduce_partials(partial, dw, nblk, 3 * D * D + 7 * D, st);
 }

@@ -41,7 +41,7 @@ SIGNATURES = {
     "cross_tail": [_P] * 7 + [_I] * 6 + [_P],
     "transformer_tail": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "fusion_pair": [_P] * 11 + [_I, _I, _I, _I, _P],
-    "knn_approx": [_P, _P, _P] + [_I] * 9 + [_P, _P],
+    "knn_approx": [_P, _P, _P] + [_I] * 12 + [_P, _P],
     "chamfer_pair": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "scatter_add": [_P] * 4 + [_I] * 5 + [_P],
     "attention_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _F, _P],
@@ -50,6 +50,7 @@ SIGNATURES = {
     "attention_train_bwd_wide": [_P] * 10 + [_I] * 4 + [_F, _P, _I, _F, _P],
     "cross_tail_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "transformer_tail_bwd": [_P] * 18 + [_I] * 6 + [_P],
+    "transformer_tail_bwd_general": [_P] * 18 + [_I] * 6 + [_P],
     "fusion_pair_planes": [_P] * 4 + [_I] * 4 + [_P],
     "fusion_head_train_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "fusion_head_train_bwd": [_P] * 9 + [_I] * 5 + [_P],

@@ -17,6 +17,13 @@ Distances: Euclidean with C <= 8 is ``0 + sum_c (q_c - r_c)^2`` in channel
 order without fused multiply-adds (as ``csrc/knn.cu``); wider Euclidean rows
 ``(|q|^2 + |r|^2) - 2 q.r``; cosine ``1 - q.r`` on normalised rows.  Operations
 bound it: every query scans every reference row.
+
+The kernel walks over groups of queries.  For Euclidean rows of at most 8
+channels a block stages the reference once as coordinate planes (the whole
+cloud when it fits in 96 KB) and takes groups of 16 (8 on small grids) until
+the grid, about two blocks an SM, has covered them (:func:`launch_grid`);
+wider rows take the dot form, a block a group of 16, its products on the
+tensor cores.
 """
 from __future__ import annotations
 
@@ -31,6 +38,9 @@ REPLACES = "mocopci_tpu/ops/pallas/knn.py:181"
 TILE = 1024          # reference tile, the JAX kernel's default ``tr``
 FOLD_K = 384         # 3 survivors x 128 columns
 MAX_C = 512
+GROUP = 16           # queries a group: 8 warps x 2 (csrc xyz kernel), kDQ (dot form)
+PLANE_BYTES = 96 * 1024   # the staged coordinate planes, at most (csrc kXPlaneBytes)
+SMS = 132            # an H100's SMs
 INF_KEY = 0x7FFFFFFF
 # distance-matrix entries per chunk of the plain version
 _CHUNK = 1 << 22
@@ -44,6 +54,23 @@ def tiling(M: int, k: int):
     """(tr, idx_bits, fold) of the JAX kernel for M reference rows."""
     tr = min(TILE, _round_up(M, 128))
     return tr, max((M - 1).bit_length(), 1), tr // 128 >= 4 and k <= FOLD_K and M > tr
+
+
+def launch_grid(B: int, N: int, M: int, C: int, tr: int, metric: str):
+    """(chunk, blocks along the queries, queries a warp).  For Euclidean
+    C <= 8: the reference rows a block stages as planes (whole tiles, the whole
+    cloud when it fits), 2 queries a warp (groups of 16) where that still gives
+    every SM two blocks, else 1 (groups of 8), and, when one chunk holds the
+    cloud, enough blocks for two an SM over the B clouds, each taking every
+    gx-th group; otherwise (a streamed reference) a block a group.  The dot
+    form: a block a group of 16."""
+    if metric != "euclidean" or C > DIRECT_MAX_C:
+        return 0, -(-N // GROUP), 1
+    planes = 3 if C == 3 else DIRECT_MAX_C
+    chunk = min(_round_up(M, tr), PLANE_BYTES // (4 * planes) // tr * tr)
+    qw = 2 if B * -(-N // GROUP) >= 2 * SMS else 1
+    groups = -(-N // (GROUP // 2 * qw))
+    return chunk, (min(groups, -(-2 * SMS // B)) if chunk >= M else groups), qw
 
 
 def approx_distances(query: torch.Tensor, ref: torch.Tensor, metric: str) -> torch.Tensor:
@@ -100,5 +127,6 @@ def knn_approx(query: torch.Tensor, ref: torch.Tensor, k: int, metric: str) -> t
     out = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
     rn = (ref * ref).sum(-1).contiguous() if metric == "euclidean" and C > DIRECT_MAX_C else ref
     _lib.launch("knn_approx", query.data_ptr(), ref.data_ptr(), rn.data_ptr(), B, N, M, C, k,
-                METRICS[metric], tr, bits, int(fold), out.data_ptr(), _lib.stream(query))
+                METRICS[metric], tr, bits, int(fold), *launch_grid(B, N, M, C, tr, metric),
+                out.data_ptr(), _lib.stream(query))
     return out

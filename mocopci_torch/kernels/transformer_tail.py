@@ -6,9 +6,11 @@ rows from the table by index; the backward returns the rows' gradient, which
 :func:`~mocopci_torch.kernels.scatter_add.gather_backward` scatters into the
 table (through the ``scatter_add`` kernel at the refine head's shape, as JAX's
 gather VJP).  The backward kernel recomputes the per-channel softmax instead
-of reading a saved (m, l), and runs the chain's products on the tensor cores
-at float32 grade over tiles of 128 pair rows; it takes the (K, D) of the
-model's refine heads, ``BWD_SHAPES``.  Operations bound both.
+of reading a saved (m, l).  At the (K, D) of the model's refine heads,
+``BWD_SHAPES``, it runs the chain's products on the tensor cores at float32
+grade over tiles of 128 pair rows; every other (K, D) whose working set fits
+in shared memory takes the general route, ``transformer_tail_bwd_general``
+(a query at a time, on FMAs).  Operations bound both.
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ REPLACES_BWD = "mocopci_tpu/ops/pallas/transformer_tail.py:237"
 _MAX_SMEM = 227 * 1024
 BWD_BLOCKS = 132      # one per SM of an H100 (the backward's shared memory fills one)
 BWD_ROWS = 128        # the backward's pair rows a tile: 128 / K queries
-# (K, D) the backward kernel takes: ModelConfig() (refine_k 16) and the tiny
-# configs (refine_k 4), both at the refine head's width 64
+# (K, D) the tensor-core backward takes: ModelConfig() (refine_k 16) and the
+# tiny configs (refine_k 4), both at the refine head's width 64; every other
+# (K, D) takes the general route
 BWD_SHAPES = ((16, 64), (4, 64))
 
 
@@ -76,14 +79,29 @@ def _check(table, idx, xyzq, q, weights):
     return B, M, N, K, D
 
 
-def _check_bwd(K, D):
-    if (K, D) not in BWD_SHAPES:
-        raise ValueError(f"transformer_tail backward kernel covers (K, D) in {BWD_SHAPES}; "
-                         f"got ({K}, {D})")
+def general_floats(K: int, D: int) -> int:
+    """The general route's shared memory in floats: the weights and their
+    transposed copies, the eight gradients, a query's K x D stages."""
+    return 9 * D * D + 20 * D + 6 * K + 11 * K * D
 
 
-def bwd_grid(B: int, N: int, K: int) -> int:
-    """The backward's blocks: one an SM, at most one a tile of 128 / K queries."""
+def bwd_route(K: int, D: int) -> str:
+    """The backward's entry point for (K, D); raises, before any launch, where
+    the general route's working set exceeds shared memory."""
+    if (K, D) in BWD_SHAPES:
+        return "transformer_tail_bwd"
+    if general_floats(K, D) * 4 > _MAX_SMEM:
+        raise ValueError(f"transformer_tail backward: K={K}, D={D} need "
+                         f"{general_floats(K, D) * 4} bytes of shared memory, past the "
+                         f"{_MAX_SMEM} a block has")
+    return "transformer_tail_bwd_general"
+
+
+def bwd_grid(B: int, N: int, K: int, route: str = "transformer_tail_bwd") -> int:
+    """The backward's blocks: one an SM, at most one a tile of 128 / K queries
+    (the general route: at most one a query)."""
+    if route == "transformer_tail_bwd_general":
+        return min(BWD_BLOCKS, B * N)
     return min(BWD_BLOCKS, -(-B * N * K // BWD_ROWS))
 
 
@@ -101,7 +119,7 @@ def transformer_tail_bwd(table, idx, xyzq, q, *weights_and_dout):
     """Kernel backward: (d_rows (B, N, K, 3+2D), dxq, dq, 8 weight grads)."""
     *weights, dout = weights_and_dout
     B, M, N, K, D = _check(table, idx, xyzq, q, weights)
-    _check_bwd(K, D)
+    route = bwd_route(K, D)
     _lib.check_cuda("transformer_tail dout", dout, torch.float32, 3)
     dev = table.device
     d_rows = torch.empty((B, N, K, 3 + 2 * D), dtype=torch.float32, device=dev)
@@ -109,9 +127,9 @@ def transformer_tail_bwd(table, idx, xyzq, q, *weights_and_dout):
     dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
     sizes = [3 * D, D, D * D, D, D * D, D, D * D, D]
     dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    nblk = bwd_grid(B, N, K)
+    nblk = bwd_grid(B, N, K, route)
     partial = torch.empty(nblk * sum(sizes), dtype=torch.float32, device=dev)
-    _lib.launch("transformer_tail_bwd", table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
+    _lib.launch(route, table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
                 q.data_ptr(), *(t.data_ptr() for t in weights), dout.data_ptr(),
                 d_rows.data_ptr(), dxq.data_ptr(), dq.data_ptr(), dw.data_ptr(),
                 partial.data_ptr(), B, M, N, K, D, nblk, _lib.stream(table))
@@ -128,7 +146,7 @@ class _TransformerTail(torch.autograd.Function):
         if cpu:
             return transformer_tail_plain(table, idx, xyzq, q, *weights)
         if any(ctx.needs_input_grad):
-            _check_bwd(idx.shape[2], q.shape[2])      # before the forward's launch
+            bwd_route(idx.shape[2], q.shape[2])      # refuses before the forward's launch
         return transformer_tail_fwd(table, idx, xyzq, q, *weights)
 
     @staticmethod

@@ -165,21 +165,30 @@ def test_fusion_pair_kernel_matches_twin(card):
     torch.testing.assert_close(logits, want_logits, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("metric,C,N,M,k", [
-    ("euclidean", 3, 500, 300, 9),        # one tile, no fold
-    ("euclidean", 3, 700, 3000, 32),      # fold, ragged last tile
-    ("euclidean", 3, 300, 1024, 16),      # exactly one full tile
-    ("euclidean", 5, 200, 2000, 8),       # direct form, C < 8
-    ("cosine", 64, 300, 2048, 16),
-    ("euclidean", 20, 200, 700, 8),       # dot form
+@pytest.mark.parametrize("metric,C,B,N,M,k", [
+    ("euclidean", 3, 2, 500, 300, 9),        # one tile, no fold
+    ("euclidean", 3, 2, 700, 3000, 32),      # fold, ragged last tile
+    ("euclidean", 3, 2, 300, 1024, 16),      # exactly one full tile
+    ("euclidean", 5, 2, 200, 2000, 8),       # direct form, C < 8
+    ("cosine", 64, 2, 300, 2048, 16),
+    ("euclidean", 20, 2, 200, 700, 8),       # dot form
+    ("euclidean", 3, 12, 8192, 8192, 32),    # the train step's largest call
+    ("cosine", 64, 2, 2048, 2048, 16),       # the step's cosine calls (up_1's cost volume)
+    ("euclidean", 3, 2, 64, 512, 32),        # a small grid
+    ("euclidean", 3, 2, 333, 5000, 1),       # k = 1
+    ("cosine", 256, 2, 256, 256, 1),         # k = 1, the widest cosine rows of the step
+    ("euclidean", 3, 1, 100, 20000, 16),     # a reference streamed in chunks of planes
 ])
-def test_knn_approx_kernel_matches_twin(card, metric, C, N, M, k):
+def test_knn_approx_kernel_matches_twin(card, metric, C, B, N, M, k):
     g = torch.Generator().manual_seed(6)
-    q, r = _x(g, 2, N, C, scale=4.0).to(card), _x(g, 2, M, C, scale=4.0).to(card)
+    q, r = _x(g, B, N, C, scale=4.0).to(card), _x(g, B, M, C, scale=4.0).to(card)
     if metric == "cosine":
         q, r = _normalise(q).contiguous(), _normalise(r).contiguous()
+    kernels.reset_launches()
     got = kernels.knn_approx(q, r, k, metric)
+    assert kernels.LAUNCHES["knn_approx"] == 1
     want = kernels.knn_approx_plain(q, r, k, metric)
+    assert torch.equal(got, kernels.knn_approx(q, r, k, metric))
     if metric == "euclidean" and C <= 8:
         assert torch.equal(got, want)     # the same distance bits, the same keys
         return
@@ -310,11 +319,12 @@ def test_scatter_add_kernel_matches_twin_and_repeats(card, planes):
     (3, 100, 77, 70),      # D not a multiple of 8
     (2, 70, 130, 128),
     (1, 40, 50, 512),      # more head dims than a block holds: two slices
+    (1, 100, 4096, 256),   # the wide route at M = MAX_SEQ, N not a multiple of its 64
 ])
 def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
     """Output, its log-sum-exp and the gradients against the plain version,
-    the backward's bits repeated, and each direction's route (one pass up to
-    D = 64, wide above) counted."""
+    both directions' bits repeated, and each direction's route (one pass up
+    to D = 64, wide above) counted."""
     from mocopci_torch.kernels.attention_train import (MAX_BWD_D, MAX_FWD_D,
                                                        attention_train_bwd,
                                                        attention_train_bwd_plain,
@@ -335,6 +345,7 @@ def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
     for leaf, w in zip(leaves, attention_train_bwd_plain(q, k, v, -987654, D ** -0.5, rate, do)):
         torch.testing.assert_close(leaf.grad, w, atol=1e-4, rtol=1e-4)
     o, lse = attention_train_fwd(q, k, v, seed, D ** -0.5, rate)
+    assert _bits_equal(o, out.detach())
     torch.testing.assert_close(lse, torch.logsumexp(q @ k.transpose(1, 2) * D ** -0.5, -1),
                                atol=1e-5, rtol=1e-4)
     again = attention_train_bwd(q, k, v, o, lse, do, seed, D ** -0.5, rate)
@@ -377,17 +388,20 @@ def test_cross_tail_bwd_kernel_matches_twin_with_ties(card, N, K, C, C2):
     assert all(_bits_equal(a, c) for a, c in zip(got, again))
 
 
-@pytest.mark.parametrize("N,K", [(300, 16), (301, 4), (2048, 16)])
-def test_transformer_tail_bwd_kernel_matches_twin(card, N, K):
+@pytest.mark.parametrize("N,K,D", [(300, 16, 64), (301, 4, 64), (2048, 16, 64), (300, 8, 64),
+                                   (301, 28, 64), (200, 16, 32), (2048, 8, 64)])
+def test_transformer_tail_bwd_kernel_matches_twin(card, N, K, D):
     """At the refine head's K = 16 (8 queries a tile) and the tiny configs'
-    K = 4 (32 a tile), with a ragged last tile at N = 300 and 301."""
+    K = 4 (32 a tile), with a ragged last tile at N = 300 and 301, on the
+    tensor cores; at refine_k = 8, at K = 28 (the largest that fits at
+    D = 64) and at D = 32, on the general route."""
     from mocopci_torch.kernels.transformer_tail import (
+        BWD_SHAPES,
         transformer_tail_bwd,
         transformer_tail_bwd_plain,
     )
 
     g = torch.Generator().manual_seed(13)
-    D = 64
     table = _x(g, 2, 700, 3 + 2 * D).to(card)
     xq, q = _x(g, 2, N, 3).to(card), _x(g, 2, N, D).to(card)
     ws = []
@@ -395,7 +409,10 @@ def test_transformer_tail_bwd_kernel_matches_twin(card, N, K):
         ws += [_x(g, ci, co, scale=ci ** -0.5).to(card), _x(g, co, scale=0.1).to(card)]
     idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32).to(card)
     dout = _x(g, 2, N, D).to(card)
+    kernels.reset_launches()
     got = transformer_tail_bwd(table, idx, xq, q, *ws, dout)
+    route = "transformer_tail_bwd" if (K, D) in BWD_SHAPES else "transformer_tail_bwd_general"
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {route: 1}, kernels.LAUNCHES
     want = transformer_tail_bwd_plain(table, idx, xq, q, *ws, dout)
     for i, (a, c) in enumerate(zip(got, want)):
         torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-3, msg=f"output {i}")

@@ -1,5 +1,5 @@
 """The CUDA-side wrappers of the train attention, the train fusion head, the
-cost-volume tail, the transformer tail's backward and FPS, driven with CPU
+cost-volume tail, the transformer tail's backward, approximate kNN and FPS, driven with CPU
 tensors: the launch is replaced by a check of its arguments against the C signature
 (``_lib.SIGNATURES``), so the route each shape takes, the shapes and
 constants handed to the kernel and the refusals before any launch are held
@@ -222,10 +222,96 @@ def test_transformer_tail_bwd_grid_and_partial_sums(launches, B, N, K, blocks):
 
 @pytest.mark.parametrize("K,D", [(8, 64), (16, 32), (4, 128)])
 def test_transformer_tail_bwd_refuses_other_shapes_before_any_launch(launches, K, D):
+    """The (K, D) outside ``BWD_SHAPES``: (8, 64) and (16, 32) take the general
+    route, which the autograd forward lets through; (4, 128) needs more shared
+    memory than a block has and is refused, by both, before any launch."""
     inputs = _transformer_tail_inputs(1, 50, 40, K, D)
-    with pytest.raises(ValueError, match="transformer_tail backward"):
+    leaves = [t.clone().requires_grad_() if t.is_floating_point() else t for t in inputs[:-1]]
+    if (K, D) == (4, 128):
+        with pytest.raises(ValueError, match="transformer_tail backward.*shared memory"):
+            transformer_tail.transformer_tail_bwd(*inputs)
+        with pytest.raises(ValueError, match="transformer_tail backward.*shared memory"):
+            transformer_tail.transformer_tail(*leaves)
+        assert not launches
+        return
+    transformer_tail.transformer_tail_bwd(*inputs)
+    transformer_tail.transformer_tail(*leaves)
+    assert [name for name, _ in launches] == ["transformer_tail_bwd_general", "transformer_tail"]
+
+
+@pytest.mark.parametrize("B,N,K,D,route,blocks", [
+    (6, 2048, 16, 64, "transformer_tail_bwd", 132),        # ModelConfig(): tensor cores
+    (2, 301, 4, 64, "transformer_tail_bwd", 19),           # the tiny configs
+    (6, 2048, 8, 64, "transformer_tail_bwd_general", 132),  # refine_k = 8
+    (1, 40, 28, 64, "transformer_tail_bwd_general", 40),   # the largest K at D = 64
+    (2, 30, 16, 32, "transformer_tail_bwd_general", 60),   # a narrower head
+])
+def test_transformer_tail_bwd_takes_its_route_and_grid(launches, B, N, K, D, route, blocks):
+    """The tensor-core kernel at ``BWD_SHAPES``; every other (K, D) that fits
+    on the general route, a block a query up to one an SM."""
+    inputs = _transformer_tail_inputs(B, 50, N, K, D)
+    d_rows, dxq, dq, *dws = transformer_tail.transformer_tail_bwd(*inputs)
+    assert [name for name, _ in launches] == [route]
+    assert transformer_tail.bwd_route(K, D) == route
+    args = launches[0][1]
+    assert args[18:24] == (B, 50, N, K, D, blocks)
+    assert args[17] is not None and d_rows.shape == (B, N, K, 3 + 2 * D)
+    assert [tuple(t.shape) for t in dws] == [(3, D), (D,), (D, D), (D,), (D, D), (D,), (D, D),
+                                            (D,)]
+
+
+@pytest.mark.parametrize("K,D", [(29, 64), (32, 64), (1, 96)])
+def test_transformer_tail_bwd_refuses_past_shared_memory(launches, K, D):
+    """9 D^2 + 20 D + 6 K + 11 K D floats past 227 KB: refused by the
+    backward and by the autograd forward, naming the limit, before any launch."""
+    assert transformer_tail.general_floats(K, D) * 4 > 227 * 1024
+    inputs = _transformer_tail_inputs(1, 50, 40, K, D)
+    with pytest.raises(ValueError, match=f"past the {227 * 1024}"):
         transformer_tail.transformer_tail_bwd(*inputs)
     leaves = [t.clone().requires_grad_() if t.is_floating_point() else t for t in inputs[:-1]]
-    with pytest.raises(ValueError, match="transformer_tail backward"):
+    with pytest.raises(ValueError, match="shared memory"):
         transformer_tail.transformer_tail(*leaves)
-    assert not launches
+    with torch.no_grad():          # the forward alone still runs
+        transformer_tail.transformer_tail(*inputs[:-1])
+    assert [name for name, _ in launches] == ["transformer_tail"]
+
+
+@pytest.mark.parametrize("B,N,M,C,metric,chunk,blocks,qw", [
+    (12, 8192, 8192, 3, "euclidean", 8192, 22, 2),   # the step's largest call: two blocks an SM
+    (6, 8192, 8192, 3, "euclidean", 8192, 44, 2),
+    (6, 2048, 2048, 3, "euclidean", 2048, 44, 2),
+    (2, 512, 2048, 3, "euclidean", 2048, 64, 1),     # small grids: a query a warp
+    (2, 64, 512, 3, "euclidean", 512, 8, 1),
+    (1, 100, 20000, 3, "euclidean", 8192, 13, 1),    # a streamed reference: a block a group
+    (2, 200, 2000, 5, "euclidean", 2048, 25, 1),     # eight planes
+    (2, 2048, 2048, 64, "cosine", 0, 128, 1),        # the dot form: a block a group of 16
+    (2, 200, 700, 20, "euclidean", 0, 13, 1),
+])
+def test_knn_approx_launch_arguments_and_grid(launches, B, N, M, C, metric, chunk, blocks, qw):
+    knn_approx = importlib.import_module("mocopci_torch.kernels.knn_approx")
+    k = 32 if M > 1024 else 16
+    q, r = torch.zeros(B, N, C), torch.zeros(B, M, C)
+    out = knn_approx.knn_approx(q, r, k, metric)
+    assert [name for name, _ in launches] == ["knn_approx"]
+    args = launches[0][1]
+    tr, bits, fold = knn_approx.tiling(M, k)
+    assert args[3:12] == (B, N, M, C, k, 1 if metric == "cosine" else 0, tr, bits, int(fold))
+    assert args[12:15] == (chunk, blocks, qw) == knn_approx.launch_grid(B, N, M, C, tr, metric)
+    assert args[15] == out.data_ptr() and out.shape == (B, N, k) and out.dtype == torch.int32
+    if chunk:
+        assert chunk % tr == 0 and chunk * (3 if C == 3 else 8) * 4 <= knn_approx.PLANE_BYTES
+
+
+@pytest.mark.parametrize("G,N,M,D,rate", [(16, 256, 256, 256, 0.05), (16, 256, 256, 256, 0.0),
+                                          (2, 33, 4096, 256, 0.05), (1, 40, 50, 512, 0.0)])
+def test_attention_train_fwd_wide_launch_constants(launches, G, N, M, D, rate):
+    """The wide forward gets the shape, the scale and the TPU kernel's dropout
+    constants; rate 0 passes (0, 1.0), which picks the kernel without a hash."""
+    q, k = torch.zeros(G, N, D), torch.zeros(G, M, D)
+    seed = torch.zeros(1, dtype=torch.int32)
+    out, lse = attention_train.attention_train_fwd(q, k, k, seed, D ** -0.5, rate)
+    assert [name for name, _ in launches] == ["attention_train_fwd_wide"]
+    args = launches[0][1]
+    assert args[5:10] == (G, N, M, D, D ** -0.5) and args[10] == seed.data_ptr()
+    assert args[11:13] == ((0, 1.0) if rate == 0.0 else attention_train.dropout_constants(rate))
+    assert out.shape == (G, N, D) and lse.shape == (G, N)
