@@ -18,15 +18,18 @@ Phases, each fatal on failure:
      run with ``device="cpu"`` (the plain twins), the median forward time and
      peak memory; one profiled forward in approx mode (device time per
      kernel, the device's busy share, each FPS launch's shape and device ms,
-     the SM clock before and after);
+     each ``knn_approx``, eval attention and cost-volume tail call's shape,
+     device ms, bound and lost time, the SM clock before and after);
   5. the eval path: ``eval_step`` (forward, CD, EMD) on one sample, its
      metrics against the CPU's, the times of its parts, then the eval CLI
      ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
   6. the train path: ``create_train_state`` at ``ModelConfig()`` (seed 0) and
      6 ``train_step``s at B=2 on synthetic pairs (finite losses, launches,
      median step time of the last 5, peak memory, one profiled step with
-     each train attention backward's shape, route and device ms and each FPS
-     launch's shape and device ms); one
+     each train attention backward's shape, route and device ms, each FPS
+     launch's shape and device ms, and each attention forward's,
+     ``knn_approx``'s and cost-volume tail forward's shape, device ms, bound
+     and lost time); one
      step at ``tiny_model_config(4096)`` on the card against the CPU (loss
      components within rel 1e-4, the whole gradient within rel L2 1e-3, each
      leaf within 5e-2: see ``run_train_parity``);
@@ -46,7 +49,10 @@ show it repeats its bits; the attention backward on both its routes (one
 pass up to head dim 64 and the wide route at the CrossFrameBlock's 256,
 each with and without dropout, beside SDPA's float32 backward without
 dropout); the cost-volume tail's forward with its argmax against the twin's
-first argmax, and its backward from that argmax.  FPS at the train step's
+first argmax, and its backward from that argmax.  The eval attention at
+the eval forward's six call shapes, on both its routes (one pass up to head
+dim 64, ``attention_wide`` above), each within 1e-5 of its plain version with
+its bits repeated.  FPS at the train step's
 (6, 8192) -> 2048 and the encoder's pyramid (2, 8192) -> 2048/512/256/64 in
 one launch, each bit-equal to its plain version.  ``knn_approx`` also at the
 train step's largest call, (12, 8192, 8192, 3) k=32, and its cosine calls,
@@ -57,7 +63,10 @@ cores at refine_k 16, the general route at 8).  With ``--parent TREE``
 archive``) that tree's ``PARENT_SOURCES`` are built alone and timed beside
 this tree's at the same shapes, in turns (its pyramid as that tree samples
 it: a launch a level and the gathers between, where it has no pyramid
-entry; the wide attention forward beside SDPA too).  The op kernels (select_min_k, the one-hot scatter,
+entry; the wide attention forward beside SDPA too; the eval attention at
+its six shapes beside SDPA; the cost-volume tail's forward at the eval's
+(3, 2048, 32) and, with its argmax, the step's (6, 2048, 32), its output
+and argmax held bit-equal to that tree's).  The op kernels (select_min_k, the one-hot scatter,
 the pair planes' rows forward and backward) at the shapes of phase 7; the
 one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
 by CUDA events and by device time under torch.profiler.
@@ -284,24 +293,50 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
         8.0 * p1.shape[0] * n0 * n0, gap, qtol)
     check_knn_approx_step(kernels, cfg, p1, p2, rnd, parent)
 
-    # attention: Multi_Frame_Att at L1, (B*F*H, N, hd) = (5*8, n1, c1/8); then
-    # EI at L2 / L3 and Cross_Frame_Att (head width c3) for the other widths
-    for G, N, D in ((8, n2, c2 // 8), (8, n3, c3 // 8), (8, n3, c3)):
+    # attention: the eval forward's six call shapes (G, N, M, D), each called
+    # twice a forward (its profiled forward logs them): 5 frames x 8 heads at
+    # n1 and n2, 8 heads at n1, n2 and n3, and a head of width c3 at n3 (the
+    # wide route); each within 1e-5 of its plain version, its bits repeated,
+    # its route counted; with a parent, timed beside that tree's kernel and
+    # SDPA
+    mod = mods["attention"]
+    for G, N, D in ((40, n1, c1 // 8), (40, n2, c2 // 8), (8, n1, c1 // 8), (8, n2, c2 // 8),
+                    (8, n3, c3 // 8), (8, n3, c3)):
         q, kk, v = rnd(G, N, D), rnd(G, N, D), rnd(G, N, D)
-        e = float((kernels.attention(q, kk, v, D ** -0.5)
-                   - kernels.attention_plain(q, kk, v, D ** -0.5)).abs().max())
-        log(f"attention ({G}, {N}, {D}): max_abs_err {e:.3e}")
-        if e > 1e-5:
-            raise SystemExit("attention disagrees with its plain version")
-    G, D = 5 * 8, c1 // 8
-    q, kk, v = rnd(G, n1, D), rnd(G, n1, D), rnd(G, n1, D)
-    s = D ** -0.5
-    err = float((kernels.attention(q, kk, v, s)
-                 - kernels.attention_plain(q, kk, v, s)).abs().max())
-    row("attention", mods["attention"],
-        lambda: kernels.attention(q, kk, v, s), lambda: kernels.attention_plain(q, kk, v, s),
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, v, scale=s),
-        4 * q.numel() * F32, G * n1 * n1 * (4 * D + 3), err, 1e-5)
+        s = D ** -0.5
+        kernels.reset_launches()
+        att = kernels.attention(q, kk, v, s)
+        launched = {n: c for n, c in kernels.LAUNCHES.items() if c}
+        e = float((att - kernels.attention_plain(q, kk, v, s)).abs().max())
+        same = bits_equal([att], [kernels.attention(q, kk, v, s)])
+        wide = D > mod.MAX_ONE_PASS_D
+        b_ms = call_bound("attn", G, N, N, D, wide=wide)
+        msg = (f"attention (G, N, M, D) {(G, N, N, D)}: route {mod.route(D)}, max_abs_err "
+               f"{e:.3e}, repeat bit-equal {same}, bound_ms {b_ms:.5f}")
+        if parent is not None:
+            gap = float((parent.attention(q, kk, v, s) - att).abs().max())
+            sdpa = device_us(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kk, v, scale=s))
+            msg += (f"; the parent's output differs by {gap:.3e}: "
+                    + beside(lambda: parent.attention(q, kk, v, s),
+                             lambda: kernels.attention(q, kk, v, s))
+                    + f"; SDPA device us {sdpa}")
+        log(msg)
+        if e > 1e-5 or not same or launched != {mod.route(D): 1}:
+            raise SystemExit(f"attention {(G, N, D)}: disagrees with its plain version, does "
+                             f"not repeat its bits or took another route ({launched})")
+    for name, (G, N, D) in (("attention", (40, n1, c1 // 8)), ("attention_wide", (8, n3, c3))):
+        q, kk, v = rnd(G, N, D), rnd(G, N, D), rnd(G, N, D)
+        s = D ** -0.5
+        err = float((kernels.attention(q, kk, v, s)
+                     - kernels.attention_plain(q, kk, v, s)).abs().max())
+        wide = name == "attention_wide"
+        add_row(rows, name, mod.SOURCE, mod.REPLACES,
+                lambda: kernels.attention(q, kk, v, s),
+                lambda: kernels.attention_plain(q, kk, v, s),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, v, scale=s),
+                4 * q.numel() * F32, G * N * N * (4 * D if wide else 4 * D + 3), err, 1e-5,
+                peak=PEAK_3XTF32_FLOPS if wide else PEAK_F32_FLOPS)
 
     # cross_tail: bid / fe at up_1, 3 folded frames x n1 queries
     G, M, N, K, C = 3, n1, n1, cfg.flow_nei, c1
@@ -316,11 +351,14 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
         (tab.numel() + base.numel() + w.numel() + b.numel() + out.numel()) * F32
         + idx.numel() * I32,
         G * N * K * (2 * C * C + 2 * C + 3 * C), err, 1e-4 * (1 + float(out.abs().max())))
-    if parent is not None:
-        gap = float((parent.cross_tail_fwd(tab, idx, base, w, b) - out).abs().max())
-        log(f"cross_tail fwd {tuple(idx.shape)} (the parent's error {gap:.3e}): "
+    if parent is not None:      # the redesign keeps the parent's bits
+        same = bits_equal([parent.cross_tail_fwd(tab, idx, base, w, b)],
+                          [kernels.cross_tail(tab, idx, base, w, b)])
+        log(f"cross_tail fwd {tuple(idx.shape)} (bit-equal to the parent's {same}): "
             + beside(lambda: parent.cross_tail_fwd(tab, idx, base, w, b),
                      lambda: kernels.cross_tail(tab, idx, base, w, b)))
+        if not same:
+            raise SystemExit("cross_tail: the forward's bits differ from the parent's")
 
     # transformer_tail: the refine head, 3 frames x refine_npoint queries
     G, M, N, K, D = 3, cfg.refine_npoint, cfg.refine_npoint, cfg.refine_k, c1
@@ -461,14 +499,14 @@ def time_chamfer_vjp(kernels, pc1, pc2, what):
 
 
 PARENT_SOURCES = ("cross_tail.cu", "fps.cu", "attention_train.cu", "transformer_tail.cu",
-                  "knn_approx.cu", "common.cu")
+                  "knn_approx.cu", "attention.cu", "common.cu")
 
 
 def build_parent(tree):
-    """Start building another checkout's cost-volume tail, FPS, train attention,
-    transformer tail and approximate kNN kernels (``PARENT_SOURCES``) into a library of their
-    own; returns a function that waits for the build and gives a
-    :class:`Parent`."""
+    """Start building another checkout's cost-volume tail, FPS, train and eval
+    attention, transformer tail and approximate kNN kernels (``PARENT_SOURCES``)
+    into a library of their own; returns a function that waits for the build
+    and gives a :class:`Parent`."""
     from mocopci_torch.kernels import _lib
 
     csrc = os.path.join(tree, "mocopci_torch", "csrc")
@@ -495,15 +533,18 @@ def _bwd_blocks(tree, module):
 
 class Parent:
     """Another checkout's cost-volume tail (forward and backward), FPS, train
-    attention forward and transformer tail backward kernels, called through
-    their C entry points with the argument lists of that tree's
-    ``_lib.SIGNATURES``: a tree without ``fps_pyramid`` samples a pyramid by
-    one launch a level and a gather between levels, and its cross_tail
-    backward recomputes the max from the forward's output (no argmax), on
-    that tree's grid (``BWD_BLOCKS``).  The attention forward is that tree's
-    ``attention_train_fwd`` entry, or ``attention_train_fwd_wide`` for the
-    wide route; ``knn_approx`` takes that tree's arguments (a launch grid
-    where its signature has one)."""
+    attention forward, eval attention and transformer tail backward kernels,
+    called through their C entry points with the argument lists of that
+    tree's ``_lib.SIGNATURES``: a tree without ``fps_pyramid`` samples a
+    pyramid by one launch a level and a gather between levels, and its
+    cross_tail backward recomputes the max from the forward's output (no
+    argmax), on that tree's grid (``BWD_BLOCKS``); its cross_tail forward
+    takes that tree's grid (``fwd_grid``) where its signature has one.  The
+    attention forward is that tree's ``attention_train_fwd`` entry, or
+    ``attention_train_fwd_wide`` for the wide route; the eval attention its
+    ``attention`` entry, or ``attention_wide`` above 64 head dims where it
+    has one; ``knn_approx`` takes that tree's arguments (a launch grid where
+    its signature has one)."""
 
     def __init__(self, tree, path):
         import ctypes
@@ -513,12 +554,21 @@ class Parent:
         plib = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(plib)
         self.sig = plib.SIGNATURES
-        self.argmax = len(self.sig["cross_tail"]) == 14
+        self.argmax = len(self.sig["cross_tail"]) >= 14
+        self.fwd_grid = None
+        if len(self.sig["cross_tail"]) == 15:
+            spec = importlib.util.spec_from_file_location(
+                "parent_cross_tail",
+                os.path.join(tree, "mocopci_torch", "kernels", "cross_tail.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            self.fwd_grid = mod.fwd_grid
         self.bwd_blocks, self.tail_bwd_blocks = (_bwd_blocks(tree, name)
                                                  for name in ("cross_tail", "transformer_tail"))
         self.lib = ctypes.CDLL(path)
         for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid", "attention_train_fwd",
-                     "attention_train_fwd_wide", "transformer_tail_bwd", "knn_approx"):
+                     "attention_train_fwd_wide", "transformer_tail_bwd", "knn_approx",
+                     "attention", "attention_wide"):
             if name in self.sig:
                 fn = getattr(self.lib, f"mocopci_{name}")
                 fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
@@ -553,13 +603,23 @@ class Parent:
             idxs.append(i)
         return tuple(idxs)
 
-    def cross_tail_fwd(self, tab, idx, base, w, b):
+    def cross_tail_fwd(self, tab, idx, base, w, b, amax=None):
+        """That tree's forward; fills ``amax`` with its argmax when given."""
         B, M, C = tab.shape
         N, K, C2 = idx.shape[1], idx.shape[2], w.shape[1]
         out = torch.empty((B, N, C2), dtype=torch.float32, device=tab.device)
-        amax = [0] if self.argmax else []
+        arg = [0 if amax is None else amax.data_ptr()] if self.argmax else []
+        grid = [self.fwd_grid(B, N, K)] if self.fwd_grid else []
         self._call("cross_tail", tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(),
-                   b.data_ptr(), out.data_ptr(), *amax, B, M, N, K, C, C2)
+                   b.data_ptr(), out.data_ptr(), *arg, B, M, N, K, C, C2, *grid)
+        return out
+
+    def attention(self, q, k, v, scale):
+        G, N, D = q.shape
+        out = torch.empty_like(q)
+        entry = "attention_wide" if D > 64 and "attention_wide" in self.sig else "attention"
+        self._call(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), G, N,
+                   k.shape[1], D, float(scale))
         return out
 
     def cross_tail_bwd(self, tab, idx, base, w, b, out, amax, dout):
@@ -847,10 +907,16 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
               median_ms(lambda: cross_tail.cross_tail_fwd(tab, idx, base, w, b))]
     log(f"cross_tail fwd {tuple(idx.shape)}: {fwd_ms[0]:.4f} ms with the argmax, "
         f"{fwd_ms[1]:.4f} ms without")
-    if parent is not None:
-        log(f"cross_tail fwd {tuple(idx.shape)} with the argmax: "
-            + beside(lambda: parent.cross_tail_fwd(tab, idx, base, w, b),
+    if parent is not None:      # the redesign keeps the parent's bits and argmax
+        pamax = torch.empty_like(amax)
+        same = (bits_equal([parent.cross_tail_fwd(tab, idx, base, w, b, pamax)], [out])
+                and torch.equal(pamax, amax))
+        log(f"cross_tail fwd {tuple(idx.shape)} with the argmax (output and argmax bit-equal "
+            f"to the parent's {same}): "
+            + beside(lambda: parent.cross_tail_fwd(tab, idx, base, w, b, pamax),
                      lambda: cross_tail.cross_tail_fwd(tab, idx, base, w, b, amax)))
+        if not same:
+            raise SystemExit("cross_tail: the forward's bits or argmax differ from the parent's")
     got = cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
     want = cross_tail.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
     same = bits_equal(got, cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, dout))
@@ -1231,10 +1297,10 @@ def chamfer(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # launch-counter names of the kernels the forward runs in each kNN mode
 FORWARD_KERNELS = {
-    "approx": ("fps", "fps_pyramid", "knn_approx", "attention", "cross_tail",
+    "approx": ("fps", "fps_pyramid", "knn_approx", "attention", "attention_wide", "cross_tail",
                "transformer_tail", "fusion_pair"),
-    "exact": ("fps", "fps_pyramid", "knn", "attention", "cross_tail", "transformer_tail",
-              "fusion_pair"),
+    "exact": ("fps", "fps_pyramid", "knn", "attention", "attention_wide", "cross_tail",
+              "transformer_tail", "fusion_pair"),
 }
 
 
@@ -1284,10 +1350,13 @@ def run_slice(kernels, cfg, dataset, dev, model, cpu_model, mode):
         f"(min {min(times):.3f}, max {max(times):.3f}), peak memory {peak / 2**20:.1f} MiB")
     busy, launched = {}, []
     if mode == "approx":
-        with recording(launched, ("knn_approx",)):
-            busy = profile_fps_calls(
-                lambda: interpolate(model, *pairs[0]), "forward",
-                lambda prof: log_calls(prof, launched, "knn_approx", "forward knn_approx"))
+        def per_call(prof):
+            log_calls(prof, launched, ("knn_approx",), "forward knn_approx")
+            log_calls(prof, launched, ("attention", "attention_wide"), "forward attention")
+            log_calls(prof, launched, ("cross_tail",), "forward cross_tail")
+
+        with recording(launched, ("knn_approx", "attention", "attention_wide", "cross_tail")):
+            busy = profile_fps_calls(lambda: interpolate(model, *pairs[0]), "forward", per_call)
     return launches, {"forward_ms": fwd_ms, "forward_ms_min": min(times),
                       "forward_ms_max": max(times), "cd_max": max(cds),
                       "peak_mib": peak / 2**20, **busy}
@@ -1380,6 +1449,7 @@ TRAIN_KERNELS = ("fps", "fps_pyramid", "knn_approx", "cross_tail", "cross_tail_b
                  "attention_train_fwd_wide", "attention_train_bwd", "attention_train_bwd_wide",
                  "fusion_pair_planes",
                  "fusion_head_train_fwd", "fusion_head_train_bwd", "chamfer_pair", "scatter_add")
+TRAIN_FWD_ENTRIES = ("attention_train_fwd", "attention_train_fwd_wide")
 TRAIN_STEPS = 6
 ZERO_GRAD_LEAVES = {f"estimator.fusion_conv{i}.bias" for i in range(3)}
 
@@ -1433,13 +1503,15 @@ def run_train(kernels, cfg, dev):
 
 
 def call_bound(kind, B, N, M, C, k=0, wide=False) -> float:
-    """bound_ms of one call of the step, counted as the kernel rows count it:
-    the train attention forward ("fwd", 4 C + 3 flops a pair at f32; on the
-    wide route 4 C at 3xTF32) and backward ("bwd", 10 C + 6 at f32; 10 C at
-    3xTF32 on the wide route), (B, N, M, C) = (G, N, M, D); ``knn_approx``
-    ("knn", 2 C + 2 a pair at f32, k indices written)."""
-    if kind == "fwd":
-        nbytes = (2 * B * N * C + 2 * B * M * C + B * N) * F32
+    """bound_ms of one call of the step or forward, counted as the kernel rows
+    count it: the train attention forward ("fwd", 4 C + 3 flops a pair at
+    f32; on the wide route 4 C at 3xTF32) and the eval attention ("attn", the
+    same without the log-sum-exp written), the train attention backward
+    ("bwd", 10 C + 6 at f32; 10 C at 3xTF32 on the wide route), (B, N, M, C)
+    = (G, N, M, D); ``knn_approx`` ("knn", 2 C + 2 a pair at f32, k indices
+    written)."""
+    if kind in ("fwd", "attn"):
+        nbytes = (2 * B * N * C + 2 * B * M * C + (B * N if kind == "fwd" else 0)) * F32
         return (bound(nbytes, B * N * M * 4.0 * C, PEAK_3XTF32_FLOPS) if wide
                 else bound(nbytes, B * N * M * (4.0 * C + 3)))[0]
     if kind == "bwd":
@@ -1449,20 +1521,30 @@ def call_bound(kind, B, N, M, C, k=0, wide=False) -> float:
     return bound((B * N * C + B * M * C) * F32 + B * N * k * I32, B * N * M * (2.0 * C + 2))[0]
 
 
-class recording:
-    """Within: each ``_lib.launch`` of an entry whose name starts with one of
-    ``prefixes`` is appended to ``launched`` as (name, args, start, end), CUDA
-    events recorded around it."""
+def tail_bound(B, M, N, K, C, C2, argmax=False) -> float:
+    """bound_ms of one cost-volume tail forward, counted as its kernel row
+    counts it: the table, base, W, b and idx read once, out (and the argmax,
+    a byte an entry for K <= 255) written once; 2 C C2 + 2 C + 3 C2 f32
+    flops a pair."""
+    nbytes = ((B * M * C + B * N * C + C * C2 + C2 + B * N * C2) * F32 + B * N * K * I32
+              + (B * N * C2 * (1 if K <= 255 else 4) if argmax else 0))
+    return bound(nbytes, B * N * K * (2.0 * C * C2 + 2 * C + 3 * C2))[0]
 
-    def __init__(self, launched, prefixes):
-        self.launched, self.prefixes = launched, prefixes
+
+class recording:
+    """Within: each ``_lib.launch`` of an entry in ``names`` is appended to
+    ``launched`` as (name, args, start, end), CUDA events recorded around
+    it."""
+
+    def __init__(self, launched, names):
+        self.launched, self.names = launched, names
 
     def __enter__(self):
         lib = importlib.import_module("mocopci_torch.kernels._lib")
         launch = self.saved = lib.launch
 
         def spied(name, *args):
-            if not name.startswith(self.prefixes):
+            if name not in self.names:
                 return launch(name, *args)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1476,31 +1558,45 @@ class recording:
         importlib.import_module("mocopci_torch.kernels._lib").launch = self.saved
 
 
-def log_calls(prof, launched, prefix, what):
-    """Each recorded launch of an entry starting with ``prefix`` (the train
-    attention forward or ``knn_approx``): its shape, device ms by CUDA events
-    and, where the profiler traced every one, by the profiler, and its bound;
-    then the sums and the lost time (device ms less the calls' bounds)."""
+def call_shape_bound(name, args):
+    """(shape, bound_ms) of one recorded launch: of the train attention
+    forward, ``knn_approx``, the eval attention or the cost-volume tail's
+    forward, from its C arguments."""
+    if name == "knn_approx":
+        return (f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}",
+                call_bound("knn", *args[3:7], k=args[7]))
+    if name.startswith("attention_train_fwd"):
+        rate = 0.0 if args[11] == 0 and args[12] == 1.0 else 1.0 - 1.0 / args[12]
+        return (f"(G, N, M, D, rate) {(*args[5:9], round(rate, 6))}, route {name}",
+                call_bound("fwd", *args[5:9], wide=name.endswith("_wide")))
+    if name.startswith("attention"):
+        return (f"(G, N, M, D) {args[4:8]}, route {name}",
+                call_bound("attn", *args[4:8], wide=name.endswith("_wide")))
+    B, M, N, K, C, C2 = args[7:13]
+    return (f"(B, M, N, K, C, C2) {args[7:13]}, argmax {bool(args[6])}",
+            tail_bound(B, M, N, K, C, C2, argmax=bool(args[6])))
+
+
+def log_calls(prof, launched, names, what):
+    """Each recorded launch of an entry in ``names``: its shape, device ms by
+    CUDA events and, where the profiler traced every one, by the profiler,
+    and its bound (``call_shape_bound``); then the sums and the lost time
+    (device ms less the calls' bounds)."""
     from torch.autograd import DeviceType
 
-    symbols = [key for key, v in KERNEL_SYMBOLS.items() if v.startswith(prefix)]
+    symbols = [key for key, v in KERNEL_SYMBOLS.items() if v in names]
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and any(sym in e.name for sym in symbols))
-    mine = [c for c in launched if c[0].startswith(prefix)]
+    mine = [c for c in launched if c[0] in names]
     traced = len(spans) == len(mine)
     total = lost = bounds = 0.0
     for i, (name, args, start, end) in enumerate(mine):
         ms = start.elapsed_time(end)
-        if prefix == "knn_approx":
-            shape = f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}"
-            b_ms = call_bound("knn", *args[3:7], k=args[7])
-        else:
-            rate = 0.0 if args[11] == 0 and args[12] == 1.0 else 1.0 - 1.0 / args[12]
-            shape = f"(G, N, M, D, rate) {(*args[5:9], round(rate, 6))}, route {name}"
-            b_ms = call_bound("fwd", *args[5:9], wide=name.endswith("_wide"))
+        shape, b_ms = call_shape_bound(name, args)
         total, lost, bounds = total + ms, lost + ms - b_ms, bounds + b_ms
         log(f"{what} {shape}: device ms {ms:.4f} by CUDA events, "
-            + (f"{(spans[i][1] - spans[i][0]) / 1e3:.4f} by the profiler" if traced
+            + (f"{(spans[i][1] - spans[i][0]) / 1e3:.4f} by the profiler, lost "
+               f"{(spans[i][1] - spans[i][0]) / 1e3 - b_ms:.4f}" if traced
                else "not matched in the profile") + f", bound_ms {b_ms:.5f}")
     # CUDA events also time the host's gap before a launch; the profiler's
     # device time, less the calls' bounds, is the lost time to rank by
@@ -1516,10 +1612,11 @@ def profile_attention_calls(step):
     3 kernels (the dot pass, the route's main kernel, the dq pass), in call
     order; then each forward, (G, N, M, D, rate), its route and the device ms
     of its kernel; then each ``knn_approx`` launch, (B, N, M, C), k and its
-    metric; each of these by CUDA events around the launch and, where the
-    profiler traced every one of their kernels, by the profiler.  Beside
-    each call its bound (``call_bound``), and for each kernel the time lost
-    over the step: the sum of device ms minus bound over its calls."""
+    metric, and each cost-volume tail forward, (B, M, N, K, C, C2); each of
+    these by CUDA events around the launch and, where the profiler traced
+    every one of their kernels, by the profiler.  Beside each call its bound
+    (``call_shape_bound``), and for each kernel the time lost over the step:
+    the sum of device ms minus bound over its calls."""
     from torch.autograd import DeviceType
 
     attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
@@ -1549,12 +1646,13 @@ def profile_attention_calls(step):
             f"kernels not matched to a call {len(spans)}")
         if not calls:
             raise SystemExit("profile: the train step called no attention backward")
-        log_calls(prof, launched, "attention_train_fwd", "train attention fwd")
-        log_calls(prof, launched, "knn_approx", "train knn_approx")
+        log_calls(prof, launched, TRAIN_FWD_ENTRIES, "train attention fwd")
+        log_calls(prof, launched, ("knn_approx",), "train knn_approx")
+        log_calls(prof, launched, ("cross_tail",), "train cross_tail fwd")
 
     attention_train.attention_train_bwd = recorded
     try:
-        with recording(launched, ("attention_train_fwd", "knn_approx")):
+        with recording(launched, TRAIN_FWD_ENTRIES + ("knn_approx", "cross_tail")):
             return profile_fps_calls(step, "train step", per_call)
     finally:
         attention_train.attention_train_bwd = bwd
@@ -1755,7 +1853,8 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                   "knn_xyz_kernel": "knn_exact",
                   "knn_dot_kernel": "knn_exact", "knn_approx_xyz_kernel": "knn_approx",
                   "knn_approx_dot_kernel": "knn_approx", "chamfer_pair_kernel": "chamfer_pair",
-                  "attention_kernel": "attention",
+                  "attention_eval_kernel": "attention",
+                  "attention_eval_wide_kernel": "attention_wide",
                   "cross_tail_kernel": "cross_tail",
                   "transformer_tail_kernel": "transformer_tail",
                   "fusion_pair_kernel": "fusion_pair",

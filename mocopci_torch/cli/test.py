@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-UNSUPPORTED = ("is not ported yet: see ROADMAP.md, section 2 (kernels and options "
+UNSUPPORTED = ("is not ported yet: see ROADMAP.md, section 1 (modules and options "
                "still to port)")
 
 

@@ -20,7 +20,8 @@ import os
 import signal
 import time
 
-UNSUPPORTED = "is not ported yet: see ROADMAP.md, section 2 (options still to port)"
+UNSUPPORTED = ("is not ported yet: see ROADMAP.md, section 1 (modules and options "
+               "still to port)")
 
 
 def parse_args(argv=None):

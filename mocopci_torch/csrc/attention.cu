@@ -2,120 +2,85 @@
 // attentions (EI cross-attention, Cross_Frame_Att, Multi_Frame_Att).
 //
 // Replaces mocopci_tpu/ops/pallas/attention.py: fused_attention_pallas (:60,
-// pallas_call :88).  Full-row softmax over M <= 4096 keys, as the TPU kernel.
+// pallas_call :88), over M <= 4096 keys.
 //
-// Bound on the H100: at the main-path shapes (head width 8-32 at 2048 tokens,
-// 256 at 256 tokens) the work is 4*N*M*D flops against q/k/v/out bytes of
-// order (N+M)*D*4, so operations bound it; a dense program that writes the
-// (N, M) logits to HBM would make it bytes.  Design: one block per
-// (group, tile of TQ queries).  The TQ logit rows live in shared memory
-// (TQ*M floats), never in HBM.  Phase 1: each thread takes keys j and forms
-// all TQ dot products from one read of k_j (q tile broadcast from shared
-// memory).  Phase 2: one warp per row, max / exp / sum.  Phase 3: threads
-// split (d, j-slice), accumulate p*v for all TQ rows, reduce the slices in
-// shared memory and divide by the row sum.  Plain FMAs, no tensor cores: a
-// later version can move phases 1 and 3 to mma.
-#include "common.cuh"
+// Bound on the H100: operations (4*N*M*D flops against (N + M)*D*4 bytes per
+// group).  Design: the training attention's forward without its dropout and
+// log-sum-exp (the bodies in attention_fwd.cuh, template flags DROP and LSE
+// off), one pass over the keys, which stream through shared memory in tiles
+// of 64 under an online softmax, so no block holds a whole row of logits:
+//   attention (D <= 64): a thread (or 2 or 4 lanes) a query, its q and
+//     numerator in registers, FMAs; 128, 64 or 32 queries a block and 1 or 2
+//     key splits, chosen from the grid (attention_fwd.cuh one_pass_grid);
+//   attention_wide (D > 64): 32 queries and 256 head dims a block, both
+//     products on mma.sync at float32 grade (3xTF32).
+// Each output element is summed in a fixed order by one owner, so the result
+// repeats bit for bit.
+#include "attention_fwd.cuh"
 
 namespace {
 
-constexpr int kTQ = 8;
-constexpr int kThreads = 256;
+template <int DP, int KSC>
+__global__ void __launch_bounds__(kFwdMaxThreads) attention_eval_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int N, int M, int D, float scale, int KS) {
+  attention_fwd_body<DP, KSC, false, false>(q, k, v, out, nullptr, N, M, D, scale, nullptr, 0,
+                                            1.f, KS);
+}
 
-__global__ void __launch_bounds__(kThreads) attention_kernel(
+__global__ void __launch_bounds__(kYThreads, 1) attention_eval_wide_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, int N, int M, int D, float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;                    // [kTQ][D]
-  float* lg = qs + kTQ * D;          // [kTQ][M]  logits, then exp(logit - max)
-  float* red = lg + kTQ * M;         // [kThreads][kTQ] partial sums
-  float* rsum = red + kThreads * kTQ;  // [kTQ]
-  const int g = blockIdx.y;
-  const int n0 = blockIdx.x * kTQ;
-  const int tid = threadIdx.x;
-  const int rows = min(kTQ, N - n0);
-  const float* qg = q + (static_cast<size_t>(g) * N + n0) * D;
-  const float* kg = k + static_cast<size_t>(g) * M * D;
-  const float* vg = v + static_cast<size_t>(g) * M * D;
+  attention_fwd_wide_body<false, false>(q, k, v, out, nullptr, N, M, D, scale, nullptr, 0, 1.f);
+}
 
-  for (int e = tid; e < kTQ * D; e += kThreads) qs[e] = e < rows * D ? qg[e] : 0.f;
-  __syncthreads();
+template <int DP, int KSC>
+cudaError_t launch_eval_splits(const float* q, const float* k, const float* v, float* out, int N,
+                               int M, int D, float scale, dim3 grid, int threads, int ks,
+                               cudaStream_t st) {
+  constexpr size_t smem = FwdTile<DP>::smem_bytes;
+  cudaError_t err = mocopci::allow_smem(attention_eval_kernel<DP, KSC>, smem);
+  if (err != cudaSuccess) return err;
+  attention_eval_kernel<DP, KSC><<<grid, threads, smem, st>>>(q, k, v, out, N, M, D, scale, ks);
+  return cudaGetLastError();
+}
 
-  // phase 1: logits
-  for (int j = tid; j < M; j += kThreads) {
-    float acc[kTQ];
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) acc[i] = 0.f;
-    const float* kr = kg + static_cast<size_t>(j) * D;
-    for (int d = 0; d < D; ++d) {
-      const float kv = kr[d];
-#pragma unroll
-      for (int i = 0; i < kTQ; ++i) acc[i] = fmaf(qs[i * D + d], kv, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) lg[i * M + j] = acc[i] * scale;
-  }
-  __syncthreads();
-
-  // phase 2: softmax numerators and row sums, one warp per row
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int i = warp; i < kTQ; i += kThreads / 32) {
-    float m = -__int_as_float(0x7f800000);
-    for (int j = lane; j < M; j += 32) m = fmaxf(m, lg[i * M + j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float s = 0.f;
-    for (int j = lane; j < M; j += 32) {
-      const float e = expf(lg[i * M + j] - m);
-      lg[i * M + j] = e;
-      s += e;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) rsum[i] = s;
-  }
-  __syncthreads();
-
-  // phase 3: out[i][d] = sum_j p[i][j] v[j][d] / rsum[i]
-  for (int d0 = 0; d0 < D; d0 += kThreads) {
-    const int dw = min(kThreads, D - d0);     // columns in this pass
-    const int js = kThreads / dw;             // j-slices
-    const int d = d0 + tid % dw;
-    const int sl = tid / dw;
-    float acc[kTQ];
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) acc[i] = 0.f;
-    if (sl < js) {
-      for (int j = sl; j < M; j += js) {
-        const float vv = vg[static_cast<size_t>(j) * D + d];
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i) acc[i] = fmaf(lg[i * M + j], vv, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) red[tid * kTQ + i] = acc[i];
-    __syncthreads();
-    for (int e = tid; e < kTQ * dw; e += kThreads) {
-      const int i = e / dw, c = e - i * dw;
-      float s = 0.f;
-      for (int t = 0; t < js; ++t) s += red[(t * dw + c) * kTQ + i];
-      if (i < rows) out[(static_cast<size_t>(g) * N + n0 + i) * D + d0 + c] = s / rsum[i];
-    }
-    __syncthreads();
-  }
+template <int DP>
+cudaError_t launch_eval(const float* q, const float* k, const float* v, float* out, int G, int N,
+                        int M, int D, float scale, cudaStream_t st) {
+  dim3 grid;
+  int threads, ks;
+  one_pass_grid<DP>(G, N, grid, threads, ks);
+  return ks == 1
+             ? launch_eval_splits<DP, 1>(q, k, v, out, N, M, D, scale, grid, threads, ks, st)
+             : launch_eval_splits<DP, 0>(q, k, v, out, N, M, D, scale, grid, threads, ks, st);
 }
 
 }  // namespace
 
-// q (G, N, D), k/v (G, M, D) f32 -> out (G, N, D); M <= 4096.
+// q (G, N, D), k/v (G, M, D) f32 -> out (G, N, D) for 1 <= D <= 64, in one
+// pass over M <= 4096 keys.
 MOCOPCI_API int mocopci_attention(const float* q, const float* k, const float* v, float* out,
                                   int G, int N, int M, int D, float scale, void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(kTQ) * (D + M) + kThreads * kTQ + kTQ) * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(attention_kernel, smem);
+  if (D < 1 || D > kMaxFwdD) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D <= 8 ? 8 : D <= 16 ? 16 : D <= 32 ? 32 : 64) {
+    case 8: return launch_eval<8>(q, k, v, out, G, N, M, D, scale, st);
+    case 16: return launch_eval<16>(q, k, v, out, G, N, M, D, scale, st);
+    case 32: return launch_eval<32>(q, k, v, out, G, N, M, D, scale, st);
+    default: return launch_eval<64>(q, k, v, out, G, N, M, D, scale, st);
+  }
+}
+
+// The same for D > 64, on the tensor cores (M <= 4096).
+MOCOPCI_API int mocopci_attention_wide(const float* q, const float* k, const float* v,
+                                       float* out, int G, int N, int M, int D, float scale,
+                                       void* stream) {
+  if (D <= kYC) return cudaErrorInvalidValue;     // the v rows come with each tile's chunk 1
+  cudaError_t err = mocopci::allow_smem(attention_eval_wide_kernel, kYSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid(mocopci::ceil_div(N, kTQ), G);
-  attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(mocopci::ceil_div(N, kYQ), mocopci::ceil_div(D, kYV), G);
+  attention_eval_wide_kernel<<<grid, kYThreads, kYSmem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, out, N, M, D, scale);
   return cudaGetLastError();
 }

@@ -78,7 +78,7 @@ __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 template <typename K>

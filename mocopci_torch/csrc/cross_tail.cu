@@ -6,16 +6,28 @@
 // from the (B, M, C) table, so the (B, K*N1, C) row tensor never exists.
 //
 // Forward, bound on the H100: operations, 2*N1*K*C*C2 flops (1.6 GFLOP per
-// up_1 call) against K*N1*C*4 gathered bytes.  Design: one block per tile of
-// QT queries; W (C x C2) is loaded into shared memory once per block and
-// reused for all QT*K rows.  Per query the K gathered rows (after the first
-// leaky) sit in shared memory; thread t owns output channel t % C2 and
-// neighbour slice t / C2, keeps a running max, and the slices are
-// max-reduced in shared memory.  The (N1, K, C2) activation is never
-// written.  When the caller asks for it (training), the forward also writes
-// the first j attaining each max, j*(n, c2): strict > along a slice's
-// ascending j, the lowest j on ties across slices, one byte an entry for
-// K <= 255.
+// up_1 call) against K*N1*C*4 gathered bytes.  Design: a register-tiled
+// product over chunks of 128 pair rows.  A unit is QT = 128 / Kp whole
+// queries (Kp = K rounded up to 8; one query in chunks of 128 rows where Kp >
+// 128), its padded rows (q, j) in order, rows j >= K masked; a fixed grid of
+// blocks walks the units.  W (C x C2, zero-padded to 64-column passes) and b
+// sit in shared memory for the block's life.  A chunk's rows are gathered
+// from the table by cp.async (16-byte pieces where C % 4 == 0 and the table
+// and base are aligned, else 4-byte; rows at a stride of an odd count of
+// float4s), the next chunk's while this one's products run; on landing each
+// element becomes x = leaky(row + base) once, written transposed ([c][row])
+// so that a thread reads 8 rows of a column as two 16-byte loads.  Thread
+// (row group rg, channel group cg) of 16 x 16 holds the 8 x 4 accumulators of
+// rows [8 rg, 8 rg + 8) and channels [4 cg, 4 cg + 4) of the pass: per c, 3
+// shared loads for 32 FMAs.  Each accumulator runs acc = fmaf(x[c], W[c, c2],
+// acc) for c ascending from 0, then leaky(acc + b): one chain a pair and
+// channel, so the bits do not depend on the tiling.  A row
+// group's 8 rows belong to one query: the thread keeps each channel's first
+// max over them (strict > along ascending j), then the row groups of a query
+// are merged in ascending order through shared memory (strict > again, and
+// across chunks in a running max), so the argmax, written when the caller
+// asks for it (training), is the first j attaining each max; one byte an
+// entry for K <= 255.  The (N1, K, C2) activation is never written.
 //
 // Backward (cross_tail.py bwd :172, pallas_call :178, _bwd_kernel :81): the
 // gradient of each (n, c2) goes to the first j attaining the max (the TPU
@@ -38,79 +50,202 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kQT = 16;
+
+// The forward's tiles: a chunk of 128 padded pair rows x a pass of 64 output
+// channels, 16 row groups of 8 rows x 16 channel groups of 4, a thread each.
+constexpr int kFRows = 128;
+constexpr int kFCols = 64;
+constexpr int kFThreads = 2 * kFRows;    // a thread 8 rows x 4 channels, two a staged row
+constexpr int kFRowGroups = kFRows / 8, kFColGroups = kFCols / 4;
+static_assert(kFRowGroups * kFColGroups == kFThreads, "the forward's thread tiles");
+constexpr int kFXS = kFRows + 4;      // row stride of the transposed x ([c][row])
+
+// K padded to whole row groups
+__host__ __device__ inline int fwd_kp(int K) { return (K + 7) & ~7; }
+// queries a unit
+__host__ __device__ inline int fwd_tile(int K) {
+  return fwd_kp(K) >= kFRows ? 1 : kFRows / fwd_kp(K);
+}
+// the staged rows' stride: C rounded up to an odd count of float4s, so that
+// 8 threads reading 16 bytes of 8 consecutive rows hit 32 distinct banks
+__host__ __device__ inline int fwd_row_stride(int C) {
+  const int s = (C + 3) & ~3;
+  return (s >> 2) & 1 ? s : s + 4;
+}
+
+inline size_t fwd_smem_floats(int K, int C, int C2) {
+  const size_t c2p = static_cast<size_t>(mocopci::ceil_div(C2, kFCols)) * kFCols;
+  const size_t qt = fwd_tile(K);
+  const size_t rows = static_cast<size_t>(kFRows) * fwd_row_stride(C);
+  return c2p * C + static_cast<size_t>(C) * kFXS + rows + ((qt * C + 3) & ~static_cast<size_t>(3)) +
+         c2p + 2 * kFRowGroups * kFCols + 2 * c2p;
+}
+
+// Queues the copies of a chunk of pair rows (zeros where a row is padding or
+// past the queries) and, on a unit's first chunk, the unit's base rows.  Two
+// threads a staged row, each reading the row's index once.
+__device__ __forceinline__ void stage_tail_chunk(
+    const float* __restrict__ tab, const int* __restrict__ idx, const float* __restrict__ base,
+    float* rows, float* bs, int q0, int ch, bool vec, int BN, int M, int N, int K, int C) {
+  const int Kp = fwd_kp(K), QT = fwd_tile(K), S = fwd_row_stride(C);
+  const int W = vec ? C >> 2 : C;       // pieces a row
+  const int r = threadIdx.x >> 1;
+  const int rho = ch * kFRows + r, q = rho / Kp, j = rho - q * Kp, n = q0 + q;
+  const bool ok = q < QT && j < K && n < BN;
+  const size_t row =
+      ok ? static_cast<size_t>(n / N) * M + idx[static_cast<size_t>(n) * K + j] : 0;
+  const float* src = tab + row * C;
+  for (int p = threadIdx.x & 1; p < W; p += 2) {
+    if (vec) mocopci::cp_async16z(rows + r * S + 4 * p, src + 4 * p, ok);
+    else mocopci::cp_async4z(rows + r * S + p, src + p, ok);
+  }
+  if (ch == 0) {
+    for (int e = threadIdx.x; e < QT * W; e += kFThreads) {
+      const int qq = e / W, c = vec ? (e - qq * W) << 2 : e - qq * W;
+      const bool okb = q0 + qq < BN;
+      const size_t sb = okb ? static_cast<size_t>(q0 + qq) * C + c : 0;
+      if (vec) mocopci::cp_async16z(bs + qq * C + c, base + sb, okb);
+      else mocopci::cp_async4z(bs + qq * C + c, base + sb, okb);
+    }
+  }
+  mocopci::cp_async_commit();
+}
 
 // kArg: also find and write the first j at each max (amax); without it the
-// instance is the plain running max
+// instance is the plain running max.  Queries are flattened (B*N), unit u =
+// blockIdx.x + i*gridDim.x; step s of a block is its unit s / nchunk, chunk
+// s % nchunk.
 template <typename IdxT, bool kArg>
-__global__ void __launch_bounds__(kThreads) cross_tail_kernel(
+__global__ void __launch_bounds__(kFThreads, 2) cross_tail_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx,
     const float* __restrict__ base, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ out, IdxT* __restrict__ amax, int M,
-    int N, int K, int C, int C2) {
-  extern __shared__ float sm[];
-  float* ws = sm;              // [C][C2]
-  float* hs = ws + C * C2;     // [K][C]
-  float* red = hs + K * C;     // [kThreads] a slice's max
-  int* redj = reinterpret_cast<int*>(red + kThreads);  // [kThreads] its first j
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  for (int e = tid; e < C * C2; e += kThreads) ws[e] = w[e];
-  const int cw = min(C2, kThreads);
-  const int js = kThreads / cw;  // neighbour slices
-  const int sl = tid / cw;
-  const float* tb = tab + static_cast<size_t>(b) * M * C;
+    const float* __restrict__ bias, float* __restrict__ out, IdxT* __restrict__ amax, int BN,
+    int M, int N, int K, int C, int C2) {
+  extern __shared__ __align__(16) float sm[];
+  const int Kp = fwd_kp(K), QT = fwd_tile(K), S = fwd_row_stride(C);
+  const int npass = mocopci::ceil_div(C2, kFCols), C2P = npass * kFCols;
+  const int nchunk = mocopci::ceil_div(QT * Kp, kFRows);
+  float* ws = sm;                              // [C][C2P] W, zero past C2
+  float* xt = ws + C * C2P;                    // [C][kFXS] x = leaky(row + base)
+  float* rows = xt + C * kFXS;                 // [kFRows][S] the chunk's gathered rows
+  float* bs = rows + kFRows * S;               // [QT][C] the unit's base rows
+  float* bb = bs + ((QT * C + 3) & ~3);        // [C2P] b, zero past C2
+  float* redv = bb + C2P;                      // [kFRowGroups][kFCols] a row group's max
+  int* redj = reinterpret_cast<int*>(redv + kFRowGroups * kFCols);   // ... its first j
+  float* runv = reinterpret_cast<float*>(redj + kFRowGroups * kFCols);  // [C2P] over chunks
+  int* runj = reinterpret_cast<int*>(runv + C2P);
+  const int tid = threadIdx.x, cg = tid % kFColGroups, rg = tid / kFColGroups;
+  const bool vec = (C & 3) == 0 && (reinterpret_cast<uintptr_t>(tab) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+  const int bx = blockIdx.x, nb = gridDim.x, nunits = mocopci::ceil_div(BN, QT);
+  const int nsteps = (bx < nunits ? mocopci::ceil_div(nunits - bx, nb) : 0) * nchunk;
+  // step s: unit bx + (s / nchunk) nb, chunk s % nchunk
+  auto unit_q0 = [&](int st) { return (bx + (st / nchunk) * nb) * QT; };
+  if (nsteps > 0) stage_tail_chunk(tab, idx, base, rows, bs, bx * QT, 0, vec, BN, M, N, K, C);
+  for (int e = tid; e < C * C2P; e += kFThreads) {
+    const int c = e / C2P, c2 = e - c * C2P;
+    ws[e] = c2 < C2 ? w[c * C2 + c2] : 0.f;
+  }
+  for (int e = tid; e < C2P; e += kFThreads) bb[e] = e < C2 ? bias[e] : 0.f;
 
-  for (int qi = 0; qi < kQT; ++qi) {
-    const int n = blockIdx.x * kQT + qi;
-    if (n >= N) break;
-    const int* in = idx + (static_cast<size_t>(b) * N + n) * K;
-    const float* bn = base + (static_cast<size_t>(b) * N + n) * C;
-    __syncthreads();
-    for (int e = tid; e < K * C; e += kThreads) {
-      const int j = e / C, c = e - j * C;
-      hs[e] = mocopci::leaky(tb[static_cast<size_t>(in[j]) * C + c] + bn[c]);
+  for (int s = 0; s < nsteps; ++s) {
+    const int ch = s % nchunk, q0 = unit_q0(s);
+    mocopci::cp_async_wait0();
+    __syncthreads();                 // the chunk has landed; every thread is done with xt
+    {  // land: x = leaky(row + base), transposed; a warp takes 32 consecutive rows
+      const int r = tid % kFRows;
+      const float* br = bs + min((ch * kFRows + r) / Kp, QT - 1) * C;
+      for (int c = (tid / kFRows) << 2; c < C; c += (kFThreads / kFRows) << 2) {
+        const float4 x = *reinterpret_cast<const float4*>(rows + r * S + c);
+        const float* b = br + c;
+        float* xc = xt + c * kFXS + r;
+        xc[0] = mocopci::leaky(x.x + b[0]);
+        if (c + 1 < C) xc[kFXS] = mocopci::leaky(x.y + b[1]);
+        if (c + 2 < C) xc[2 * kFXS] = mocopci::leaky(x.z + b[2]);
+        if (c + 3 < C) xc[3 * kFXS] = mocopci::leaky(x.w + b[3]);
+      }
     }
-    __syncthreads();
-    for (int c20 = 0; c20 < C2; c20 += cw) {
-      const int c2 = c20 + tid % cw;
-      float m = -__int_as_float(0x7f800000);
-      int jm = K;
-      if (sl < js && c2 < C2) {
-        const float bb = bias[c2];
-        for (int j = sl; j < K; j += js) {
-          float acc = 0.f;
-          const float* h = hs + j * C;
-          for (int c = 0; c < C; ++c) acc = fmaf(h[c], ws[c * C2 + c2], acc);
-          const float v = mocopci::leaky(acc + bb);
+    __syncthreads();                 // xt is complete; the staged rows are free
+    if (s + 1 < nsteps)
+      stage_tail_chunk(tab, idx, base, rows, bs, unit_q0(s + 1), (s + 1) % nchunk, vec, BN, M,
+                       N, K, C);
+    // this thread's rows: one query q, neighbours [j0, j0 + 8)
+    const int rho0 = ch * kFRows + rg * 8, q = rho0 / Kp, j0 = rho0 - q * Kp;
+    const bool qok = q < QT && q0 + q < BN;
+    for (int p = 0; p < npass; ++p) {
+      float acc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
+      const float* xp = xt + rg * 8;
+      const float* wp = ws + p * kFCols + cg * 4;
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) {
+        const float4 xa = *reinterpret_cast<const float4*>(xp + c * kFXS);
+        const float4 xb = *reinterpret_cast<const float4*>(xp + c * kFXS + 4);
+        const float4 wv = *reinterpret_cast<const float4*>(wp + c * C2P);
+        const float xr[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(xr[i], wr[k], acc[i][k]);
+      }
+      const float4 bv = *reinterpret_cast<const float4*>(bb + p * kFCols + cg * 4);
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+      float m[4];
+      int jm[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) m[k] = -__int_as_float(0x7f800000), jm[k] = K;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (!qok || j0 + i >= K) continue;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float v = mocopci::leaky(acc[i][k] + br[k]);
           if (!kArg) {
-            m = fmaxf(m, v);
-          } else if (v > m) {   // ascending j: strict > keeps the first j at the max
-            m = v;
-            jm = j;
+            m[k] = fmaxf(m[k], v);
+          } else if (v > m[k]) {     // ascending j: strict > keeps the first j at the max
+            m[k] = v;
+            jm[k] = j0 + i;
           }
         }
       }
-      red[tid] = m;
-      if (kArg) redj[tid] = jm;
+      *reinterpret_cast<float4*>(redv + rg * kFCols + cg * 4) = make_float4(m[0], m[1], m[2], m[3]);
+      if (kArg)
+        *reinterpret_cast<int4*>(redj + rg * kFCols + cg * 4) =
+            make_int4(jm[0], jm[1], jm[2], jm[3]);
       __syncthreads();
-      if (tid < cw && c20 + tid < C2) {
-        float r = red[tid];
-        int rj = kArg ? redj[tid] : 0;
-        for (int t = 1; t < js; ++t) {
-          const float v = red[t * cw + tid];
+      // merge each (query, channel) over its row groups in ascending order,
+      // then over the chunks (a query spans chunks only when it is the unit)
+      const int nq = nchunk == 1 ? QT : 1;
+      for (int e = tid; e < nq * kFCols; e += kFThreads) {
+        const int qq = e / kFCols, cl = e - qq * kFCols, c2 = p * kFCols + cl;
+        const int g0 = nchunk == 1 ? qq * Kp / 8 : 0;
+        const int g1 = nchunk == 1 ? (qq + 1) * Kp / 8 : kFRowGroups;
+        float mv = ch == 0 ? -__int_as_float(0x7f800000) : runv[c2];
+        int mj = ch == 0 || !kArg ? K : runj[c2];
+        for (int g = g0; g < g1; ++g) {
+          const float v = redv[g * kFCols + cl];
           if (!kArg) {
-            r = fmaxf(r, v);
-          } else if (v > r || (v == r && redj[t * cw + tid] < rj)) {
-            r = v;
-            rj = redj[t * cw + tid];
+            mv = fmaxf(mv, v);
+          } else if (v > mv) {
+            mv = v;
+            mj = redj[g * kFCols + cl];
           }
         }
-        const size_t o = (static_cast<size_t>(b) * N + n) * C2 + c20 + tid;
-        out[o] = r;
-        if (kArg) amax[o] = static_cast<IdxT>(rj < K ? rj : 0);
+        const int n = q0 + qq;
+        if (ch + 1 < nchunk) {
+          runv[c2] = mv;
+          if (kArg) runj[c2] = mj;
+        } else if (n < BN && c2 < C2) {
+          const size_t o = static_cast<size_t>(n) * C2 + c2;
+          out[o] = mv;
+          if (kArg) amax[o] = static_cast<IdxT>(mj < K ? mj : 0);
+        }
       }
-      __syncthreads();
+      if (p + 1 < npass) __syncthreads();     // the merge has read red before the next pass
     }
   }
 }
@@ -239,14 +374,12 @@ __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
 template <typename IdxT, bool kArg>
 cudaError_t run_fwd(const float* tab, const int* idx, const float* base, const float* w,
                     const float* b, float* out, void* amax, int B, int M, int N, int K, int C,
-                    int C2, cudaStream_t st) {
-  const size_t smem =
-      (static_cast<size_t>(C) * C2 + static_cast<size_t>(K) * C + 2 * kThreads) * sizeof(float);
+                    int C2, int nblk, cudaStream_t st) {
+  const size_t smem = fwd_smem_floats(K, C, C2) * sizeof(float);
   cudaError_t err = mocopci::allow_smem(cross_tail_kernel<IdxT, kArg>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(mocopci::ceil_div(N, kQT), B);
-  cross_tail_kernel<IdxT, kArg><<<grid, kThreads, smem, st>>>(
-      tab, idx, base, w, b, out, static_cast<IdxT*>(amax), M, N, K, C, C2);
+  cross_tail_kernel<IdxT, kArg><<<nblk, kFThreads, smem, st>>>(
+      tab, idx, base, w, b, out, static_cast<IdxT*>(amax), B * N, M, N, K, C, C2);
   return cudaGetLastError();
 }
 
@@ -269,16 +402,18 @@ cudaError_t run_bwd(const float* tab, const int* idx, const float* base, const f
 
 // tab (B, M, C), idx (B, N, K) int32, base (B, N, C), w (C, C2), b (C2)
 // -> out (B, N, C2), all f32; amax (B, N, C2), uint8 for K <= 255 else int32,
-// the first j at each max, written unless null.
+// the first j at each max, written unless null.  nblk blocks walk the units
+// of fwd_tile(K) queries.
 MOCOPCI_API int mocopci_cross_tail(const float* tab, const int* idx, const float* base,
                                    const float* w, const float* b, float* out, void* amax,
-                                   int B, int M, int N, int K, int C, int C2, void* stream) {
+                                   int B, int M, int N, int K, int C, int C2, int nblk,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (amax == nullptr)
-    return run_fwd<int, false>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, st);
+    return run_fwd<int, false>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk, st);
   if (K <= 255)
-    return run_fwd<uint8_t, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, st);
-  return run_fwd<int, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, st);
+    return run_fwd<uint8_t, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk, st);
+  return run_fwd<int, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk, st);
 }
 
 // Backward of mocopci_cross_tail given its out, its amax and dout (B, N, C2):

@@ -38,7 +38,8 @@ SIGNATURES = {
     "fps_pyramid": [_P, _I, _I, _P, _I, _P, _P],
     "knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "cross_tail": [_P] * 7 + [_I] * 6 + [_P],
+    "attention_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "cross_tail": [_P] * 7 + [_I] * 7 + [_P],
     "transformer_tail": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "fusion_pair": [_P] * 11 + [_I, _I, _I, _I, _P],
     "knn_approx": [_P, _P, _P] + [_I] * 12 + [_P, _P],

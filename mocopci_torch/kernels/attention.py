@@ -1,8 +1,12 @@
-"""Softmax attention: CUDA kernel ``csrc/attention.cu`` and its plain twin.
+"""Softmax attention: CUDA kernels ``csrc/attention.cu`` and their plain twin.
 
 Replaces ``mocopci_tpu/ops/pallas/attention.py``: ``fused_attention_pallas``
-(:60).  Full-row f32 softmax over at most ``MAX_SEQ`` keys; the logits stay in
-shared memory.  Operations bound it at the main-path shapes.
+(:60).  f32 softmax over at most ``MAX_SEQ`` keys, in one pass over the keys
+under an online softmax (the training attention's forward bodies without
+dropout or log-sum-exp).  Two routes, each its own counted entry point,
+picked by the head dim D alone: ``attention`` up to ``MAX_ONE_PASS_D`` (FMAs),
+``attention_wide`` above (the products on the tensor cores at float32
+grade).  Operations bound both.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ SOURCE = "mocopci_torch/csrc/attention.cu"
 REPLACES = "mocopci_tpu/ops/pallas/attention.py:60"
 
 MAX_SEQ = 4096
+MAX_ONE_PASS_D = 64     # the one-pass route's widest head (csrc kMaxFwdD)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,6 +26,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(G, N, D), (G, M, D), (G, M, D) -> (G, N, D) f32."""
     attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) * scale, dim=-1)
     return torch.matmul(attn, v)
+
+
+def route(D: int) -> str:
+    """The entry point that takes head dim D."""
+    return "attention" if D <= MAX_ONE_PASS_D else "attention_wide"
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -40,6 +50,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
     if not 1 <= M <= MAX_SEQ:
         raise ValueError(f"attention kernel covers 1 <= M <= {MAX_SEQ}, got {M}")
     out = torch.empty_like(q)
-    _lib.launch("attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    _lib.launch(route(D), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 G, N, M, D, float(scale), _lib.stream(q))
     return out

@@ -11,8 +11,9 @@ output, the first neighbour j attaining its max (:func:`cross_tail_argmax_plain`
 is its twin), and the backward kernel routes the gradient there with no
 recompute; the twin's backward splits a max tie evenly instead.  Both give
 the same table, base and weight gradients (duplicate neighbours are the only
-systematic ties, ``cross_tail.py:20-31``).  Operations bound the forward,
-bytes (the rows' gradient it writes) the backward.
+systematic ties, ``cross_tail.py:20-31``).  Operations bound the forward, a
+register-tiled product over chunks of 128 gathered pair rows on a fixed grid
+(``FWD_BLOCKS``); bytes (the rows' gradient it writes) bound the backward.
 """
 from __future__ import annotations
 
@@ -28,10 +29,14 @@ REPLACES_BWD = "mocopci_tpu/ops/pallas/cross_tail.py:172"
 
 LEAKY_RATE = 0.1
 _MAX_SMEM = 227 * 1024
-_THREADS = 256
 # the backward's fixed grid, two blocks per SM of an H100: each block sums its
 # tiles' dW / db in query order, the partials are summed in block order
 BWD_BLOCKS = 264
+# the forward's fixed grid, two blocks per SM, walking units of fwd_tile(K)
+# queries (csrc ``cross_tail_kernel``)
+FWD_BLOCKS = 264
+_FWD_ROWS = 128       # pair rows a chunk (csrc kFRows), in whole row groups of 8
+_FWD_COLS = 64        # output channels a pass (csrc kFCols)
 
 
 def _tail_pre(rows, base, w, b):
@@ -68,8 +73,28 @@ def cross_tail_bwd_plain(tab, idx, base, w, b, dout):
         return torch.autograd.grad(_tail(*leaves), leaves, dout)
 
 
+def fwd_tile(K: int) -> int:
+    """Queries a forward unit: as many as 128 pair rows hold, K padded to 8
+    (one, in chunks of 128 rows, past that; csrc ``fwd_tile``)."""
+    kp = -(-K // 8) * 8
+    return 1 if kp >= _FWD_ROWS else _FWD_ROWS // kp
+
+
+def fwd_grid(B: int, N: int, K: int) -> int:
+    """The forward's blocks: one a unit, at most ``FWD_BLOCKS``."""
+    return min(FWD_BLOCKS, -(-B * N // fwd_tile(K)))
+
+
 def _fwd_smem(K, C, C2):
-    return (C * C2 + K * C + 2 * _THREADS) * 4
+    """The forward's shared memory (csrc ``fwd_smem_floats``): W and b padded
+    to whole passes, x transposed, a chunk's staged rows, the unit's base
+    rows, the row groups' maxima and the running maxima."""
+    c2p = -(-C2 // _FWD_COLS) * _FWD_COLS
+    s = -(-C // 4) * 4
+    stride = s if (s // 4) % 2 else s + 4
+    floats = (c2p * C + C * (_FWD_ROWS + 4) + _FWD_ROWS * stride
+              + -(-fwd_tile(K) * C // 4) * 4 + c2p + 2 * (_FWD_ROWS // 8) * _FWD_COLS + 2 * c2p)
+    return floats * 4
 
 
 def _bwd_smem(K, C, C2):
@@ -112,7 +137,7 @@ def cross_tail_fwd(tab, idx, base, w, b, argmax=None):
     out = torch.empty((B, N, C2), dtype=torch.float32, device=tab.device)
     _lib.launch("cross_tail", tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(),
                 b.data_ptr(), out.data_ptr(), 0 if argmax is None else argmax.data_ptr(),
-                B, M, N, K, C, C2, _lib.stream(tab))
+                B, M, N, K, C, C2, fwd_grid(B, N, K), _lib.stream(tab))
     return out
 
 

@@ -42,7 +42,7 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, steps_per
     """A model with weights drawn from ``train_cfg.seed`` (on the card unless
     ``device`` says otherwise) and its optimizer."""
     if model_cfg.remat:
-        raise NotImplementedError("remat is not ported yet: see ROADMAP.md, section 2")
+        raise NotImplementedError("remat is not ported yet: see ROADMAP.md, section 1")
     model = MoCoPCI(model_cfg, device=device, seed=train_cfg.seed)
     return model, TrainState(model, make_optimizer(model, train_cfg), model_cfg, train_cfg,
                              steps_per_epoch)

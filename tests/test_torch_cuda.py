@@ -89,23 +89,64 @@ def test_knn_kernel_matches_twin(card, metric, C, k):
     assert (got == want).float().mean() > 0.999
 
 
-def test_attention_kernel_matches_twin(card):
+@pytest.mark.parametrize("G,N,M,D", [
+    (6, 100, 300, 8),
+    (2, 33, 64, 256),      # the wide route
+    (3, 40, 4096, 16),     # M = MAX_SEQ
+    (3, 333, 517, 32),     # N, M not multiples of the query tile or key tile
+    (2, 129, 70, 64),
+    (2, 129, 70, 6),       # D % 4 != 0, padded to 8
+    (2, 150, 333, 12),     # padded to 16
+    (2, 100, 77, 70),      # the wide route, D not a multiple of 8
+    (1, 1, 300, 8),        # one query
+    (4, 50, 1, 16),        # one key
+    (1, 1, 1, 256),
+    (8, 256, 256, 32),     # a grid smaller than the SM count: two key splits
+    (8, 512, 512, 16),
+    (8, 2048, 2048, 8),
+    (8, 256, 256, 256),    # the eval forward's wide call
+    (1, 100, 4096, 256),   # the wide route at M = MAX_SEQ
+    (1, 40, 50, 512),      # more head dims than a block holds: two slices
+])
+def test_attention_kernel_matches_twin(card, G, N, M, D):
+    """Each route against the plain version (one pass up to D = 64, the wide
+    route above), the route counted and its bits repeated."""
+    from mocopci_torch.kernels.attention import route
+
     g = torch.Generator().manual_seed(2)
-    for G, N, M, D in ((6, 100, 300, 8), (2, 33, 64, 256), (3, 40, 4096, 16)):
-        q, k, v = (_x(g, G, L, D).to(card) for L in (N, M, M))
-        got = kernels.attention(q, k, v, D ** -0.5)
-        torch.testing.assert_close(got, kernels.attention_plain(q, k, v, D ** -0.5),
-                                   atol=1e-5, rtol=1e-4)
+    q, k, v = (_x(g, G, L, D).to(card) for L in (N, M, M))
+    kernels.reset_launches()
+    got = kernels.attention(q, k, v, D ** -0.5)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {route(D): 1}, kernels.LAUNCHES
+    torch.testing.assert_close(got, kernels.attention_plain(q, k, v, D ** -0.5),
+                               atol=1e-5, rtol=1e-4)
+    assert _bits_equal(got, kernels.attention(q, k, v, D ** -0.5))
 
 
-def test_cross_tail_kernel_matches_twin(card):
+@pytest.mark.parametrize("N", [301, 1])
+@pytest.mark.parametrize("K", [4, 32, 300])
+@pytest.mark.parametrize("C,C2", [(64, 64), (32, 96), (8, 16), (6, 20)])
+def test_cross_tail_kernel_matches_twin(card, N, K, C, C2):
+    """The forward against the plain version over ragged units (N = 301 at
+    B = 2: units of whole queries cross the batch), K = 4 (units of 16
+    queries, half the rows padding), 32 (the model's) and 300 (a query in
+    chunks of 128 rows, an int32 argmax), several passes of 64 channels (C2
+    = 96), the 4-byte gather (C = 6) and one query; the instance with the
+    argmax returns the same bits and an argmax in range."""
+    from mocopci_torch.kernels.cross_tail import argmax_dtype, cross_tail_fwd
+
     g = torch.Generator().manual_seed(3)
-    tab, base = _x(g, 2, 700, 64).to(card), _x(g, 2, 300, 64).to(card)
-    w, b = _x(g, 64, 64, scale=0.125).to(card), _x(g, 64, scale=0.1).to(card)
-    idx = torch.randint(0, 700, (2, 300, 32), generator=g, dtype=torch.int32).to(card)
-    torch.testing.assert_close(kernels.cross_tail(tab, idx, base, w, b),
-                               kernels.cross_tail_plain(tab, idx, base, w, b),
+    tab, base = _x(g, 2, 700, C).to(card), _x(g, 2, N, C).to(card)
+    w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
+    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32).to(card)
+    kernels.reset_launches()
+    got = kernels.cross_tail(tab, idx, base, w, b)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"cross_tail": 1}
+    torch.testing.assert_close(got, kernels.cross_tail_plain(tab, idx, base, w, b),
                                atol=1e-4, rtol=1e-4)
+    amax = torch.empty((2, N, C2), dtype=argmax_dtype(K), device=card)
+    assert _bits_equal(cross_tail_fwd(tab, idx, base, w, b, amax), got)
+    assert int(amax.min()) >= 0 and int(amax.max()) < K
 
 
 @pytest.mark.parametrize("N,K,C,C2", [(300, 32, 64, 64), (301, 32, 32, 96), (50, 300, 8, 16)])
@@ -210,12 +251,13 @@ def test_chamfer_pair_kernel_matches_twin(card, G, N, M):
     assert torch.equal(k12, w12) and torch.equal(k21, w21)
 
 
-# the kernels the eval forward launches in each kNN mode
+# the kernels the eval forward launches in each kNN mode (the eval attention
+# on both its routes: Cross_Frame_Att's heads are c3 = 256 wide)
 FORWARD_KERNELS = {
-    "approx": {"fps", "fps_pyramid", "knn_approx", "attention", "cross_tail",
+    "approx": {"fps", "fps_pyramid", "knn_approx", "attention", "attention_wide", "cross_tail",
                "transformer_tail", "fusion_pair"},
-    "exact": {"fps", "fps_pyramid", "knn", "attention", "cross_tail", "transformer_tail",
-              "fusion_pair"},
+    "exact": {"fps", "fps_pyramid", "knn", "attention", "attention_wide", "cross_tail",
+              "transformer_tail", "fusion_pair"},
 }
 
 

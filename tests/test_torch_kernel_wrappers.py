@@ -1,6 +1,6 @@
-"""The CUDA-side wrappers of the train attention, the train fusion head, the
-cost-volume tail, the transformer tail's backward, approximate kNN and FPS, driven with CPU
-tensors: the launch is replaced by a check of its arguments against the C signature
+"""The CUDA-side wrappers of the train and eval attention, the train fusion
+head, the cost-volume tail, the transformer tail's backward, approximate kNN and FPS, driven
+with CPU tensors: the launch is replaced by a check of its arguments against the C signature
 (``_lib.SIGNATURES``), so the route each shape takes, the shapes and
 constants handed to the kernel and the refusals before any launch are held
 here; the kernels themselves are held against their plain versions on the
@@ -13,6 +13,7 @@ import torch
 
 from mocopci_torch.kernels import _lib
 
+attention = importlib.import_module("mocopci_torch.kernels.attention")
 attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
 cross_tail = importlib.import_module("mocopci_torch.kernels.cross_tail")
 fps = importlib.import_module("mocopci_torch.kernels.fps")
@@ -164,6 +165,74 @@ def test_cross_tail_fwd_passes_its_argmax_or_none(launches, K, dtype):
     assert n0 == n1 == "cross_tail"
     assert a0[6] == 0 and a1[6] == amax.data_ptr()       # the argmax pointer, or null
     assert a0[7:13] == a1[7:13] == (2, 50, 40, K, 8, 16)  # B, M, N, K, C, C2
+
+
+@pytest.mark.parametrize("B,N,K,tile,blocks", [
+    (6, 2048, 32, 4, 264),    # the train step's call: more units than blocks
+    (3, 2048, 32, 4, 264),    # the eval forward's
+    (2, 301, 4, 16, 38),      # K padded to 8: 16 queries a unit, the last one ragged
+    (2, 301, 30, 4, 151),
+    (2, 50, 300, 1, 100),     # a query a unit, in chunks of 128 rows
+    (1, 1, 32, 4, 1),
+])
+def test_cross_tail_fwd_walks_units_on_the_fixed_grid(launches, B, N, K, tile, blocks):
+    """Units of whole queries (as many as 128 pair rows hold, K padded to
+    8), one block a unit up to FWD_BLOCKS, the grid passed after the shape."""
+    tab, idx, base, w, b = _tail_inputs(B=B, N=N, K=K)
+    out = cross_tail.cross_tail_fwd(tab, idx, base, w, b)
+    assert cross_tail.fwd_tile(K) == tile and cross_tail.fwd_grid(B, N, K) == blocks
+    assert [name for name, _ in launches] == ["cross_tail"]
+    args = launches[0][1]
+    assert args[5:7] == (out.data_ptr(), 0)
+    assert args[7:14] == (B, 50, N, K, 64, 64, blocks)
+    assert out.shape == (B, N, 64)
+
+
+@pytest.mark.parametrize("K,C,C2,fits", [(32, 64, 64, True), (32, 128, 128, True),
+                                         (4, 192, 64, False), (32, 128, 256, False)])
+def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, fits):
+    """The forward's footprint (W and b in 64-column passes, x transposed, a
+    chunk of 128 staged rows, base rows, maxima) past 227 KB is refused by
+    the forward and by the autograd forward before any launch; at (4, 192,
+    64) only the forward's footprint is past it."""
+    assert (cross_tail._fwd_smem(K, C, C2) <= cross_tail._MAX_SMEM) == fits
+    tab, idx, base, w, b = _tail_inputs(K=K, C=C, C2=C2)
+    if fits:
+        cross_tail.cross_tail_fwd(tab, idx, base, w, b)
+        assert len(launches) == 1
+        return
+    if (K, C, C2) == (4, 192, 64):
+        assert cross_tail._bwd_smem(K, C, C2) <= cross_tail._MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        cross_tail.cross_tail_fwd(tab, idx, base, w, b)
+    with pytest.raises(ValueError, match="shared memory"):
+        cross_tail.cross_tail(tab, idx, base, w.requires_grad_(), b)
+    assert not launches
+
+
+@pytest.mark.parametrize("D,route", [(8, "attention"), (6, "attention"), (64, "attention"),
+                                     (65, "attention_wide"), (256, "attention_wide"),
+                                     (512, "attention_wide")])
+def test_attention_takes_its_route_with_the_shape_and_scale(launches, D, route):
+    """The eval attention: the one-pass route up to MAX_ONE_PASS_D, the wide
+    route above, by D alone; both get (q, k, v, out, G, N, M, D, scale)."""
+    G, N, M = 3, 33, 40
+    q, k = torch.zeros(G, N, D), torch.zeros(G, M, D)
+    out = attention.attention(q, k, k, D ** -0.5)
+    assert attention.route(D) == route
+    assert [name for name, _ in launches] == [route]
+    args = launches[0][1]
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr())
+    assert args[4:9] == (G, N, M, D, D ** -0.5)
+    assert out.shape == (G, N, D)
+
+
+@pytest.mark.parametrize("M", [0, attention.MAX_SEQ + 1])
+def test_attention_refuses_keys_past_max_seq(launches, M):
+    q, k = torch.zeros(2, 8, 16), torch.zeros(2, M, 16)
+    with pytest.raises(ValueError, match="M <="):
+        attention.attention(q, k, k, 0.25)
+    assert not launches
 
 
 @pytest.mark.parametrize("amax", [torch.empty(2, 40, 64, dtype=torch.int32),
