@@ -18,8 +18,9 @@ Phases, each fatal on failure:
      run with ``device="cpu"`` (the plain twins), the median forward time and
      peak memory; one profiled forward in approx mode (device time per
      kernel, the device's busy share, each FPS launch's shape and device ms,
-     each ``knn_approx``, eval attention and cost-volume tail call's shape,
-     device ms, bound and lost time, the SM clock before and after);
+     each ``knn_approx``, eval attention, cost-volume tail and transformer
+     tail call's shape, device ms, bound and lost time, the SM clock before
+     and after);
   5. the eval path: ``eval_step`` (forward, CD, EMD) on one sample, its
      metrics against the CPU's, the times of its parts, then the eval CLI
      ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
@@ -28,12 +29,13 @@ Phases, each fatal on failure:
      median step time of the last 5, peak memory, one profiled step with
      each train attention backward's shape, route and device ms, each FPS
      launch's shape and device ms, and each attention forward's,
-     ``knn_approx``'s and cost-volume tail forward's shape, device ms, bound
-     and lost time); one
+     ``knn_approx``'s, cost-volume tail forward's, ``chamfer_pair``'s and
+     transformer tail's (both directions) shape, device ms, bound and lost
+     time); one
      step at ``tiny_model_config(4096)`` on the card against the CPU (loss
      components within rel 1e-4, the whole gradient within rel L2 1e-3, each
      leaf within 5e-2: see ``run_train_parity``);
-     one train step at ``refine_k = 8`` (the tail backward's general route);
+     one train step at ``refine_k = 8`` (the tail's general routes);
      the train CLI for one epoch, then ``--resume`` to a second;
   7. the op paths that reach the last four kernels (path "ops"): approx
      selection (``_topk_min_indices``) on the fusion query's distances at B=2,
@@ -57,8 +59,12 @@ its bits repeated.  FPS at the train step's
 one launch, each bit-equal to its plain version.  ``knn_approx`` also at the
 train step's largest call, (12, 8192, 8192, 3) k=32, and its cosine calls,
 (2, 2048, 2048, 64) k=16; the wide attention forward at rate 0.05 and 0, its
-bits repeated; the transformer tail's backward on both routes (the tensor
-cores at refine_k 16, the general route at 8).  With ``--parent TREE``
+bits repeated; the transformer tail on both routes of both directions (the
+tiled routes at refine_k 16, the general routes at 8), the forward within
+1e-4 (1 + max |out|) of its plain version with its bits repeated;
+``chamfer_pair`` at the eval's (3, 8192, 8192) and at the train step's four
+calls, its keys bit-equal to the plain version's, beside its f32 bound and
+its issue floor (``chamfer_floor``).  With ``--parent TREE``
 (another checkout, for example the parent commit unpacked with ``git
 archive``) that tree's ``PARENT_SOURCES`` are built alone and timed beside
 this tree's at the same shapes, in turns (its pyramid as that tree samples
@@ -66,7 +72,11 @@ it: a launch a level and the gathers between, where it has no pyramid
 entry; the wide attention forward beside SDPA too; the eval attention at
 its six shapes beside SDPA; the cost-volume tail's forward at the eval's
 (3, 2048, 32) and, with its argmax, the step's (6, 2048, 32), its output
-and argmax held bit-equal to that tree's).  The op kernels (select_min_k, the one-hot scatter,
+and argmax held bit-equal to that tree's; the transformer tail's forward on
+both routes at the eval's 3 and the step's 6 frames (its general route
+bit-equal to that tree's), ``chamfer_pair`` at each of its shapes, its keys
+bit-equal to that tree's, and the tail's backward bit-equal to that
+tree's).  The op kernels (select_min_k, the one-hot scatter,
 the pair planes' rows forward and backward) at the shapes of phase 7; the
 one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
 by CUDA events and by device time under torch.profiler.
@@ -142,19 +152,22 @@ def device_us(fn, reps=REPS):
     return f"{us:.3f}" if us > 0 else "not measured"
 
 
-def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
-    """(bound_ms, bound_by): the larger of bytes / HBM rate and ops / ``peak``."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS, tc_flops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and the operations'
+    time, ``flops`` / ``peak`` plus ``tc_flops`` (products on the tensor cores
+    at float32 grade beside them) / 495 / 3 TFLOP/s."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (flops / peak + tc_flops / PEAK_3XTF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def add_row(rows, name, source, replaces, launch, plain, library, nbytes, flops, err, tol,
-            reps=REPS, peak=PEAK_F32_FLOPS):
+            reps=REPS, peak=PEAK_F32_FLOPS, tc_flops=0.0):
     """Time a kernel, its plain version and the library call; one JSON row.
     Fails when the kernel's error against its plain version exceeds ``tol``."""
     ms, plain_ms = median_ms(launch, reps), median_ms(plain, max(3, reps // 4))
     lib_ms = median_ms(library, reps) if library is not None else None
-    b_ms, b_by = bound(nbytes, flops, peak)
+    b_ms, b_by = bound(nbytes, flops, peak, tc_flops)
     log(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.1e}) ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {lib_ms} bound_ms {b_ms:.5f} ({b_by})")
     if not err <= tol:
@@ -360,21 +373,54 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
         if not same:
             raise SystemExit("cross_tail: the forward's bits differ from the parent's")
 
-    # transformer_tail: the refine head, 3 frames x refine_npoint queries
-    G, M, N, K, D = 3, cfg.refine_npoint, cfg.refine_npoint, cfg.refine_k, c1
-    table, xq, qq = rnd(G, M, 3 + 2 * D), rnd(G, N, 3), rnd(G, N, D)
-    ws = []
-    for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
-        ws += [rnd(ci, co, scale=ci ** -0.5), rnd(co, scale=0.1)]
-    idx = torch.randint(0, M, (G, N, K), generator=gen, device=dev, dtype=torch.int32)
-    out = kernels.transformer_tail_plain(table, idx, xq, qq, *ws)
-    err = float((kernels.transformer_tail(table, idx, xq, qq, *ws) - out).abs().max())
-    row("transformer_tail", mods["transformer_tail"],
-        lambda: kernels.transformer_tail(table, idx, xq, qq, *ws),
-        lambda: kernels.transformer_tail_plain(table, idx, xq, qq, *ws), None,
-        (table.numel() + xq.numel() + qq.numel() + sum(t.numel() for t in ws)
-         + out.numel()) * F32 + idx.numel() * I32,
-        G * N * K * (6 * D * D + 20 * D + 3), err, 1e-4 * (1 + float(out.abs().max())))
+    # transformer_tail: the refine head, 3 frames x refine_npoint queries at
+    # refine_k (the tiled route), then at refine_k = 8 (the general route);
+    # each within 1e-4 (1 + max |out|) of its plain version, its bits
+    # repeated, its route counted; with a parent, timed beside that tree's
+    # forward at the eval's 3 and the train step's 6 frames (the general
+    # route bit-equal to it)
+    mod = mods["transformer_tail"]
+    for name, K in (("transformer_tail", cfg.refine_k), ("transformer_tail_general", 8)):
+        G, M, N, D = 3, cfg.refine_npoint, cfg.refine_npoint, c1
+        table, xq, qq = rnd(G, M, 3 + 2 * D), rnd(G, N, 3), rnd(G, N, D)
+        ws = []
+        for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
+            ws += [rnd(ci, co, scale=ci ** -0.5), rnd(co, scale=0.1)]
+        idx = torch.randint(0, M, (G, N, K), generator=gen, device=dev, dtype=torch.int32)
+        out = kernels.transformer_tail_plain(table, idx, xq, qq, *ws)
+        kernels.reset_launches()
+        tail = kernels.transformer_tail(table, idx, xq, qq, *ws)
+        launched = {n: c for n, c in kernels.LAUNCHES.items() if c}
+        err = float((tail - out).abs().max())
+        same = bits_equal([tail], [kernels.transformer_tail(table, idx, xq, qq, *ws)])
+        log(f"{name} (B, N, K, D) {(G, N, K, D)}: launches {launched}, max_abs_err {err:.3e}, "
+            f"repeat bit-equal {same}")
+        if launched != {name: 1} or not same:
+            raise SystemExit(f"{name}: another route launched, or a run did not repeat its bits")
+        nbytes, f32, tc = tail_fwd_work(G, M, N, K, D, name)
+        add_row(rows, name, mod.SOURCE, mod.REPLACES,
+                lambda: kernels.transformer_tail(table, idx, xq, qq, *ws),
+                lambda: kernels.transformer_tail_plain(table, idx, xq, qq, *ws), None,
+                nbytes, f32, err, 1e-4 * (1 + float(out.abs().max())), tc_flops=tc)
+        if parent is None:
+            continue
+        for Gp in (3, 6):
+            tb, xp, qp = rnd(Gp, M, 3 + 2 * D), rnd(Gp, N, 3), rnd(Gp, N, D)
+            ip = torch.randint(0, M, (Gp, N, K), generator=gen, device=dev, dtype=torch.int32)
+            mine = kernels.transformer_tail(tb, ip, xp, qp, *ws)
+            theirs = parent.transformer_tail(tb, ip, xp, qp, *ws)
+            same = bits_equal([theirs], [mine])
+            err_p = float((kernels.transformer_tail_plain(tb, ip, xp, qp, *ws) - mine).abs().max())
+            log(f"{name} (B, N, K, D) {(Gp, N, K, D)} (max_abs_err {err_p:.3e}; bit-equal to the "
+                f"parent's {same}, apart by {float((theirs - mine).abs().max()):.3e}; bound_ms "
+                f"{tail_fwd_bound(Gp, M, N, K, D, name):.5f}): "
+                + beside(lambda: parent.transformer_tail(tb, ip, xp, qp, *ws),
+                         lambda: kernels.transformer_tail(tb, ip, xp, qp, *ws)))
+            # the general route is the parent's kernel: its bits must not move
+            if err_p > 1e-4 * (1 + float(mine.abs().max())) or (
+                    name == "transformer_tail_general" and not same):
+                raise SystemExit(f"{name} {(Gp, N, K, D)} disagrees with its plain version or "
+                                 "the parent's bits")
 
     # fusion_pair: 3 frames x n0 queries x 2k neighbours (the fusion kNN above)
     G, N, K2 = 3, n0, 2 * k
@@ -419,7 +465,50 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
         lambda: (lambda dm: (dm.amin(2), dm.amin(1)))(torch.cdist(a, b)),
         (a.numel() + b.numel()) * F32 + 2 * 3 * n0 * I32,
         9.0 * 3 * n0 * n0, err, 0.0)
+    rows[-1]["issue_floor_ms"] = chamfer_floor(3, n0, n0)
+    log(f"kernel chamfer_pair: issue floor {rows[-1]['issue_floor_ms']:.5f} ms "
+        f"({CHAMFER_ISSUE} issue slots a pair)")
+    if parent is not None:
+        same = all(torch.equal(x, y) for x, y in zip(parent.chamfer_pair_keys(a, b), (k12, k21)))
+        log(f"chamfer_pair {tuple(a.shape)} x {tuple(b.shape)} (keys equal to the parent's "
+            f"{same}): " + beside(lambda: parent.chamfer_pair_keys(a, b),
+                                  lambda: kernels.chamfer_pair_keys(a, b)))
+        if not same:
+            raise SystemExit("chamfer_pair: the parent's keys differ from this tree's")
     return rows
+
+
+def check_chamfer_step(kernels, cfg, dev, parent=None):
+    """``chamfer_pair`` at the train step's four calls (the loss's 5 pairs x
+    B*F = 30 groups of n0 points, and 12 groups at each of the first three
+    pyramid levels), on clouds from seed 6: keys bit-equal to the plain
+    version's (and, with a parent, to that tree's), each call's device time
+    beside its bound and issue floor (and the parent's, in turns)."""
+    from mocopci_torch.config import TrainConfig
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    G1 = TrainConfig().batch_size * cfg.n_frames * 2
+    for G, n in ((30, cfg.npoints), (G1, cfg.pyramid[0]), (G1, cfg.pyramid[1]),
+                 (G1, cfg.pyramid[2])):
+        a, b = (torch.randn(G, n, 3, generator=gen, device=dev) * 10.0 for _ in range(2))
+        k12, k21 = kernels.chamfer_pair_keys(a, b)
+        w12, w21 = kernels.chamfer_pair_keys_plain(a, b)
+        mism = int((k12 != w12).sum() + (k21 != w21).sum())
+        ms = median_ms(lambda: kernels.chamfer_pair_keys(a, b))
+        msg = (f"chamfer_pair step call (G, N, M) {(G, n, n)}: key mismatches {mism}; ms "
+               f"{ms:.4f}, bound_ms {call_bound('chamfer', G, n, n, 3):.5f}, issue floor "
+               f"{chamfer_floor(G, n, n):.5f}")
+        same = True
+        if parent is not None:
+            same = all(torch.equal(x, y) for x, y in zip(parent.chamfer_pair_keys(a, b),
+                                                         (k12, k21)))
+            msg += (f"; keys equal to the parent's {same}: "
+                    + beside(lambda: parent.chamfer_pair_keys(a, b),
+                             lambda: kernels.chamfer_pair_keys(a, b)))
+        log(msg)
+        if mism or not same:
+            raise SystemExit(f"chamfer_pair {(G, n, n)}: keys differ from the plain version's "
+                             "or the parent's")
 
 
 def check_knn_approx_step(kernels, cfg, p1, p2, rnd, parent=None):
@@ -499,12 +588,12 @@ def time_chamfer_vjp(kernels, pc1, pc2, what):
 
 
 PARENT_SOURCES = ("cross_tail.cu", "fps.cu", "attention_train.cu", "transformer_tail.cu",
-                  "knn_approx.cu", "attention.cu", "common.cu")
+                  "knn_approx.cu", "attention.cu", "chamfer_pair.cu", "common.cu")
 
 
 def build_parent(tree):
     """Start building another checkout's cost-volume tail, FPS, train and eval
-    attention, transformer tail and approximate kNN kernels (``PARENT_SOURCES``)
+    attention, transformer tail, approximate kNN and Chamfer kernels (``PARENT_SOURCES``)
     into a library of their own; returns a function that waits for the build
     and gives a :class:`Parent`."""
     from mocopci_torch.kernels import _lib
@@ -533,7 +622,7 @@ def _bwd_blocks(tree, module):
 
 class Parent:
     """Another checkout's cost-volume tail (forward and backward), FPS, train
-    attention forward, eval attention and transformer tail backward kernels,
+    attention forward, eval attention, transformer tail and Chamfer key kernels,
     called through their C entry points with the argument lists of that
     tree's ``_lib.SIGNATURES``: a tree without ``fps_pyramid`` samples a
     pyramid by one launch a level and a gather between levels, and its
@@ -544,7 +633,9 @@ class Parent:
     ``attention_train_fwd_wide`` for the wide route; the eval attention its
     ``attention`` entry, or ``attention_wide`` above 64 head dims where it
     has one; ``knn_approx`` takes that tree's arguments (a launch grid where
-    its signature has one)."""
+    its signature has one); the transformer tail's forward and ``chamfer_pair``
+    take this tree's grid where that tree's signature has one, and their
+    outputs are filled as that tree's wrapper fills them."""
 
     def __init__(self, tree, path):
         import ctypes
@@ -567,8 +658,9 @@ class Parent:
                                                  for name in ("cross_tail", "transformer_tail"))
         self.lib = ctypes.CDLL(path)
         for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid", "attention_train_fwd",
-                     "attention_train_fwd_wide", "transformer_tail_bwd", "knn_approx",
-                     "attention", "attention_wide"):
+                     "attention_train_fwd_wide", "transformer_tail", "transformer_tail_general",
+                     "transformer_tail_bwd", "knn_approx", "attention", "attention_wide",
+                     "chamfer_pair"):
             if name in self.sig:
                 fn = getattr(self.lib, f"mocopci_{name}")
                 fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
@@ -664,6 +756,39 @@ class Parent:
         self._call("knn_approx", query.data_ptr(), ref.data_ptr(), rn.data_ptr(), B, N, M, C, k,
                    METRICS[metric], tr, bits, int(fold), *grid, out.data_ptr())
         return out
+
+    def transformer_tail(self, table, idx, xyzq, q, *weights):
+        """That tree's forward: its route for (K, D) where it has two, on this
+        tree's grid where its entry takes one."""
+        from mocopci_torch.kernels.transformer_tail import fwd_grid, fwd_route
+
+        B, M, _ = table.shape
+        N, K, D = idx.shape[1], idx.shape[2], q.shape[2]
+        out = torch.empty((B, N, D), device=table.device)
+        entry, grid = "transformer_tail", []
+        if "transformer_tail_general" in self.sig:
+            entry = fwd_route(K, D)
+            if len(self.sig[entry]) == 20:
+                grid = [fwd_grid(B, N, K)]
+        self._call(entry, table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(), q.data_ptr(),
+                   *(t.data_ptr() for t in weights), out.data_ptr(), B, M, N, K, D, *grid)
+        return out
+
+    def chamfer_pair_keys(self, pc1, pc2):
+        """That tree's keys: both outputs filled with the f32 max's bits where
+        its entry takes no grid, else this tree's grid and fills."""
+        from mocopci_torch.kernels.chamfer_pair import INF_KEY, INT_MAX, index_bits, launch_grid
+
+        G, N, _ = pc1.shape
+        M = pc2.shape[1]
+        grid, fill12 = [], INF_KEY
+        if len(self.sig["chamfer_pair"]) == 11:
+            grid, fill12 = list(launch_grid(G, N, M)[:2]), INT_MAX
+        k12 = torch.full((G, N), fill12, dtype=torch.int32, device=pc1.device)
+        k21 = torch.full((G, M), INF_KEY, dtype=torch.int32, device=pc1.device)
+        self._call("chamfer_pair", pc1.data_ptr(), pc2.data_ptr(), G, N, M, index_bits(N, M),
+                   *grid, k12.data_ptr(), k21.data_ptr())
+        return k12, k21
 
     def transformer_tail_bwd(self, table, idx, xyzq, q, *weights_and_dout):
         """(d_rows, dxq, dq, dw) from that tree's backward, dw the eight weight
@@ -970,16 +1095,17 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
             transformer_tail.REPLACES_BWD,
             lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
             lambda: transformer_tail.transformer_tail_bwd_plain(table, idx, xq, qq, *ws, dout),
-            None, (table.numel() + 2 * xq.numel() + 3 * qq.numel() + 2 * sum(
-                t.numel() for t in ws) + G * N * K * (3 + 2 * D)) * F32 + idx.numel() * I32,
-            G * N * K * 6.0 * (3 * D * D + 3 * D), err, 1e-4, peak=PEAK_3XTF32_FLOPS)
-    if parent is not None:
+            None, *tail_bwd_work(G, M, N, K, D), err, 1e-4, peak=PEAK_3XTF32_FLOPS)
+    if parent is not None:      # the forward's redesign shares the recompute: same bits
         pgot = parent.transformer_tail_bwd(table, idx, xq, qq, *ws, dout)
-        gap = rel_err(pgot, [*got[:3], torch.cat([t.reshape(-1) for t in got[3:]])])
-        log(f"transformer_tail bwd {tuple(idx.shape)} (results differ by {gap:.3e} over max(1, "
-            f"|value|)): "
+        flat = [*got[:3], torch.cat([t.reshape(-1) for t in got[3:]])]
+        same = bits_equal(pgot, flat)
+        log(f"transformer_tail bwd {tuple(idx.shape)} (bit-equal to the parent's {same}; "
+            f"results differ by {rel_err(pgot, flat):.3e} over max(1, |value|)): "
             + beside(lambda: parent.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
                      lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout)))
+        if not same:
+            raise SystemExit("transformer_tail_bwd: the bits differ from the parent's")
     del table, xq, qq, dout, got, want
 
     # transformer_tail backward on its general route: the refine head at
@@ -1005,9 +1131,7 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
             transformer_tail.REPLACES_BWD,
             lambda: transformer_tail.transformer_tail_bwd(table, idx, xq, qq, *ws, dout),
             lambda: transformer_tail.transformer_tail_bwd_plain(table, idx, xq, qq, *ws, dout),
-            None, (table.numel() + 2 * xq.numel() + 3 * qq.numel() + 2 * sum(
-                t.numel() for t in ws) + G * N * K * (3 + 2 * D)) * F32 + idx.numel() * I32,
-            G * N * K * 6.0 * (3 * D * D + 3 * D), err, 1e-4)
+            None, *tail_bwd_work(G, M, N, K, D), err, 1e-4)
     del table, xq, qq, dout, got, want
 
     # fusion_pair planes and fusion_head_train: G x n0 queries x 2k pairs, 3 groups
@@ -1085,6 +1209,7 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
     # the Chamfer VJP of the loss (5 pairs x B*F = 30 groups of 8192 points)
     time_chamfer_vjp(kernels, rnd(30, n0, 3, scale=10.0), rnd(30, n0, 3, scale=10.0),
                      "through scatter_add, the loss shape")
+    check_chamfer_step(kernels, cfg, dev, parent)
 
 
 def op_inputs(cfg, dev):
@@ -1354,8 +1479,10 @@ def run_slice(kernels, cfg, dataset, dev, model, cpu_model, mode):
             log_calls(prof, launched, ("knn_approx",), "forward knn_approx")
             log_calls(prof, launched, ("attention", "attention_wide"), "forward attention")
             log_calls(prof, launched, ("cross_tail",), "forward cross_tail")
+            log_calls(prof, launched, TAIL_FWD_ENTRIES, "forward transformer_tail")
 
-        with recording(launched, ("knn_approx", "attention", "attention_wide", "cross_tail")):
+        with recording(launched, ("knn_approx", "attention", "attention_wide", "cross_tail")
+                       + TAIL_FWD_ENTRIES):
             busy = profile_fps_calls(lambda: interpolate(model, *pairs[0]), "forward", per_call)
     return launches, {"forward_ms": fwd_ms, "forward_ms_min": min(times),
                       "forward_ms_max": max(times), "cd_max": max(cds),
@@ -1450,6 +1577,7 @@ TRAIN_KERNELS = ("fps", "fps_pyramid", "knn_approx", "cross_tail", "cross_tail_b
                  "fusion_pair_planes",
                  "fusion_head_train_fwd", "fusion_head_train_bwd", "chamfer_pair", "scatter_add")
 TRAIN_FWD_ENTRIES = ("attention_train_fwd", "attention_train_fwd_wide")
+TAIL_FWD_ENTRIES = ("transformer_tail", "transformer_tail_general")
 TRAIN_STEPS = 6
 ZERO_GRAD_LEAVES = {f"estimator.fusion_conv{i}.bias" for i in range(3)}
 
@@ -1509,7 +1637,8 @@ def call_bound(kind, B, N, M, C, k=0, wide=False) -> float:
     same without the log-sum-exp written), the train attention backward
     ("bwd", 10 C + 6 at f32; 10 C at 3xTF32 on the wide route), (B, N, M, C)
     = (G, N, M, D); ``knn_approx`` ("knn", 2 C + 2 a pair at f32, k indices
-    written)."""
+    written); ``chamfer_pair`` ("chamfer", 9 flops a pair at f32, a key a
+    point written)."""
     if kind in ("fwd", "attn"):
         nbytes = (2 * B * N * C + 2 * B * M * C + (B * N if kind == "fwd" else 0)) * F32
         return (bound(nbytes, B * N * M * 4.0 * C, PEAK_3XTF32_FLOPS) if wide
@@ -1518,7 +1647,51 @@ def call_bound(kind, B, N, M, C, k=0, wide=False) -> float:
         nbytes = (4 * B * N * C + 4 * B * M * C + B * N) * F32
         return (bound(nbytes, B * N * M * 10.0 * C, PEAK_3XTF32_FLOPS) if wide
                 else bound(nbytes, B * N * M * (10.0 * C + 6)))[0]
+    if kind == "chamfer":
+        return bound((B * N + B * M) * (C * F32 + I32), 9.0 * B * N * M)[0]
     return bound((B * N * C + B * M * C) * F32 + B * N * k * I32, B * N * M * (2.0 * C + 2))[0]
+
+
+def tail_fwd_work(B, M, N, K, D, route="transformer_tail"):
+    """(bytes, f32 flops, tensor-core flops) of one transformer tail forward:
+    the table, xq, q, the weights and idx read once, out written once;
+    6 D^2 + 20 D + 3 flops a pair, of which the tiled route runs the three
+    D x D products (6 D^2) at 3xTF32."""
+    nbytes = ((B * M * (3 + 2 * D) + B * N * 3 + 2 * B * N * D + 3 * D * D + 7 * D) * F32
+              + B * N * K * I32)
+    pairs = B * N * K
+    tc = pairs * 6.0 * D * D if route == "transformer_tail" else 0.0
+    return nbytes, pairs * (6.0 * D * D + 20 * D + 3) - tc, tc
+
+
+def tail_fwd_bound(B, M, N, K, D, route="transformer_tail") -> float:
+    nbytes, f32, tc = tail_fwd_work(B, M, N, K, D, route)
+    return bound(nbytes, f32, tc_flops=tc)[0]
+
+
+def tail_bwd_work(B, M, N, K, D):
+    """(bytes, flops) of one transformer tail backward: the table, xq, q,
+    dout, the weights and idx read once, d_rows, dxq, dq and the weight
+    gradients written once; 6 (3 D^2 + 3 D) flops a pair (the chain's
+    products, recompute and VJP)."""
+    nbytes = ((B * M * (3 + 2 * D) + 2 * B * N * 3 + 3 * B * N * D + 2 * (3 * D * D + 7 * D)
+               + B * N * K * (3 + 2 * D)) * F32 + B * N * K * I32)
+    return nbytes, B * N * K * 6.0 * (3 * D * D + 3 * D)
+
+
+def tail_bwd_bound(B, M, N, K, D) -> float:
+    """bound_ms of one tiled-route backward: its products at 3xTF32."""
+    return bound(*tail_bwd_work(B, M, N, K, D), PEAK_3XTF32_FLOPS)[0]
+
+
+# chamfer_pair's instructions a pair, fixed by its bit contract: 3 subtractions,
+# a product and 2 FMAs, the key's mask and two add-and-min (DPX); the floor is
+# one instruction a clock on each of an H100's 132 x 4 schedulers at 1.98 GHz
+CHAMFER_ISSUE = 9
+
+
+def chamfer_floor(G, N, M) -> float:
+    return G * N * M * CHAMFER_ISSUE / (132 * 4 * 32 * 1.98e9) * 1e3
 
 
 def tail_bound(B, M, N, K, C, C2, argmax=False) -> float:
@@ -1560,8 +1733,17 @@ class recording:
 
 def call_shape_bound(name, args):
     """(shape, bound_ms) of one recorded launch: of the train attention
-    forward, ``knn_approx``, the eval attention or the cost-volume tail's
-    forward, from its C arguments."""
+    forward, ``knn_approx``, the eval attention, ``chamfer_pair``, the
+    transformer tail (either direction) or the cost-volume tail's forward,
+    from its C arguments."""
+    if name == "chamfer_pair":
+        return (f"(G, N, M) {args[2:5]}, threads {args[6]}, span {args[7]}",
+                call_bound("chamfer", *args[2:5], 3))
+    if name.startswith("transformer_tail_bwd"):
+        return f"(B, M, N, K, D) {args[18:23]}, route {name}", tail_bwd_bound(*args[18:23])
+    if name.startswith("transformer_tail"):
+        return (f"(B, M, N, K, D) {args[13:18]}, route {name}",
+                tail_fwd_bound(*args[13:18], route=name))
     if name == "knn_approx":
         return (f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}",
                 call_bound("knn", *args[3:7], k=args[7]))
@@ -1649,10 +1831,14 @@ def profile_attention_calls(step):
         log_calls(prof, launched, TRAIN_FWD_ENTRIES, "train attention fwd")
         log_calls(prof, launched, ("knn_approx",), "train knn_approx")
         log_calls(prof, launched, ("cross_tail",), "train cross_tail fwd")
+        log_calls(prof, launched, ("chamfer_pair",), "train chamfer_pair")
+        log_calls(prof, launched, TAIL_FWD_ENTRIES, "train transformer_tail fwd")
+        log_calls(prof, launched, ("transformer_tail_bwd",), "train transformer_tail bwd")
 
     attention_train.attention_train_bwd = recorded
     try:
-        with recording(launched, TRAIN_FWD_ENTRIES + ("knn_approx", "cross_tail")):
+        with recording(launched, TRAIN_FWD_ENTRIES + TAIL_FWD_ENTRIES + (
+                "knn_approx", "cross_tail", "chamfer_pair", "transformer_tail_bwd")):
             return profile_fps_calls(step, "train step", per_call)
     finally:
         attention_train.attention_train_bwd = bwd
@@ -1789,8 +1975,9 @@ def run_train_parity(kernels, dev):
 
 def run_train_refine_k(kernels, dev, refine_k=8):
     """One train step at ``ModelConfig()`` with ``refine_k`` (B=2, synthetic
-    pairs, seed 4): finite losses, and the refine head's transformer-tail
-    backward on its general route (``BWD_SHAPES`` holds refine_k 16 and 4)."""
+    pairs, seed 4): finite losses, and the refine head's transformer tail,
+    forward and backward, on their general routes (``BWD_SHAPES`` holds
+    refine_k 16 and 4)."""
     import dataclasses
 
     from mocopci_torch import ModelConfig, ops
@@ -1817,8 +2004,9 @@ def run_train_refine_k(kernels, dev, refine_k=8):
         + json.dumps({k: round(v, 6) for k, v in aux.items()}) + f", launches {launches}")
     if not all(np.isfinite(v) for v in aux.values()):
         raise SystemExit(f"train refine_k={refine_k}: loss not finite")
-    if launches["transformer_tail_bwd_general"] == 0 or launches["transformer_tail_bwd"]:
-        raise SystemExit(f"train refine_k={refine_k}: the tail backward took another route")
+    if (launches["transformer_tail_bwd_general"] == 0 or launches["transformer_tail_bwd"]
+            or launches["transformer_tail_general"] == 0 or launches["transformer_tail"]):
+        raise SystemExit(f"train refine_k={refine_k}: the tail took another route")
     return launches, {"step_ms": step_ms, "loss": aux["loss"]}
 
 
@@ -1856,7 +2044,8 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                   "attention_eval_kernel": "attention",
                   "attention_eval_wide_kernel": "attention_wide",
                   "cross_tail_kernel": "cross_tail",
-                  "transformer_tail_kernel": "transformer_tail",
+                  "transformer_tail_fwd_kernel": "transformer_tail",
+                  "transformer_tail_general_kernel": "transformer_tail_general",
                   "fusion_pair_kernel": "fusion_pair",
                   "scatter_add_": "scatter_add",     # every kernel of scatter_add.cu
                   "attention_train_fwd_kernel": "attention_train_fwd",
@@ -1980,6 +2169,7 @@ def main() -> int:
     # the exact-mode forward for knn_exact, eval_step for chamfer_pair, the
     # train steps for the train kernels, the op paths for the op kernels
     home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair"),
+            "transformer_tail_general": ("train_refine_k8", "transformer_tail_general"),
             "transformer_tail_bwd_general": ("train_refine_k8", "transformer_tail_bwd_general")}
     home.update({name: ("ops", name) for name in OPS_KERNELS if name != "chamfer_pair"})
     home.update({name: ("train", name) for name in TRAIN_KERNELS

@@ -22,6 +22,7 @@ using mocopci::cp_async4;
 using mocopci::cp_async4z;
 using mocopci::cp_async_commit;
 using mocopci::cp_async_wait0;
+using mocopci::cp_async_wait1;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -32,11 +33,6 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
-}
-
-// every group but the newest has landed (for this thread's copies)
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // An A fragment from (hi, lo) pairs a0..a3 in the fragment's order.

@@ -78,6 +78,11 @@ __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// every group but the newest has landed (for this thread's copies)
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

@@ -11,16 +11,11 @@
 // _bwd_kernel :113).  The forward emits no running (m, l): the backward
 // recomputes the whole per-channel softmax over the K neighbours instead.
 //
-// Forward: bound on the H100 by operations, 2*N*K*(3D + 3D^2) flops (3.2
-// GFLOP at the refine head) against N*K*(3+2D)*4 gathered bytes.  One block per
-// tile of QT queries; the four weight matrices (3D^2+3D floats, 49 KB at
-// D=64) are loaded into shared memory once per block.  Per query the K x D
-// activations of each stage stay in shared memory; thread t computes items
-// (j, e) with e fastest, so weight reads are conflict-free and activation
-// reads are warp broadcasts.  The final per-channel softmax over K is done by
-// one thread per channel.  No (N, K, D) tensor is written to HBM.
-//
-// Backward: see the block comment above transformer_tail_bwd_kernel.
+// Both directions have two routes.  At (K, D) = (16, 64) and (4, 64), the
+// model's refine heads, tiles of 128 pair rows with the products on the
+// tensor cores at float32 grade (see "the tiled routes" below).  Every other
+// (K, D) within shared memory takes a general route on FMAs
+// (transformer_tail_general_kernel, transformer_tail_bwd_general_kernel).
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
@@ -42,7 +37,17 @@ __device__ __forceinline__ void dense(const float* src, int fin, const float* w,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) transformer_tail_kernel(
+// ---- forward, the general route: any (K, D) whose working set fits ----
+//
+// Bound on the H100 by operations, 2*N*K*(3D + 3D^2) flops on FMAs.  One
+// block per tile of QT queries; the four weight matrices (3D^2+3D floats, 49
+// KB at D=64) are loaded into shared memory once per block.  Per query the K
+// x D activations of each stage stay in shared memory; thread t computes
+// items (j, e) with e fastest, so weight reads are conflict-free and
+// activation reads are warp broadcasts.  The final per-channel softmax over K
+// is done by one thread per channel.  No (N, K, D) tensor is written to HBM.
+// Working set: 3 D^2 + 8 D + 3 K + 3 K D floats.
+__global__ void __launch_bounds__(kThreads) transformer_tail_general_kernel(
     const float* __restrict__ table, const int* __restrict__ idx,
     const float* __restrict__ xyzq, const float* __restrict__ q,
     const float* __restrict__ wd1, const float* __restrict__ bd1,
@@ -335,49 +340,70 @@ __global__ void __launch_bounds__(kThreads) transformer_tail_bwd_general_kernel(
   for (int e = tid; e < nacc; e += kThreads) pb[e] = acc[e];
 }
 
-// ---- backward on the tensor cores ----
+// ---- the tiled routes, (K, D) = (16, 64) and (4, 64) ----
 //
-// Bound on the H100: operations, the chain's products (the recompute r0 Wd2,
-// gv Wg1, r1 Wg2; the VJP dG2 Wg2^T, dh1 Wg1^T, dpos Wd2^T; the weight
-// gradients r1^T dG2, gv^T dh1, r0^T dpos), 6 (3 D^2 + 3 D) flops a pair.
-// Design: a fixed grid of blocks, each walking over tiles of 128 pair rows
-// (8 queries at K = 16, 32 at K = 4), 8 warps a block, D = 64.  Warp w owns
-// rows [16 w, 16 w + 16) and their queries: it gathers their [xyz | k | v]
-// rows (a row's 131 floats by consecutive lanes) and the queries' q, dout
-// and xyz into shared memory by cp.async, the next tile's as soon as it has
-// written this tile's d_rows, so the copies overlap the tile's last block
-// barrier and column sums.  It runs the chain on its rows as mma.sync m16n8k8
-// accumulator fragments (16 x 64 in 32 registers a thread), the weights as B
-// fragments from shared memory:
-//   rel = xq - xyz, h0 = rel Wd1 + bd1 and r0 = relu(h0) on FMAs;
-//   pos = r0 Wd2 + bd2 and h1 = (q - k + pos) Wg1 + bg1 on FMAs too, each sum
-//     over k in order and then the bias, as a float32 GEMM sums, so that the
-//     ReLU masks of h0 and h1 take the plain version's side of a near-zero
-//     pre-activation (fma_product);
-//   logit = r1 Wg2 + bg2 at 3xTF32;
-//   the per-channel softmax over each query's K rows (__expf, __fdividef),
-//     out and the softmax VJP dlogit = a (dout w - dout out) / sqrt(D), by
-//     shuffles over the fragment's rows (a query's K rows lie in one warp);
+// Both directions walk a fixed grid of blocks (one an SM) over tiles of 128
+// pair rows (8 queries at K = 16, 32 at K = 4), 8 warps a block, D = 64,
+// the weights staged once a block (stage_weights).  Warp w owns rows
+// [16 w, 16 w + 16) and their queries: it gathers their [xyz | k | v] rows
+// (a row's 131 floats by consecutive lanes) and the queries' q and xyz into
+// shared memory by cp.async (gather_rows, gather_queries), and runs the
+// chain on its rows as mma.sync m16n8k8 accumulator fragments (16 x 64 in 32
+// registers a thread), the weights as B fragments from shared memory.  An
+// accumulator is the next product's A fragment as it stands (each k-step's
+// k index permuted, chain_product), and every tensor-core operand is split
+// into its TF32 hi and lo parts by bit masks (split_tf32_rz), not by the
+// conversion unit.  h0 = (xq - xyz) Wd1 + bd1 runs on FMAs (pos_hidden), the
+// per-channel softmax over each query's K rows by shuffles over the
+// fragment's rows, a query's K rows lying in one warp (query_softmax;
+// __expf, __fdividef).
+//
+// Forward: bound by operations, the three D x D products (6 D^2 flops a
+// pair) at 3xTF32 and 20 D + 3 a pair on FMAs.  pos = r0 Wd2 + bd2, h1 =
+// (q - k + pos) Wg1 + bg1 and logit = r1 Wg2 + bg2 all at 3xTF32 from
+// registers: only k and v are staged, w = v + pos in place of v.  Its ReLU
+// masks can differ from the backward's recompute (below) where h0 or h1
+// lies within rounding of 0; the first design, pos and h1 on FMAs as the
+// backward and only logit at 3xTF32, left the tiny model's exact-mode
+// forward off the CPU's by 1.3e-2 at one point (a near tie downstream that
+// a 1e-6 relative change of the tail's output can flip,
+// scripts/torch_tail_sensitivity.py), while this one passes every card
+// check (scripts/torch_variant_timing.py --card-checks).  A warp's chain
+// reads only its own rows, so its warps never wait for one another: the
+// block's one barrier is after the weights are staged.  A warp's next tile
+// is gathered in two cp.async groups into the buffers its current tile
+// frees: xyz, k, q and xq once h1 is computed (under the logit and the
+// softmax), v once out is summed (under the next tile's h0 and pos).  out
+// is written once, from registers; no (N, K, D) tensor reaches HBM.
+//
+// Backward: the recompute (chain_pos, chain_gate, chain_logit) runs pos =
+// r0 Wd2 + bd2 and h1 = (q - k + pos) Wg1 + bg1 on FMAs, each sum over k
+// in order and then the bias, as a float32 GEMM sums, so that the ReLU
+// masks of h0 and h1 take the plain version's side of a near-zero
+// pre-activation (fma_product), and logit at 3xTF32.  (The two
+// mask-deciding products at 6xTF32, an exact split, came within 1.5e-6 of
+// float64, but the plain version itself flips masks against float64 on most
+// random draws at the step's shape, so they differed from it by up to
+// 9.3e-3 over max(1, |value|).)
+// Bound by operations, the chain's products (the recompute r0 Wd2, gv Wg1,
+// r1 Wg2; the VJP dG2 Wg2^T, dh1 Wg1^T, dpos Wd2^T; the weight gradients
+// r1^T dG2, gv^T dh1, r0^T dpos), 6 (3 D^2 + 3 D) flops a pair.  dout's
+// rows ride along with q:
+//   the softmax VJP dlogit = a (dout w - dout out) / sqrt(D) in registers;
 //   dr1 = dG2 Wg2^T, dgv = dh1 Wg1^T, dr0 = dpos Wd2^T at 3xTF32 (the weights
 //     read transposed), drel = dh0 Wd1^T on FMAs.
-// An accumulator is the next product's A fragment as it stands (each
-// k-step's k index permuted, chain_product), and every tensor-core operand
-// is split into its TF32 hi and lo parts by bit masks (split_tf32_rz), not by
-// the conversion unit.  (The two mask-deciding products at 6xTF32, an exact
-// split, came within 1.5e-6 of float64, but the plain version itself flips
-// masks against float64 on most random draws at the step's shape, so they
-// differed from it by up to 9.3e-3 over max(1, |value|).)  The operands of
-// the weight gradients (r1, dG2, gv, dh1, r0 recomputed, dpos) are staged in
-// four [128][72] tile buffers, each a warp's rows written by that warp, and
-// after a block barrier every warp computes a 16 x 32 slice of X^T dY over
-// the 128 rows at 3xTF32, kept in registers across the block's tiles; the
-// bias gradients and dWd1 = rel^T dh0 are column sums over the staged rows (4
-// threads a column, in a fixed order).  Each warp writes its rows of d_rows =
-// [-drel | -dgv | d(v + pos)] from the staged tile in coalesced rows of 3 +
-// 2D floats; dxq and dq are summed per query over its rows in j order.  The
-// block partials are summed in block order (reduce_partials), so the result
-// repeats bit for bit.
-constexpr int kBD = 64;                  // head dim of the backward
+// The operands of the weight gradients (r1, dG2, gv, dh1, r0 recomputed,
+// dpos) are staged in four [128][72] tile buffers, each a warp's rows
+// written by that warp, and after a block barrier every warp computes a 16 x
+// 32 slice of X^T dY over the 128 rows at 3xTF32, kept in registers across
+// the block's tiles; the bias gradients and dWd1 = rel^T dh0 are column sums
+// over the staged rows (4 threads a column, in a fixed order).  Each warp
+// writes its rows of d_rows = [-drel | -dgv | d(v + pos)] from the staged
+// tile in coalesced rows of 3 + 2D floats, then gathers its next tile; dxq
+// and dq are summed per query over its rows in j order.  The block partials
+// are summed in block order (reduce_partials), so the result repeats bit for
+// bit.
+constexpr int kBD = 64;                  // head dim of the tiled routes
 constexpr int kBW = 3 + 2 * kBD;         // row width of the table
 constexpr int kBRows = 128;              // pair rows a tile
 constexpr int kBWarps = 8;
@@ -399,6 +425,13 @@ constexpr int kOffXYZ = kOffXQ + kMaxQT * 4;        // [128][4] gathered xyz
 constexpr int kOffRel = kOffXYZ + kBRows * 4;       // [128][4] rel
 constexpr int kOffDrel = kOffRel + kBRows * 4;      // [128][4] drel
 constexpr int kBwdSmem = (kOffDrel + kBRows * 4) * static_cast<int>(sizeof(float));
+// the forward's: the weights as above, then
+constexpr int kFOffK = kOffP;                       // [128][kLdT] k
+constexpr int kFOffV = kFOffK + kBRows * kLdT;      // v, then w = v + pos
+constexpr int kFOffQ = kFOffV + kBRows * kLdT;      // [32][kLdT] q
+constexpr int kFOffXQ = kFOffQ + kMaxQT * kLdT;     // [32][4] query xyz
+constexpr int kFOffXYZ = kFOffXQ + kMaxQT * 4;      // [128][4] gathered xyz
+constexpr int kFwdSmem = (kFOffXYZ + kBRows * 4) * static_cast<int>(sizeof(float));
 // the partials' layout: dwd1 [3][D] | dbd1 | dwd2 [D][D] | dbd2 | dwg1 | dbg1 | dwg2 | dbg2
 constexpr int kAccWd2 = 4 * kBD, kAccBd2 = kAccWd2 + kBD * kBD;
 constexpr int kAccWg1 = kAccBd2 + kBD, kAccBg1 = kAccWg1 + kBD * kBD;
@@ -587,6 +620,299 @@ __device__ __forceinline__ void pos_hidden(const float (&rel)[2][3], const float
     }
 }
 
+// The weights and biases of both tiled routes, into shared memory
+// (the D x D matrices at row stride kLdW).
+__device__ __forceinline__ void stage_weights(const float* wd1, const float* bd1, const float* wd2,
+                                              const float* bd2, const float* wg1, const float* bg1,
+                                              const float* wg2, const float* bg2, float* sm) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < kBD * kBD; e += kBThreads) {
+    const int r = e >> 6, c = e & 63;
+    sm[kOffWd2 + r * kLdW + c] = wd2[e];
+    sm[kOffWg1 + r * kLdW + c] = wg1[e];
+    sm[kOffWg2 + r * kLdW + c] = wg2[e];
+  }
+  for (int e = tid; e < 3 * kBD; e += kBThreads) sm[kOffWd1 + e] = wd1[e];
+  for (int e = tid; e < kBD; e += kBThreads) {
+    sm[kOffBias + e] = bd1[e];
+    sm[kOffBias + kBD + e] = bd2[e];
+    sm[kOffBias + 2 * kBD + e] = bg1[e];
+    sm[kOffBias + 3 * kBD + e] = bg2[e];
+  }
+}
+
+// Queues the copies of columns [c0, c1) of the [xyz | k | v] rows of this
+// warp's 16 rows of tile t: xyz into XYZ [128][4], k into Pk and v into Pv
+// ([128][kLdT]); the rows of queries past BN are zeroed.
+template <int K>
+__device__ __forceinline__ void gather_rows(const float* table, const int* idx, int t, int BN,
+                                            int N, int M, float* XYZ, float* Pk, float* Pv,
+                                            int c0, int c1) {
+  constexpr int QT = kBRows / K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qf0 = t * QT, nq = min(QT, BN - qf0);
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr, qi = r / K;
+    float* dk = Pk + r * kLdT - 3;
+    float* dv = Pv + r * kLdT - 3 - kBD;
+    if (qi < nq) {
+      const int qf = qf0 + qi;
+      const int row = idx[static_cast<size_t>(qf) * K + (r - qi * K)];
+      const float* src = table + (static_cast<size_t>(qf / N) * M + row) * kBW;
+      for (int c = c0 + lane; c < c1; c += 32)
+        mocopci::cp_async4(c < 3 ? XYZ + r * 4 + c : c < 3 + kBD ? dk + c : dv + c, src + c);
+    } else {
+      for (int c = c0 + lane; c < c1; c += 32)
+        *(c < 3 ? XYZ + r * 4 + c : c < 3 + kBD ? dk + c : dv + c) = 0.f;
+    }
+  }
+}
+
+// Queues the copies of this warp's queries' rows of src (BN, 64) into S
+// [32][kLdT] and of their xyz into XQs [32][4] (when xyzq is given); zeros
+// past BN.
+template <int K>
+__device__ __forceinline__ void gather_queries(const float* src, const float* xyzq, int t, int BN,
+                                               float* S, float* XQs) {
+  constexpr int QT = kBRows / K, QW = 16 / K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qf0 = t * QT, nq = min(QT, BN - qf0);
+  for (int e = lane; e < QW * (kBD / 4); e += 32) {
+    const int qi = warp * QW + e / (kBD / 4), c = (e % (kBD / 4)) * 4;
+    if (qi < nq)
+      mocopci::cp_async16(S + qi * kLdT + c, src + static_cast<size_t>(qf0 + qi) * kBD + c);
+    else
+      *reinterpret_cast<float4*>(S + qi * kLdT + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (xyzq == nullptr) return;
+  for (int e = lane; e < QW * 3; e += 32) {
+    const int qi = warp * QW + e / 3, c = e % 3;
+    if (qi < nq)
+      mocopci::cp_async4(XQs + qi * 4 + c, xyzq + static_cast<size_t>(qf0 + qi) * 3 + c);
+    else
+      XQs[qi * 4 + c] = 0.f;
+  }
+}
+
+// The chain's first part on this warp's rows: rel = xq - xyz (rel[h] of row
+// gid + 8 h), h0 = rel Wd1 + bd1 (mask0: bit 4 nt + i where h0 > 0), r0 =
+// relu(h0) into Pr0, then pos = r0 Wd2 + bd2 on FMAs at the lane's
+// fma_product positions.
+template <int K>
+__device__ __forceinline__ void chain_pos(const float* XQs, const float* XYZ, const float* sm,
+                                          float* Pr0, float (&rel)[2][3], uint32_t& mask0,
+                                          float (&pos)[4][8]) {
+  const int R0 = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2), R1 = R0 + 8;
+  const int qa = R0 / K, qb = R1 / K;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    rel[0][c] = XQs[qa * 4 + c] - XYZ[R0 * 4 + c];
+    rel[1][c] = XQs[qb * 4 + c] - XYZ[R1 * 4 + c];
+  }
+  float x[8][4];
+  pos_hidden<false>(rel, sm + kOffWd1, sm + kOffBias, x);
+  mask0 = 0u;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mask0 |= static_cast<uint32_t>(x[nt][i] > 0.f) << (4 * nt + i);
+      x[nt][i] = fmaxf(x[nt][i], 0.f);
+    }
+  store_rows(Pr0, x);                              // r0
+  __syncwarp();
+  fma_product(Pr0, sm + kOffWd2, sm + kOffBias + kBD, pos);
+}
+
+// The second: gv = (q - k) + pos into Pk over k and w = v + pos into Pw (v
+// read from Pv; Pw may be Pv), then h1 = gv Wg1 + bg1 on FMAs and r1 =
+// relu(h1) into Pr1 (which may hold r0: every lane is done with it), each
+// lane at its positions of fma_product.
+template <int K>
+__device__ __forceinline__ void chain_gate(const float* Qs, const float* sm,
+                                           const float (&pos)[4][8], float* Pk, const float* Pv,
+                                           float* Pw, float* Pr1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane >> 3, cg = lane & 7;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 16 + rg + 4 * i;
+    const float* qr = Qs + (r / K) * kLdT;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 32 * h + 4 * cg;
+      const float4 kk = *reinterpret_cast<const float4*>(Pk + r * kLdT + c);
+      const float4 vv = *reinterpret_cast<const float4*>(Pv + r * kLdT + c);
+      const float4 qq = *reinterpret_cast<const float4*>(qr + c);
+      const float* p = pos[i] + 4 * h;
+      *reinterpret_cast<float4*>(Pk + r * kLdT + c) =
+          make_float4((qq.x - kk.x) + p[0], (qq.y - kk.y) + p[1], (qq.z - kk.z) + p[2],
+                      (qq.w - kk.w) + p[3]);
+      *reinterpret_cast<float4*>(Pw + r * kLdT + c) =
+          make_float4(vv.x + p[0], vv.y + p[1], vv.z + p[2], vv.w + p[3]);
+    }
+  }
+  __syncwarp();
+  float o[4][8];
+  fma_product(Pk, sm + kOffWg1, sm + kOffBias + 2 * kBD, o);      // h1
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 16 + rg + 4 * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* p = o[i] + 4 * h;
+      *reinterpret_cast<float4*>(Pr1 + r * kLdT + 32 * h + 4 * cg) =
+          make_float4(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f), fmaxf(p[2], 0.f), fmaxf(p[3], 0.f));
+    }
+  }
+}
+
+// The third: r1 from Pr1 as fragments (y; mask1: bit 4 nt + i where r1 > 0)
+// and logit = r1 Wg2 + bg2 at 3xTF32 (x).
+__device__ __forceinline__ void chain_logit(const float* Pr1, const float* sm, float (&x)[8][4],
+                                            float (&y)[8][4], uint32_t& mask1) {
+  const int tig = threadIdx.x & 3;
+  __syncwarp();
+  load_rows(Pr1, y);
+  mask1 = 0u;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mask1 |= static_cast<uint32_t>(y[nt][i] > 0.f) << (4 * nt + i);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[nt][i] = sm[kOffBias + 3 * kBD + nt * 8 + 2 * tig + (i & 1)];
+  chain_product<false>(y, sm + kOffWg2, x);
+}
+
+// The per-channel softmax over each query's K rows for one column of the
+// fragments: from the scaled logits l0, l1 of rows gid and gid + 8 and their
+// w = v + pos, the weights a0, a1 and out o0, o1 of each row's query.
+template <int K>
+__device__ __forceinline__ void query_softmax(float l0, float l1, float w0, float w1, float& a0,
+                                              float& a1, float& o0, float& o1) {
+  float m0v = l0, m1v = l1;
+  query_max<K>(m0v, m1v);
+  a0 = __expf(l0 - m0v);
+  a1 = __expf(l1 - m1v);
+  float s0 = a0, s1 = a1;
+  query_sum<K>(s0, s1);
+  a0 = __fdividef(a0, s0);
+  a1 = __fdividef(a1, s1);
+  o0 = a0 * w0;
+  o1 = a1 * w1;
+  query_sum<K>(o0, o1);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kBThreads, 1) transformer_tail_fwd_kernel(
+    const float* __restrict__ table, const int* __restrict__ idx,
+    const float* __restrict__ xyzq, const float* __restrict__ q,
+    const float* __restrict__ wd1, const float* __restrict__ bd1,
+    const float* __restrict__ wd2, const float* __restrict__ bd2,
+    const float* __restrict__ wg1, const float* __restrict__ bg1,
+    const float* __restrict__ wg2, const float* __restrict__ bg2, float* __restrict__ out,
+    int B, int M, int N) {
+  constexpr int QT = kBRows / K;          // queries a tile
+  extern __shared__ __align__(16) float sm[];
+  float* PK = sm + kFOffK;
+  float* PV = sm + kFOffV;
+  float* Qs = sm + kFOffQ;
+  float* XQs = sm + kFOffXQ;
+  float* XYZ = sm + kFOffXYZ;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int R0 = (threadIdx.x >> 5) * 16 + gid;   // this thread's rows R0 and R0 + 8
+  const int qa = R0 / K, qb = (R0 + 8) / K;       // ... and their queries in the tile
+  const float inv = 0.125f;               // 1 / sqrt(64)
+  const int BN = B * N;
+  const int ntiles = (BN + QT - 1) / QT;
+  // a tile's copies in two groups: xyz, k, q and xq, then v
+  auto gather_k = [&](int t) {
+    gather_rows<K>(table, idx, t, BN, N, M, XYZ, PK, PV, 0, 3 + kBD);
+    gather_queries<K>(q, xyzq, t, BN, Qs, XQs);
+    mocopci::cp_async_commit();
+  };
+  auto gather_v = [&](int t) {
+    gather_rows<K>(table, idx, t, BN, N, M, XYZ, PK, PV, 3 + kBD, kBW);
+    mocopci::cp_async_commit();
+  };
+  if (static_cast<int>(blockIdx.x) < ntiles) {
+    gather_k(blockIdx.x);
+    gather_v(blockIdx.x);
+  }
+  stage_weights(wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, sm);
+  __syncthreads();          // the weights are staged: the block's only barrier
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    mocopci::cp_async_wait1();
+    __syncwarp();           // this warp's xyz, k, q and xq of the tile have landed
+    const float* bias = sm + kOffBias;
+    float rel[2][3], x[8][4], y[8][4];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      rel[0][c] = XQs[qa * 4 + c] - XYZ[R0 * 4 + c];
+      rel[1][c] = XQs[qb * 4 + c] - XYZ[(R0 + 8) * 4 + c];
+    }
+    pos_hidden<true>(rel, sm + kOffWd1, bias, x);                   // r0
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[nt][i] = bias[kBD + nt * 8 + 2 * tig + (i & 1)];
+    chain_product<false>(x, sm + kOffWd2, y);                       // pos
+    mocopci::cp_async_wait0();
+    __syncwarp();           // and its v
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = R0 + 8 * (i >> 1), c = nt * 8 + 2 * tig + (i & 1);
+        x[nt][i] = (Qs[(r / K) * kLdT + c] - PK[r * kLdT + c]) + y[nt][i];     // gv
+        PV[r * kLdT + c] += y[nt][i];                                         // w = v + pos
+        y[nt][i] = bias[2 * kBD + c];
+      }
+    chain_product<false>(x, sm + kOffWg1, y);                       // h1
+    __syncwarp();           // every lane is done with xyz, k, q and xq
+    if (next < ntiles) gather_k(next);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        y[nt][i] = fmaxf(y[nt][i], 0.f);                           // r1
+        x[nt][i] = bias[3 * kBD + nt * 8 + 2 * tig + (i & 1)];
+      }
+    chain_product<false>(y, sm + kOffWg2, x);                       // logit
+    // the per-channel softmax over each query's K rows; x <- out of the row's query
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * tig + e;
+        float a0, a1;
+        query_softmax<K>(x[nt][e] * inv, x[nt][2 + e] * inv, PV[R0 * kLdT + c],
+                         PV[(R0 + 8) * kLdT + c], a0, a1, x[nt][e], x[nt][2 + e]);
+      }
+    __syncwarp();           // every lane is done with w
+    if (next < ntiles) gather_v(next);
+    // out: the lanes of each query's first row (gid % K == 0; at K = 16 both
+    // of their rows are one query) write its 64 channels as float2 pairs
+    if ((gid & (K == 16 ? 7 : K - 1)) == 0) {
+      const size_t qf0 = static_cast<size_t>(tile) * QT;
+#pragma unroll
+      for (int h = 0; h < (K == 16 ? 1 : 2); ++h) {
+        const size_t qf = qf0 + (h ? qb : qa);
+        if (qf < static_cast<size_t>(BN)) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            *reinterpret_cast<float2*>(out + qf * kBD + nt * 8 + 2 * tig) =
+                make_float2(x[nt][2 * h], x[nt][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
 template <int K>
 __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
     const float* __restrict__ table, const int* __restrict__ idx,
@@ -621,19 +947,7 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
   const int qa = R0 / K, qb = R1 / K;              // ... and their queries in the tile
   const float inv = 0.125f;                        // 1 / sqrt(64)
 
-  for (int e = tid; e < kBD * kBD; e += kBThreads) {
-    const int r = e >> 6, c = e & 63;
-    Wd2s[r * kLdW + c] = wd2[e];
-    Wg1s[r * kLdW + c] = wg1[e];
-    Wg2s[r * kLdW + c] = wg2[e];
-  }
-  for (int e = tid; e < 3 * kBD; e += kBThreads) wd1s[e] = wd1[e];
-  for (int e = tid; e < kBD; e += kBThreads) {
-    bias[e] = bd1[e];
-    bias[kBD + e] = bd2[e];
-    bias[2 * kBD + e] = bg1[e];
-    bias[3 * kBD + e] = bg2[e];
-  }
+  stage_weights(wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, sm);
   // the warp's slice of the three D x D weight gradients
   const int m0 = (warp >> 1) * 16, n0 = (warp & 1) * 32;
   float aWd2[4][4], aWg1[4][4], aWg2[4][4];
@@ -649,40 +963,9 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
   // Queues the copies of tile t's rows [xyz | k | v] of this warp's 16 rows
   // and the q, dout and xyz of its queries; rows of absent queries are zero.
   auto gather = [&](int t) {
-    const int qf0 = t * QT, nq = min(QT, BN - qf0);
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr, qi = r / K;
-      float* dk = P0 + r * kLdT - 3;
-      float* dv = P1 + r * kLdT - 3 - kBD;
-      if (qi < nq) {
-        const int qf = qf0 + qi;
-        const int row = idx[static_cast<size_t>(qf) * K + (r - qi * K)];
-        const float* src = table + (static_cast<size_t>(qf / N) * M + row) * kBW;
-        for (int c = lane; c < kBW; c += 32)
-          mocopci::cp_async4(c < 3 ? XYZ + r * 4 + c : c < 3 + kBD ? dk + c : dv + c, src + c);
-      } else {
-        for (int c = lane; c < kBW; c += 32)
-          *(c < 3 ? XYZ + r * 4 + c : c < 3 + kBD ? dk + c : dv + c) = 0.f;
-      }
-    }
-    for (int e = lane; e < QW * (kBD / 4); e += 32) {
-      const int qi = warp * QW + e / (kBD / 4), c = (e % (kBD / 4)) * 4;
-      if (qi < nq) {
-        const size_t src = static_cast<size_t>(qf0 + qi) * kBD + c;
-        mocopci::cp_async16(Qs + qi * kLdT + c, q + src);
-        mocopci::cp_async16(DOs + qi * kLdT + c, dout + src);
-      } else {
-        *reinterpret_cast<float4*>(Qs + qi * kLdT + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(DOs + qi * kLdT + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-    for (int e = lane; e < QW * 3; e += 32) {
-      const int qi = warp * QW + e / 3, c = e % 3;
-      if (qi < nq)
-        mocopci::cp_async4(XQs + qi * 4 + c, xyzq + static_cast<size_t>(qf0 + qi) * 3 + c);
-      else
-        XQs[qi * 4 + c] = 0.f;
-    }
+    gather_rows<K>(table, idx, t, BN, N, M, XYZ, P0, P1, 0, kBW);
+    gather_queries<K>(q, xyzq, t, BN, Qs, XQs);
+    gather_queries<K>(dout, nullptr, t, BN, DOs, nullptr);
     mocopci::cp_async_commit();
   };
   if (static_cast<int>(blockIdx.x) < ntiles) gather(blockIdx.x);
@@ -693,78 +976,20 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
     mocopci::cp_async_wait0();
     __syncthreads();        // the tile has landed; the weights and the last tile are done
 
-    // ---- the recompute, on this warp's rows ----
-    float rel[2][3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      rel[0][c] = XQs[qa * 4 + c] - XYZ[R0 * 4 + c];
-      rel[1][c] = XQs[qb * 4 + c] - XYZ[R1 * 4 + c];
+    // ---- the recompute, on this warp's rows: r0 into P2, gv into P0, w
+    // into P3, r1 into P1, the logits in x ----
+    float rel[2][3], x[8][4], y[8][4];
+    uint32_t mask0, mask1;                  // bit 4 nt + i: h0 (h1) > 0
+    {
+      float pos[4][8];
+      chain_pos<K>(XQs, XYZ, sm, P2, rel, mask0, pos);
+      chain_gate<K>(Qs, sm, pos, P0, P1, P3, P1);
     }
+    chain_logit(P1, sm, x, y, mask1);
     if (tig == 0) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) REL[R0 * 4 + c] = rel[0][c], REL[R1 * 4 + c] = rel[1][c];
     }
-    float x[8][4], y[8][4];
-    pos_hidden<false>(rel, wd1s, bias, x);
-    uint32_t mask0 = 0u, mask1 = 0u;        // bit 4 nt + i: h0 (h1) > 0
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mask0 |= static_cast<uint32_t>(x[nt][i] > 0.f) << (4 * nt + i);
-        x[nt][i] = fmaxf(x[nt][i], 0.f);
-      }
-    store_rows(P2, x);                               // r0
-    __syncwarp();
-    {
-      // pos, then gv = (q - k) + pos into P0 and w = v + pos into P3; then
-      // r1 = relu(h1) into P1, each lane at its positions of fma_product
-      const int rg = lane >> 3, cg = lane & 7;
-      float o[4][8];
-      fma_product(P2, Wd2s, bias + kBD, o);          // pos
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = warp * 16 + rg + 4 * i;
-        const float* qr = Qs + (r / K) * kLdT;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = 32 * h + 4 * cg;
-          const float4 kk = *reinterpret_cast<const float4*>(P0 + r * kLdT + c);
-          const float4 vv = *reinterpret_cast<const float4*>(P1 + r * kLdT + c);
-          const float4 qq = *reinterpret_cast<const float4*>(qr + c);
-          const float* p = o[i] + 4 * h;
-          *reinterpret_cast<float4*>(P0 + r * kLdT + c) =
-              make_float4((qq.x - kk.x) + p[0], (qq.y - kk.y) + p[1], (qq.z - kk.z) + p[2],
-                          (qq.w - kk.w) + p[3]);
-          *reinterpret_cast<float4*>(P3 + r * kLdT + c) =
-              make_float4(vv.x + p[0], vv.y + p[1], vv.z + p[2], vv.w + p[3]);
-        }
-      }
-      __syncwarp();
-      fma_product(P0, Wg1s, bias + 2 * kBD, o);      // h1
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = warp * 16 + rg + 4 * i;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float* p = o[i] + 4 * h;
-          *reinterpret_cast<float4*>(P1 + r * kLdT + 32 * h + 4 * cg) =
-              make_float4(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f), fmaxf(p[2], 0.f),
-                          fmaxf(p[3], 0.f));
-        }
-      }
-    }
-    __syncwarp();
-    load_rows(P1, y);                                // r1, as fragments
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mask1 |= static_cast<uint32_t>(y[nt][i] > 0.f) << (4 * nt + i);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[nt][i] = bias[3 * kBD + nt * 8 + 2 * tig + (i & 1)];
-    chain_product<false>(y, Wg2s, x);                // logit
     // the per-channel softmax over each query's K rows, out, and its VJP:
     // x <- dG2 = a (dout w - dout out) / sqrt(D), P3 <- d(v + pos) = dout a
 #pragma unroll
@@ -772,17 +997,9 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = nt * 8 + 2 * tig + e;
-        const float l0 = x[nt][e] * inv, l1 = x[nt][2 + e] * inv;
-        float m0v = l0, m1v = l1;
-        query_max<K>(m0v, m1v);
-        float a0 = __expf(l0 - m0v), a1 = __expf(l1 - m1v);
-        float s0 = a0, s1 = a1;
-        query_sum<K>(s0, s1);
-        a0 = __fdividef(a0, s0);
-        a1 = __fdividef(a1, s1);
         const float w0 = P3[R0 * kLdT + c], w1 = P3[R1 * kLdT + c];
-        float o0 = a0 * w0, o1 = a1 * w1;
-        query_sum<K>(o0, o1);
+        float a0, a1, o0, o1;
+        query_softmax<K>(x[nt][e] * inv, x[nt][2 + e] * inv, w0, w1, a0, a1, o0, o1);
         const float g0 = DOs[qa * kLdT + c], g1 = DOs[qb * kLdT + c];
         x[nt][e] = a0 * (g0 * w0 - g0 * o0) * inv;
         x[nt][2 + e] = a1 * (g1 * w1 - g1 * o1) * inv;
@@ -927,21 +1144,43 @@ __global__ void __launch_bounds__(kBThreads, 1) transformer_tail_bwd_kernel(
 }  // namespace
 
 // table (B, M, 3+2D), idx (B, N, K) int32, xyzq (B, N, 3), q (B, N, D),
-// wd1 (3, D), wd2/wg1/wg2 (D, D), biases (D) -> out (B, N, D), all f32.
+// wd1 (3, D), wd2/wg1/wg2 (D, D), biases (D) -> out (B, N, D), all f32; for
+// D = 64 and K = 16 or 4, on nblk blocks.
 MOCOPCI_API int mocopci_transformer_tail(const float* table, const int* idx,
                                          const float* xyzq, const float* q,
                                          const float* wd1, const float* bd1,
                                          const float* wd2, const float* bd2,
                                          const float* wg1, const float* bg1,
                                          const float* wg2, const float* bg2, float* out,
-                                         int B, int M, int N, int K, int D, void* stream) {
+                                         int B, int M, int N, int K, int D, int nblk,
+                                         void* stream) {
+  if (D != kBD || (K != 16 && K != 4) || nblk < 1) return cudaErrorInvalidValue;
+  auto kernel = K == 16 ? transformer_tail_fwd_kernel<16> : transformer_tail_fwd_kernel<4>;
+  cudaError_t err = mocopci::allow_smem(kernel, kFwdSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<nblk, kBThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+      table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, B, M, N);
+  return cudaGetLastError();
+}
+
+// The general route of mocopci_transformer_tail: the same output for any
+// (K, D) whose working set (3 D^2 + 8 D + 3 K + 3 K D floats) fits in shared
+// memory, a block a tile of 8 queries.
+MOCOPCI_API int mocopci_transformer_tail_general(const float* table, const int* idx,
+                                                 const float* xyzq, const float* q,
+                                                 const float* wd1, const float* bd1,
+                                                 const float* wd2, const float* bd2,
+                                                 const float* wg1, const float* bg1,
+                                                 const float* wg2, const float* bg2,
+                                                 float* out, int B, int M, int N, int K, int D,
+                                                 void* stream) {
   const size_t floats = 3 * static_cast<size_t>(D) + 3 * static_cast<size_t>(D) * D +
                         4 * D + 3 * K + D + 3 * static_cast<size_t>(K) * D;
   const size_t smem = floats * sizeof(float);
-  cudaError_t err = mocopci::allow_smem(transformer_tail_kernel, smem);
+  cudaError_t err = mocopci::allow_smem(transformer_tail_general_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(mocopci::ceil_div(N, kQT), B);
-  transformer_tail_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  transformer_tail_general_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       table, idx, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, M, N, K, D);
   return cudaGetLastError();
 }

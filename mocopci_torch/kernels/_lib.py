@@ -40,10 +40,11 @@ SIGNATURES = {
     "attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "attention_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "cross_tail": [_P] * 7 + [_I] * 7 + [_P],
-    "transformer_tail": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
+    "transformer_tail": [_P] * 13 + [_I] * 6 + [_P],
+    "transformer_tail_general": [_P] * 13 + [_I] * 5 + [_P],
     "fusion_pair": [_P] * 11 + [_I, _I, _I, _I, _P],
     "knn_approx": [_P, _P, _P] + [_I] * 12 + [_P, _P],
-    "chamfer_pair": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "chamfer_pair": [_P, _P] + [_I] * 6 + [_P, _P, _P],
     "scatter_add": [_P] * 4 + [_I] * 5 + [_P],
     "attention_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _F, _P],
     "attention_train_fwd_wide": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _F, _P],

@@ -9,13 +9,17 @@ distance's float bits with the low ``bit_length(max(N, M) - 1)`` bits replaced
 by the index.  The distance is ``fma(dz, dz, fma(dx, dx, dy * dy))``: the
 contraction XLA's CPU compiler gives the Pallas kernel body, so the keys equal
 the interpret-mode reference's bit for bit.  The twin emulates each fused
-multiply-add in float64 (the product is exact there).  Outside the kernel the
+multiply-add in float64 (the product is exact there).  The kernel walks a
+span of the reference cloud a block, the number of spans chosen to fill the
+card at the call's G (:func:`launch_grid`).  Outside the kernel the
 selected neighbour is gathered and its distance recomputed exactly, as in JAX.
 Operations bound it.  The backward (:class:`_ChamferPair`) scatters through the
 ``scatter_add`` kernel at N, M % 128 == 0 and the ``onehot_scatter`` kernel
 otherwise, as the JAX VJP does.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -29,6 +33,12 @@ REPLACES = "mocopci_tpu/ops/pallas/chamfer_pair.py:126"
 TQ, TM = 256, 1024      # the Pallas kernel's query and reference tiles
 TS = TO = 512           # its backward's scatter tiles (source, output)
 INF_KEY = 0x7F7FFFFF    # f32 max bit pattern
+INT_MAX = 0x7FFFFFFF
+# the kernel's tiling: queries a thread, threads a block (at most), reference
+# points a chunk; an H100's SMs, and the threads an SM runs at once at the
+# kernel's registers (86 a thread: one block of 512, two of 256)
+QUERIES, MAX_THREADS, CHUNK = 8, 512, 64
+SMS, SM_THREADS = 132, 512
 # distance-matrix entries per chunk of the plain version
 _CHUNK = 1 << 22
 
@@ -77,6 +87,30 @@ def chamfer_pair_keys_plain(pc1: torch.Tensor, pc2: torch.Tensor):
     return torch.cat(k12, dim=1), k21
 
 
+@functools.lru_cache(maxsize=64)
+def launch_grid(G: int, N: int, M: int, queries: int = QUERIES, max_threads: int = MAX_THREADS,
+                sm_threads: int = SM_THREADS):
+    """(threads, span, spans, query_blocks) of the kernel: a block holds
+    ``queries`` queries a thread, up to ``queries`` x ``max_threads``
+    (query_blocks of them cover N), and walks ``span`` chunks of 64 reference
+    points, ``spans`` spans covering M.  The span is the one that minimises
+    waves x (span + 1/2): the waves of the blocks the card holds at once
+    (``sm_threads`` threads an SM), each as long as its longest span plus
+    about half a chunk for a block's queries, first chunk and merges; the
+    longest of equals (fewer spans, fewer merges of k12)."""
+    threads = min(max_threads, 32 * -(-N // (32 * queries)))
+    query_blocks = -(-N // (threads * queries))
+    resident = SMS * (sm_threads // threads)
+    chunks = -(-M // CHUNK)
+    best = None
+    for span in range(chunks, 0, -1):
+        spans = -(-chunks // span)
+        cost = -(-query_blocks * G * spans // resident) * (2 * span + 1)
+        if best is None or cost < best[0]:
+            best = (cost, span, spans)
+    return threads, best[1], best[2], query_blocks
+
+
 def chamfer_pair_keys(pc1: torch.Tensor, pc2: torch.Tensor):
     """Packed argmin keys; the kernel on CUDA, the twin on the CPU."""
     if _lib.dispatch_device(pc1, pc2) == "cpu":
@@ -85,12 +119,17 @@ def chamfer_pair_keys(pc1: torch.Tensor, pc2: torch.Tensor):
     _lib.check_cuda("chamfer_pair pc2", pc2, torch.float32, 3)
     G, N, C = pc1.shape
     M = pc2.shape[1]
-    if C != 3 or pc2.shape[0] != G or pc2.shape[2] != 3:
+    if C != 3 or pc2.shape[0] != G or pc2.shape[2] != 3 or N < 1 or M < 1:
         raise ValueError(f"chamfer_pair: shapes {tuple(pc1.shape)} vs {tuple(pc2.shape)}")
-    k12 = torch.full((G, N), INF_KEY, dtype=torch.int32, device=pc1.device)
-    k21 = torch.full((G, M), INF_KEY, dtype=torch.int32, device=pc1.device)
+    threads, span, spans, query_blocks = launch_grid(G, N, M)
+    # an output more than one block writes is merged by atomicMin: filled first
+    dev = pc1.device
+    k12 = (torch.full((G, N), INT_MAX, dtype=torch.int32, device=dev) if spans > 1
+           else torch.empty((G, N), dtype=torch.int32, device=dev))
+    k21 = (torch.full((G, M), INF_KEY, dtype=torch.int32, device=dev) if query_blocks > 1
+           else torch.empty((G, M), dtype=torch.int32, device=dev))
     _lib.launch("chamfer_pair", pc1.data_ptr(), pc2.data_ptr(), G, N, M, index_bits(N, M),
-                k12.data_ptr(), k21.data_ptr(), _lib.stream(pc1))
+                threads, span, k12.data_ptr(), k21.data_ptr(), _lib.stream(pc1))
     return k12, k21
 
 

@@ -7,10 +7,13 @@ rows from the table by index; the backward returns the rows' gradient, which
 table (through the ``scatter_add`` kernel at the refine head's shape, as JAX's
 gather VJP).  The backward kernel recomputes the per-channel softmax instead
 of reading a saved (m, l).  At the (K, D) of the model's refine heads,
-``BWD_SHAPES``, it runs the chain's products on the tensor cores at float32
-grade over tiles of 128 pair rows; every other (K, D) whose working set fits
-in shared memory takes the general route, ``transformer_tail_bwd_general``
-(a query at a time, on FMAs).  Operations bound both.
+``BWD_SHAPES``, both directions run the chain over tiles of 128 pair rows
+with its products on the tensor cores at float32 grade (the backward's
+recompute keeps its two mask-deciding products on FMAs); every other (K, D)
+whose working set fits in shared memory takes a general route on FMAs,
+``transformer_tail_general`` (a block a tile of 8 queries) and
+``transformer_tail_bwd_general`` (a query at a time).  Operations bound them
+all.
 """
 from __future__ import annotations
 
@@ -26,12 +29,13 @@ REPLACES = "mocopci_tpu/ops/pallas/transformer_tail.py:212"
 REPLACES_BWD = "mocopci_tpu/ops/pallas/transformer_tail.py:237"
 
 _MAX_SMEM = 227 * 1024
-BWD_BLOCKS = 132      # one per SM of an H100 (the backward's shared memory fills one)
-BWD_ROWS = 128        # the backward's pair rows a tile: 128 / K queries
-# (K, D) the tensor-core backward takes: ModelConfig() (refine_k 16) and the
-# tiny configs (refine_k 4), both at the refine head's width 64; every other
-# (K, D) takes the general route
+BWD_BLOCKS = 132      # one per SM of an H100 (either direction's shared memory fills one)
+BWD_ROWS = 128        # the tiled routes' pair rows a tile: 128 / K queries
+# (K, D) the tiled routes of both directions take: ModelConfig()
+# (refine_k 16) and the tiny configs (refine_k 4), both at the refine head's
+# width 64; every other (K, D) takes the general routes
 BWD_SHAPES = ((16, 64), (4, 64))
+GENERAL_QUERIES = 8   # the general forward's queries a block
 
 
 def _tail(rows, xyzq, q, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2):
@@ -74,9 +78,28 @@ def _check(table, idx, xyzq, q, weights):
         want = (D,) if i % 2 else ((3, D) if i == 0 else (D, D))
         if tuple(t.shape) != want:
             raise ValueError(f"transformer_tail weight {i}: {tuple(t.shape)} != {want}")
-    if (3 * D * D + 8 * D + 3 * K + 3 * K * D) * 4 > _MAX_SMEM:
-        raise ValueError(f"transformer_tail kernel: D={D}, K={K} exceed shared memory")
     return B, M, N, K, D
+
+
+def fwd_route(K: int, D: int) -> str:
+    """The forward's entry point for (K, D); raises, before any launch, where
+    the general route's working set (3 D^2 + 8 D + 3 K + 3 K D floats)
+    exceeds shared memory."""
+    if (K, D) in BWD_SHAPES:
+        return "transformer_tail"
+    need = (3 * D * D + 8 * D + 3 * K + 3 * K * D) * 4
+    if need > _MAX_SMEM:
+        raise ValueError(f"transformer_tail forward: K={K}, D={D} need {need} bytes of shared "
+                         f"memory, past the {_MAX_SMEM} a block has")
+    return "transformer_tail_general"
+
+
+def fwd_grid(B: int, N: int, K: int, route: str = "transformer_tail") -> int:
+    """The forward's blocks: one an SM, at most one a tile of 128 / K queries
+    (the general route: one a tile of 8 queries of a batch, its own grid)."""
+    if route == "transformer_tail_general":
+        return B * -(-N // GENERAL_QUERIES)
+    return min(BWD_BLOCKS, -(-B * N * K // BWD_ROWS))
 
 
 def general_floats(K: int, D: int) -> int:
@@ -106,12 +129,14 @@ def bwd_grid(B: int, N: int, K: int, route: str = "transformer_tail_bwd") -> int
 
 
 def transformer_tail_fwd(table, idx, xyzq, q, *weights):
-    """Kernel forward, (B, N, D)."""
+    """Kernel forward, (B, N, D), on the route ``fwd_route`` picks."""
     B, M, N, K, D = _check(table, idx, xyzq, q, weights)
+    route = fwd_route(K, D)
     out = torch.empty((B, N, D), dtype=torch.float32, device=table.device)
-    _lib.launch("transformer_tail", table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
+    grid = () if route == "transformer_tail_general" else (fwd_grid(B, N, K),)
+    _lib.launch(route, table.data_ptr(), idx.data_ptr(), xyzq.data_ptr(),
                 q.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
-                B, M, N, K, D, _lib.stream(table))
+                B, M, N, K, D, *grid, _lib.stream(table))
     return out
 
 

@@ -179,18 +179,28 @@ def test_cross_tail_argmax_matches_twin(card, N, K, C, C2):
     assert (amax == want).float().mean() > 0.99
 
 
-def test_transformer_tail_kernel_matches_twin(card):
+@pytest.mark.parametrize("N,K,D", [(300, 16, 64), (301, 4, 64), (2048, 16, 64), (300, 8, 64),
+                                   (300, 16, 32)])
+def test_transformer_tail_kernel_matches_twin(card, N, K, D):
+    """On the tiled route at the refine head's K = 16 (8 queries a tile) and
+    the tiny configs' K = 4 (32 a tile), with a ragged last tile at N = 300
+    and 301; on the general route at refine_k = 8 and at D = 32."""
+    from mocopci_torch.kernels.transformer_tail import BWD_SHAPES
+
     g = torch.Generator().manual_seed(4)
-    D = 64
     table = _x(g, 2, 700, 3 + 2 * D).to(card)
-    xq, q = _x(g, 2, 300, 3).to(card), _x(g, 2, 300, D).to(card)
+    xq, q = _x(g, 2, N, 3).to(card), _x(g, 2, N, D).to(card)
     ws = []
     for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
         ws += [_x(g, ci, co, scale=ci ** -0.5).to(card), _x(g, co, scale=0.1).to(card)]
-    idx = torch.randint(0, 700, (2, 300, 16), generator=g, dtype=torch.int32).to(card)
-    torch.testing.assert_close(kernels.transformer_tail(table, idx, xq, q, *ws),
-                               kernels.transformer_tail_plain(table, idx, xq, q, *ws),
+    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32).to(card)
+    kernels.reset_launches()
+    got = kernels.transformer_tail(table, idx, xq, q, *ws)
+    route = "transformer_tail" if (K, D) in BWD_SHAPES else "transformer_tail_general"
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {route: 1}, kernels.LAUNCHES
+    torch.testing.assert_close(got, kernels.transformer_tail_plain(table, idx, xq, q, *ws),
                                atol=1e-4, rtol=1e-4)
+    assert _bits_equal(got, kernels.transformer_tail(table, idx, xq, q, *ws))
 
 
 def test_fusion_pair_kernel_matches_twin(card):
@@ -242,10 +252,21 @@ def test_knn_approx_kernel_matches_twin(card, metric, C, B, N, M, k):
     assert (got == want).float().mean() > 0.99
 
 
-@pytest.mark.parametrize("G,N,M", [(3, 2048, 2048), (2, 1000, 1500), (1, 64, 5000)])
-def test_chamfer_pair_kernel_matches_twin(card, G, N, M):
+@pytest.mark.parametrize("G,N,M,ties", [(3, 2048, 2048, False), (2, 1000, 1500, False),
+                                        (1, 64, 5000, False), (30, 2048, 2048, False),
+                                        (12, 256, 256, False), (3, 2048, 2048, True),
+                                        (2, 9000, 3000, False), (2, 300, 20000, False)])
+def test_chamfer_pair_kernel_matches_twin(card, G, N, M, ties):
+    """At the loss's and the eval's shapes; N != M with M over many spans
+    (20000 points, 313 chunks) and N past one block (9000 queries: k21 merged
+    by atomics); and clouds of duplicated points, where many keys tie on the
+    distance and only the index decides."""
     g = torch.Generator().manual_seed(7)
-    p1, p2 = _x(g, G, N, 3, scale=5.0).to(card), _x(g, G, M, 3, scale=5.0).to(card)
+    p1, p2 = _x(g, G, N, 3, scale=5.0), _x(g, G, M, 3, scale=5.0)
+    if ties:        # each cloud its first half twice; the queries lie on the points
+        p2[:, M // 2:] = p2[:, :M // 2]
+        p1 = p2[:, torch.randperm(M, generator=g)[:N]].clone()
+    p1, p2 = p1.contiguous().to(card), p2.contiguous().to(card)
     k12, k21 = kernels.chamfer_pair_keys(p1, p2)
     w12, w21 = kernels.chamfer_pair_keys_plain(p1, p2)
     assert torch.equal(k12, w12) and torch.equal(k21, w21)

@@ -1,5 +1,5 @@
 """The CUDA-side wrappers of the train and eval attention, the train fusion
-head, the cost-volume tail, the transformer tail's backward, approximate kNN and FPS, driven
+head, the cost-volume tail, the transformer tail, approximate kNN, the Chamfer keys and FPS, driven
 with CPU tensors: the launch is replaced by a check of its arguments against the C signature
 (``_lib.SIGNATURES``), so the route each shape takes, the shapes and
 constants handed to the kernel and the refusals before any launch are held
@@ -292,8 +292,9 @@ def test_transformer_tail_bwd_grid_and_partial_sums(launches, B, N, K, blocks):
 @pytest.mark.parametrize("K,D", [(8, 64), (16, 32), (4, 128)])
 def test_transformer_tail_bwd_refuses_other_shapes_before_any_launch(launches, K, D):
     """The (K, D) outside ``BWD_SHAPES``: (8, 64) and (16, 32) take the general
-    route, which the autograd forward lets through; (4, 128) needs more shared
-    memory than a block has and is refused, by both, before any launch."""
+    routes of both directions, which the autograd forward lets through; (4, 128)
+    needs more shared memory than a block has and is refused, by both, before
+    any launch."""
     inputs = _transformer_tail_inputs(1, 50, 40, K, D)
     leaves = [t.clone().requires_grad_() if t.is_floating_point() else t for t in inputs[:-1]]
     if (K, D) == (4, 128):
@@ -305,7 +306,8 @@ def test_transformer_tail_bwd_refuses_other_shapes_before_any_launch(launches, K
         return
     transformer_tail.transformer_tail_bwd(*inputs)
     transformer_tail.transformer_tail(*leaves)
-    assert [name for name, _ in launches] == ["transformer_tail_bwd_general", "transformer_tail"]
+    assert [name for name, _ in launches] == ["transformer_tail_bwd_general",
+                                              "transformer_tail_general"]
 
 
 @pytest.mark.parametrize("B,N,K,D,route,blocks", [
@@ -340,9 +342,47 @@ def test_transformer_tail_bwd_refuses_past_shared_memory(launches, K, D):
     leaves = [t.clone().requires_grad_() if t.is_floating_point() else t for t in inputs[:-1]]
     with pytest.raises(ValueError, match="shared memory"):
         transformer_tail.transformer_tail(*leaves)
-    with torch.no_grad():          # the forward alone still runs
+    with torch.no_grad():          # the forward alone still runs, on its general route
         transformer_tail.transformer_tail(*inputs[:-1])
-    assert [name for name, _ in launches] == ["transformer_tail"]
+    assert [name for name, _ in launches] == ["transformer_tail_general"]
+
+
+@pytest.mark.parametrize("B,N,K,D,route,blocks", [
+    (3, 2048, 16, 64, "transformer_tail", 132),             # the eval forward: tiled
+    (6, 2048, 16, 64, "transformer_tail", 132),             # the train step
+    (2, 301, 4, 64, "transformer_tail", 19),                # the tiny configs, a ragged tile
+    (1, 40, 16, 64, "transformer_tail", 5),
+    (6, 2048, 8, 64, "transformer_tail_general", 1536),     # refine_k = 8: 8 queries a block
+    (2, 30, 16, 32, "transformer_tail_general", 8),         # a narrower head
+    (1, 40, 28, 64, "transformer_tail_general", 5),
+])
+def test_transformer_tail_fwd_takes_its_route_and_grid(launches, B, N, K, D, route, blocks):
+    """The tiled forward at ``BWD_SHAPES`` on a fixed grid (one block an
+    SM, at most one a tile of 128 pair rows), passed after the shape; every
+    other (K, D) on the general route, whose grid the entry point sets."""
+    inputs = _transformer_tail_inputs(B, 50, N, K, D)[:-1]
+    out = transformer_tail.transformer_tail_fwd(*inputs)
+    assert [name for name, _ in launches] == [route]
+    assert transformer_tail.fwd_route(K, D) == route
+    assert transformer_tail.fwd_grid(B, N, K, route) == blocks
+    args = launches[0][1]
+    assert args[12] == out.data_ptr() and out.shape == (B, N, D)
+    assert args[13:18] == (B, 50, N, K, D)
+    assert args[18:-1] == ((blocks,) if route == "transformer_tail" else ())
+
+
+@pytest.mark.parametrize("K,D", [(1, 256), (40, 128), (300, 64)])
+def test_transformer_tail_fwd_refuses_past_shared_memory(launches, K, D):
+    """3 D^2 + 8 D + 3 K + 3 K D floats past 227 KB: the general forward is
+    refused, naming the limit, before any launch (with or without a
+    gradient)."""
+    assert (3 * D * D + 8 * D + 3 * K + 3 * K * D) * 4 > 227 * 1024
+    inputs = _transformer_tail_inputs(1, 50, 40, K, D)[:-1]
+    with pytest.raises(ValueError, match=f"transformer_tail forward.*past the {227 * 1024}"):
+        transformer_tail.transformer_tail_fwd(*inputs)
+    with torch.no_grad(), pytest.raises(ValueError, match="shared memory"):
+        transformer_tail.transformer_tail(*inputs)
+    assert not launches
 
 
 @pytest.mark.parametrize("B,N,M,C,metric,chunk,blocks,qw", [
@@ -369,6 +409,36 @@ def test_knn_approx_launch_arguments_and_grid(launches, B, N, M, C, metric, chun
     assert args[15] == out.data_ptr() and out.shape == (B, N, k) and out.dtype == torch.int32
     if chunk:
         assert chunk % tr == 0 and chunk * (3 if C == 3 else 8) * 4 <= knn_approx.PLANE_BYTES
+
+
+@pytest.mark.parametrize("G,N,M,threads,span,spans,query_blocks", [
+    (30, 8192, 8192, 512, 12, 11, 2),    # the train step's loss: 5 pairs x B*F = 30 groups
+    (3, 8192, 8192, 512, 6, 22, 2),      # the eval sample's CD
+    (12, 2048, 2048, 256, 2, 16, 1),     # the loss at the pyramid's levels
+    (12, 512, 512, 64, 1, 8, 1),
+    (12, 256, 256, 32, 1, 4, 1),
+    (2, 20000, 300, 512, 1, 5, 5),       # queries over 5 blocks, points in one span
+    (1, 64, 64, 32, 1, 1, 1),            # one block: both outputs by plain stores
+])
+def test_chamfer_pair_launch_arguments_and_span_count(launches, G, N, M, threads, span, spans,
+                                                      query_blocks):
+    """The spans fill the card at the path's G (waves x span least, the
+    longest span of equals); an output that more than one block writes is
+    filled first (k12 with INT_MAX where spans > 1, k21 with the f32 max's
+    bits where query blocks > 1), else left empty for plain stores."""
+    chamfer_pair = importlib.import_module("mocopci_torch.kernels.chamfer_pair")
+    assert chamfer_pair.launch_grid(G, N, M) == (threads, span, spans, query_blocks)
+    assert span * (spans - 1) < -(-M // chamfer_pair.CHUNK) <= span * spans
+    k12, k21 = chamfer_pair.chamfer_pair_keys(torch.zeros(G, N, 3), torch.zeros(G, M, 3))
+    assert [name for name, _ in launches] == ["chamfer_pair"]
+    args = launches[0][1]
+    assert args[2:8] == (G, N, M, chamfer_pair.index_bits(N, M), threads, span)
+    assert args[8:10] == (k12.data_ptr(), k21.data_ptr())
+    assert k12.shape == (G, N) and k21.shape == (G, M) and k12.dtype == k21.dtype == torch.int32
+    if spans > 1:
+        assert bool((k12 == chamfer_pair.INT_MAX).all())
+    if query_blocks > 1:
+        assert bool((k21 == chamfer_pair.INF_KEY).all())
 
 
 @pytest.mark.parametrize("G,N,M,D,rate", [(16, 256, 256, 256, 0.05), (16, 256, 256, 256, 0.0),
