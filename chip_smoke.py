@@ -20,7 +20,9 @@ Phases, each fatal on failure:
      kernel, the device's busy share, each FPS launch's shape and device ms,
      each ``knn_approx``, eval attention, cost-volume tail and transformer
      tail call's shape, device ms, bound and lost time, the SM clock before
-     and after);
+     and after), and one in exact mode (each exact ``knn`` call's shape,
+     route, device ms, bound and lost time, sums by route, and the queries
+     that took its overflow route);
   5. the eval path: ``eval_step`` (forward, CD, EMD) on one sample, its
      metrics against the CPU's, the times of its parts, then the eval CLI
      ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
@@ -64,7 +66,12 @@ tiled routes at refine_k 16, the general routes at 8), the forward within
 1e-4 (1 + max |out|) of its plain version with its bits repeated;
 ``chamfer_pair`` at the eval's (3, 8192, 8192) and at the train step's four
 calls, its keys bit-equal to the plain version's, beside its f32 bound and
-its issue floor (``chamfer_floor``).  With ``--parent TREE``
+its issue floor (``chamfer_floor``).  Exact ``knn`` at the fusion query,
+its indices equal to the plain version's, with the queries that took its
+overflow route; ``fusion_pair`` at the eval's (3, 8192, 64) and a ragged (3,
+400, 8), its planes within 1e-5 of ``pair_planes``' and bit-equal to the
+planes entry's, its logits within 1e-4 (1 + max |logit|) of the plain
+version, its bound at 3xTF32 with the f32 one beside.  With ``--parent TREE``
 (another checkout, for example the parent commit unpacked with ``git
 archive``) that tree's ``PARENT_SOURCES`` are built alone and timed beside
 this tree's at the same shapes, in turns (its pyramid as that tree samples
@@ -75,8 +82,10 @@ its six shapes beside SDPA; the cost-volume tail's forward at the eval's
 and argmax held bit-equal to that tree's; the transformer tail's forward on
 both routes at the eval's 3 and the step's 6 frames (its general route
 bit-equal to that tree's), ``chamfer_pair`` at each of its shapes, its keys
-bit-equal to that tree's, and the tail's backward bit-equal to that
-tree's).  The op kernels (select_min_k, the one-hot scatter,
+bit-equal to that tree's, the tail's backward bit-equal to that
+tree's, exact ``knn``'s indices equal to that tree's, ``fusion_pair``'s and
+``fusion_pair_planes``' planes and the train fusion head forward's output
+and statistics bit-equal to that tree's).  The op kernels (select_min_k, the one-hot scatter,
 the pair planes' rows forward and backward) at the shapes of phase 7; the
 one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
 by CUDA events and by device time under torch.profiler.
@@ -276,12 +285,30 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
         f"max distance gap {gap:.3e}")
     if mism:
         raise SystemExit("knn: Euclidean indices differ from the plain version")
+    mods["knn"].reset_overflows()
     row("knn_exact", mods["knn"],
         lambda: kernels.knn_exact(p1, p2, k, "euclidean"),
         lambda: kernels.knn_plain(p1, p2, k, "euclidean"),
         lambda: torch.topk(torch.cdist(p1, p2), k, dim=-1, largest=False),
         2 * p1.numel() * F32 + p1.shape[0] * n0 * k * I32,
         8.0 * p1.shape[0] * n0 * n0, gap, 1e-6)
+    # the queries that took the overflow route over the row's runs (none expected here)
+    rows[-1]["overflow_queries"] = mods["knn"].overflows()
+    log(f"kernel knn_exact: {rows[-1]['overflow_queries']} queries took the overflow route "
+        f"over the row's runs")
+    if parent is not None:
+        same = torch.equal(parent.knn(p1, p2, k, "euclidean"), got)
+        log(f"knn exact {tuple(p1.shape)} x {tuple(p2.shape)} k={k} (indices equal to the "
+            f"parent's {same}): " + beside(lambda: parent.knn(p1, p2, k, "euclidean"),
+                                           lambda: kernels.knn_exact(p1, p2, k, "euclidean")))
+        # the dot route (the cosine half of up_1's cost volume), its spans merged
+        same_c = torch.equal(parent.knn(fq, fr, kc, "cosine"), cg)
+        log(f"knn exact cosine {tuple(fq.shape)} k={kc} (indices equal to the parent's "
+            f"{same_c}; bound_ms {call_bound('knn', 1, n1, n1, c1, k=kc):.5f}): "
+            + beside(lambda: parent.knn(fq, fr, kc, "cosine"),
+                     lambda: kernels.knn_exact(fq, fr, kc, "cosine")))
+        if not (same and same_c):
+            raise SystemExit("knn: the exact indices differ from the parent's")
 
     # knn_approx: the same fusion query (the fold is engaged: M > 1024), then
     # the cosine half of the up_1 cost volume
@@ -422,24 +449,59 @@ def check_kernels(kernels, cfg, dataset, dev, parent=None):
                 raise SystemExit(f"{name} {(Gp, N, K, D)} disagrees with its plain version or "
                                  "the parent's bits")
 
-    # fusion_pair: 3 frames x n0 queries x 2k neighbours (the fusion kNN above)
+    # fusion_pair: 3 frames x n0 queries x 2k neighbours (the fusion kNN above),
+    # then a ragged shape; the planes within 1e-5 (1 + max |plane|) of
+    # pair_planes' (torch.sum may add the three squares in another order) and
+    # bit-equal to the planes entry's and (with a parent) to that tree's, the
+    # logits within 1e-4 (1 + max |logit|) of the plain version
     G, N, K2 = 3, n0, 2 * k
     pts1, pts2 = p1[:3], p2[3:]
     idx = torch.cat(torch.chunk(got, 2), dim=-1).contiguous()
     ws = []
     for ci, co in [(4, c1), (c1, c1), (c1, c2)]:
         ws += [rnd(ci, co, scale=ci ** -0.5), rnd(co, scale=0.1)]
+    for pp2, pidx, pp1 in ((pts2, idx, pts1),
+                           (rnd(3, 900, 3, scale=5.0), torch.randint(
+                               0, 900, (3, 400, 8), generator=gen, device=dev,
+                               dtype=torch.int32), rnd(3, 400, 3, scale=5.0))):
+        planes, logits = kernels.fusion_pair_plain(pp2, pidx, pp1, *ws)
+        kp, kl = kernels.fusion_pair(pp2, pidx, pp1, *ws)
+        err = float((kl - logits).abs().max())
+        perr = float((kp - planes).abs().max())
+        same = (perr <= 1e-5 * (1 + float(planes.abs().max())) and bits_equal(
+            [kp], [mods["fusion_pair"].fusion_pair_planes_kernel(pp2, pidx, pp1)]))
+        msg = (f"fusion_pair {tuple(pidx.shape)}: logits max_abs_err {err:.3e}, planes "
+               f"max_abs_err {perr:.3e} (bit-equal to pair_planes "
+               f"{bits_equal([kp], [planes])}), bit-equal to the planes entry's and within "
+               f"1e-5 {same}")
+        if parent is not None:
+            theirs = parent.fusion_pair(pp2, pidx, pp1, *ws)
+            same = same and bits_equal([theirs[0]], [kp])
+            msg += (f", planes bit-equal to the parent's {bits_equal([theirs[0]], [kp])}, the "
+                    f"parent's logits {float((theirs[1] - logits).abs().max()):.3e} from the "
+                    "plain version: " + beside(lambda: parent.fusion_pair(pp2, pidx, pp1, *ws),
+                                               lambda: kernels.fusion_pair(pp2, pidx, pp1, *ws)))
+        log(msg)
+        if not same or err > 1e-4 * (1 + float(logits.abs().max())):
+            raise SystemExit(f"fusion_pair {tuple(pidx.shape)}: the planes moved or the "
+                             "logits disagree with the plain version")
     planes, logits = kernels.fusion_pair_plain(pts2, idx, pts1, *ws)
     kp, kl = kernels.fusion_pair(pts2, idx, pts1, *ws)
     err = max(float((kp - planes).abs().max()), float((kl - logits).abs().max()))
     P = N * K2
-    row("fusion_pair", mods["fusion_pair"],
-        lambda: kernels.fusion_pair(pts2, idx, pts1, *ws),
-        lambda: kernels.fusion_pair_plain(pts2, idx, pts1, *ws), None,
-        (pts1.numel() + pts2.numel() + sum(t.numel() for t in ws) + G * 5 * P) * F32
-        + idx.numel() * I32,
-        G * P * (2 * (4 * c1 + c1 * c1 + c1 * c2) + 2 * (c1 + c1 + c2) + 9),
-        err, 1e-4 * (1 + float(logits.abs().max())))
+    # the bound: the W2 and W3 products on the tensor cores at float32 grade,
+    # layer 1, the biases, ReLUs, max and the planes at f32 (all at f32 beside)
+    nbytes = ((pts1.numel() + pts2.numel() + sum(t.numel() for t in ws) + G * 5 * P) * F32
+              + idx.numel() * I32)
+    tc = G * P * 2.0 * (c1 * c1 + c1 * c2)
+    f32 = G * P * (2.0 * 4 * c1 + 2 * (c1 + c1 + c2) + 9)
+    add_row(rows, "fusion_pair", mods["fusion_pair"].SOURCE, mods["fusion_pair"].REPLACES,
+            lambda: kernels.fusion_pair(pts2, idx, pts1, *ws),
+            lambda: kernels.fusion_pair_plain(pts2, idx, pts1, *ws), None, nbytes, f32,
+            err, 1e-4 * (1 + float(logits.abs().max())), tc_flops=tc)
+    rows[-1]["bound_f32_ms"] = bound(nbytes, f32 + tc)[0]
+    log(f"kernel fusion_pair: bound_ms {rows[-1]['bound_ms']:.5f} at 3xTF32, "
+        f"{rows[-1]['bound_f32_ms']:.5f} all at f32")
 
     # chamfer_pair: the eval CD, 3 predicted frames against 3 ground-truth frames
     _, gts = dataset[0]
@@ -588,12 +650,14 @@ def time_chamfer_vjp(kernels, pc1, pc2, what):
 
 
 PARENT_SOURCES = ("cross_tail.cu", "fps.cu", "attention_train.cu", "transformer_tail.cu",
-                  "knn_approx.cu", "attention.cu", "chamfer_pair.cu", "common.cu")
+                  "knn_approx.cu", "attention.cu", "chamfer_pair.cu", "knn.cu", "fusion_pair.cu",
+                  "fusion_head_train_fwd.cu", "common.cu")
 
 
 def build_parent(tree):
     """Start building another checkout's cost-volume tail, FPS, train and eval
-    attention, transformer tail, approximate kNN and Chamfer kernels (``PARENT_SOURCES``)
+    attention, transformer tail, approximate and exact kNN, Chamfer, eval
+    fusion head and train fusion forward kernels (``PARENT_SOURCES``)
     into a library of their own; returns a function that waits for the build
     and gives a :class:`Parent`."""
     from mocopci_torch.kernels import _lib
@@ -635,7 +699,10 @@ class Parent:
     has one; ``knn_approx`` takes that tree's arguments (a launch grid where
     its signature has one); the transformer tail's forward and ``chamfer_pair``
     take this tree's grid where that tree's signature has one, and their
-    outputs are filled as that tree's wrapper fills them."""
+    outputs are filled as that tree's wrapper fills them; exact ``knn`` and
+    ``fusion_pair`` take this tree's grid (and an overflow counter) where that
+    tree's signature has them; the train fusion head's forward runs through
+    this tree's wrapper with that tree's entry."""
 
     def __init__(self, tree, path):
         import ctypes
@@ -660,7 +727,8 @@ class Parent:
         for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid", "attention_train_fwd",
                      "attention_train_fwd_wide", "transformer_tail", "transformer_tail_general",
                      "transformer_tail_bwd", "knn_approx", "attention", "attention_wide",
-                     "chamfer_pair"):
+                     "chamfer_pair", "knn", "fusion_pair", "fusion_pair_planes",
+                     "fusion_head_train_fwd"):
             if name in self.sig:
                 fn = getattr(self.lib, f"mocopci_{name}")
                 fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
@@ -789,6 +857,59 @@ class Parent:
         self._call("chamfer_pair", pc1.data_ptr(), pc2.data_ptr(), G, N, M, index_bits(N, M),
                    *grid, k12.data_ptr(), k21.data_ptr())
         return k12, k21
+
+    def knn(self, query, ref, k, metric):
+        """That tree's exact kNN indices."""
+        from mocopci_torch.kernels.knn import METRICS, launch_grid
+
+        B, N, C = query.shape
+        M = ref.shape[1]
+        out = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
+        args = [query.data_ptr(), ref.data_ptr(), B, N, M, C, k, METRICS[metric]]
+        if len(self.sig["knn"]) == 10:
+            self._call("knn", *args, out.data_ptr())
+            return out
+        grid = launch_grid(B, N, M, C, metric)
+        self.part = torch.empty((B, N, grid[1], k, 2), dtype=torch.int32, device=query.device)
+        self.overflow = torch.zeros(1, dtype=torch.int32, device=query.device)
+        self._call("knn", *args, *grid, out.data_ptr(), self.part.data_ptr(),
+                   self.overflow.data_ptr())
+        return out
+
+    def fusion_pair(self, points2, idx, points1, *weights):
+        """That tree's eval fusion head: (planes, logits)."""
+        G, N, K2 = idx.shape
+        planes = torch.empty((G, 4, N * K2), device=idx.device)
+        logits = torch.empty((G, N * K2), device=idx.device)
+        self._call("fusion_pair", points2.data_ptr(), idx.data_ptr(), points1.data_ptr(),
+                   *(t.data_ptr() for t in weights), planes.data_ptr(), logits.data_ptr(), G, N,
+                   points2.shape[1], K2)
+        return planes, logits
+
+    def fusion_pair_planes(self, points2, idx, points1):
+        G, N, K2 = idx.shape
+        planes = torch.empty((G, 4, N * K2), device=idx.device)
+        self._call("fusion_pair_planes", points2.data_ptr(), idx.data_ptr(), points1.data_ptr(),
+                   planes.data_ptr(), G, N, points2.shape[1], K2)
+        return planes
+
+    def fusion_head_train_fwd(self, planes, params, n_groups):
+        """This tree's ``fusion_head_train_fwd`` with that tree's entry (the
+        same arguments)."""
+        lib = importlib.import_module("mocopci_torch.kernels._lib")
+        head = importlib.import_module("mocopci_torch.kernels.fusion_head_train")
+        if self.sig["fusion_head_train_fwd"] != lib.SIGNATURES["fusion_head_train_fwd"]:
+            raise SystemExit("the parent's fusion_head_train_fwd takes other arguments")
+        saved = lib.launch
+
+        def launch(name, *args):
+            if getattr(self.lib, f"mocopci_{name}")(*args):
+                raise RuntimeError(f"the parent's {name} failed")
+        lib.launch = launch
+        try:
+            return head.fusion_head_train_fwd(planes, params, n_groups)
+        finally:
+            lib.launch = saved
 
     def transformer_tail_bwd(self, table, idx, xyzq, q, *weights_and_dout):
         """(d_rows, dxq, dq, dw) from that tree's backward, dw the eight weight
@@ -1146,6 +1267,13 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
             lambda: fusion_pair.pair_planes(p2, idx, p1), None,
             (p1.numel() + p2.numel() + planes.numel()) * F32 + idx.numel() * I32,
             9.0 * G * P, err, 1e-4)
+    if parent is not None:      # the gather stage keeps the parent's bits
+        same = bits_equal([parent.fusion_pair_planes(p2, idx, p1)], [planes])
+        log(f"fusion_pair_planes {tuple(idx.shape)} (bit-equal to the parent's {same}): "
+            + beside(lambda: parent.fusion_pair_planes(p2, idx, p1),
+                     lambda: fusion_pair.fusion_pair_planes_kernel(p2, idx, p1)))
+        if not same:
+            raise SystemExit("fusion_pair_planes: the bits differ from the parent's")
     params, cin = [], 4
     for c in fusion_head_train.WIDTHS[1:]:
         params += [rnd(cin, c, scale=cin ** -0.5), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1),
@@ -1161,6 +1289,16 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
         f"{err_stats:.3e}")
     if not same or err_stats > 1e-3:
         raise SystemExit("fusion_head_train_fwd: stats disagree or a run did not repeat")
+    if parent is not None:      # the shared layer chain keeps the parent's bits
+        po, pstats, _ = parent.fusion_head_train_fwd(planes, params, F)
+        same = bits_equal([po, *[t for s in pstats for t in s]],
+                          [o, *[t for s in stats for t in s]])
+        log(f"fusion_head_train fwd {tuple(planes.shape)} (output and statistics bit-equal to "
+            f"the parent's {same}): "
+            + beside(lambda: parent.fusion_head_train_fwd(planes, params, F),
+                     lambda: fusion_head_train.fusion_head_train_fwd(planes, params, F), reps=5))
+        if not same:
+            raise SystemExit("fusion_head_train_fwd: the bits differ from the parent's")
     # the bound: one chain's products on the tensor cores at float32 grade
     add_row(rows, "fusion_head_train_fwd", fusion_head_train.SOURCE, fusion_head_train.REPLACES,
             lambda: fusion_head_train.fusion_head_train_fwd(planes, params, F),
@@ -1484,6 +1622,15 @@ def run_slice(kernels, cfg, dataset, dev, model, cpu_model, mode):
         with recording(launched, ("knn_approx", "attention", "attention_wide", "cross_tail")
                        + TAIL_FWD_ENTRIES):
             busy = profile_fps_calls(lambda: interpolate(model, *pairs[0]), "forward", per_call)
+    else:
+        knn_mod = importlib.import_module("mocopci_torch.kernels.knn")
+        knn_mod.reset_overflows()
+        with recording(launched, ("knn",)):
+            busy = profile(lambda: interpolate(model, *pairs[0]), "forward exact",
+                           lambda prof: log_calls(prof, launched, ("knn",), "forward exact knn"))
+        busy["knn_overflow_queries"] = knn_mod.overflows()
+        log(f"slice exact: {busy['knn_overflow_queries']} queries took the knn overflow route "
+            "in the profiled forward")
     return launches, {"forward_ms": fwd_ms, "forward_ms_min": min(times),
                       "forward_ms_max": max(times), "cd_max": max(cds),
                       "peak_mib": peak / 2**20, **busy}
@@ -1747,6 +1894,9 @@ def call_shape_bound(name, args):
     if name == "knn_approx":
         return (f"(B, N, M, C) {args[3:7]}, k {args[7]}, metric {args[8]}",
                 call_bound("knn", *args[3:7], k=args[7]))
+    if name == "knn":
+        return (f"(B, N, M, C) {args[2:6]}, k {args[6]}, metric {args[7]}, route "
+                f"{knn_route(args)}", call_bound("knn", *args[2:6], k=args[6]))
     if name.startswith("attention_train_fwd"):
         rate = 0.0 if args[11] == 0 and args[12] == 1.0 else 1.0 - 1.0 / args[12]
         return (f"(G, N, M, D, rate) {(*args[5:9], round(rate, 6))}, route {name}",
@@ -1759,27 +1909,54 @@ def call_shape_bound(name, args):
             tail_bound(B, M, N, K, C, C2, argmax=bool(args[6])))
 
 
+def knn_route(args) -> str:
+    """The route of a recorded exact ``knn`` launch: the filtered scan of xyz
+    rows (Euclidean, C <= 8) or the dot form."""
+    return "xyz" if args[7] == 0 and args[5] <= 8 else "dot"
+
+
+def kernels_of(name, args) -> int:
+    """The device kernels one recorded launch runs: two for exact ``knn``'s
+    dot form over more than one reference span (the spans, then their
+    merge), else one."""
+    return 2 if name == "knn" and knn_route(args) == "dot" and args[9] > 1 else 1
+
+
 def log_calls(prof, launched, names, what):
     """Each recorded launch of an entry in ``names``: its shape, device ms by
-    CUDA events and, where the profiler traced every one, by the profiler,
-    and its bound (``call_shape_bound``); then the sums and the lost time
-    (device ms less the calls' bounds)."""
+    CUDA events and, where the profiler traced every kernel of every one, by
+    the profiler (the sum of the launch's kernels, ``kernels_of``), and its
+    bound (``call_shape_bound``); then the sums and the lost time (device ms
+    less the calls' bounds)."""
     from torch.autograd import DeviceType
 
     symbols = [key for key, v in KERNEL_SYMBOLS.items() if v in names]
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and any(sym in e.name for sym in symbols))
     mine = [c for c in launched if c[0] in names]
-    traced = len(spans) == len(mine)
+    counts = [kernels_of(name, args) for name, args, _, _ in mine]
+    traced = len(spans) == sum(counts)
     total = lost = bounds = 0.0
-    for i, (name, args, start, end) in enumerate(mine):
+    routes = {}     # route -> [calls, device ms by the profiler, bounds]
+    first = 0
+    for (name, args, start, end), n in zip(mine, counts):
         ms = start.elapsed_time(end)
         shape, b_ms = call_shape_bound(name, args)
         total, lost, bounds = total + ms, lost + ms - b_ms, bounds + b_ms
+        dev_ms = sum(b - a for a, b in spans[first:first + n]) / 1e3 if traced else 0.0
+        first += n
+        r = routes.setdefault(knn_route(args) if name == "knn" else name, [0, 0.0, 0.0])
+        r[0] += 1
+        r[1] += dev_ms
+        r[2] += b_ms
         log(f"{what} {shape}: device ms {ms:.4f} by CUDA events, "
-            + (f"{(spans[i][1] - spans[i][0]) / 1e3:.4f} by the profiler, lost "
-               f"{(spans[i][1] - spans[i][0]) / 1e3 - b_ms:.4f}" if traced
+            + (f"{dev_ms:.4f} by the profiler over {n} kernel{'s' * (n > 1)}, lost "
+               f"{dev_ms - b_ms:.4f}" if traced
                else "not matched in the profile") + f", bound_ms {b_ms:.5f}")
+    if len(routes) > 1 and traced:
+        log(f"{what} by route: " + "; ".join(
+            f"{r}: {c} calls, device ms {d:.4f} by the profiler, lost {d - b:.4f}"
+            for r, (c, d, b) in routes.items()))
     # CUDA events also time the host's gap before a launch; the profiler's
     # device time, less the calls' bounds, is the lost time to rank by
     traced_ms = sum(b - a for a, b in spans) / 1e3
@@ -2038,8 +2215,9 @@ def run_train_cli(kernels):
 
 # device-kernel name fragment -> port kernel, for the profile breakdown
 KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
-                  "knn_xyz_kernel": "knn_exact",
-                  "knn_dot_kernel": "knn_exact", "knn_approx_xyz_kernel": "knn_approx",
+                  "knn_exact_xyz_kernel": "knn",
+                  "knn_dot_kernel": "knn", "knn_merge_kernel": "knn",
+                  "knn_approx_xyz_kernel": "knn_approx",
                   "knn_approx_dot_kernel": "knn_approx", "chamfer_pair_kernel": "chamfer_pair",
                   "attention_eval_kernel": "attention",
                   "attention_eval_wide_kernel": "attention_wide",

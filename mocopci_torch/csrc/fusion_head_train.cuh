@@ -3,14 +3,14 @@
 // ReLU, then the max over the 128 channels.  This header holds the packed
 // parameter layout and what the forward sweeps (fusion_head_train_fwd.cu)
 // and the backward sweeps (fusion_head_train_bwd.cu) share; both run their
-// products on the tensor cores (mma_tf32.cuh).
+// products on the tensor cores (mma_tf32.cuh).  The widths and the forward's
+// layer chain are fusion_head.cuh's, which the eval kernel shares.
 #pragma once
 
-#include "common.cuh"
+#include "fusion_head.cuh"
 
 namespace {
 
-constexpr int kC1 = 64, kC2 = 64, kC3 = 128;
 constexpr int kCS = kC1 + kC2 + kC3;   // per-group stat row: [layer1 | layer2 | layer3]
 // packed parameters: W1 b1 g1 e1 W2 b2 g2 e2 W3 b3 g3 e3 (W as (in, out), e = BN beta)
 constexpr int OW1 = 0, OB1 = OW1 + 4 * kC1, OG1 = OB1 + kC1, OE1 = OG1 + kC1;

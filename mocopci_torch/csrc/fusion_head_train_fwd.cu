@@ -9,47 +9,24 @@
 //
 // Bound on the H100: operations.  The four sweeps run about 57k flops of
 // products per pair (z2 = h1 W2 in sweeps 1-3, z3 = h2 W3 in sweeps 2-3)
-// against 16 bytes of HBM per pair and sweep.  Design: the products on the
-// warpgroup tensor-core instruction (wgmma m64nNk8, TF32) at float32 grade
-// (3xTF32: hi and lo parts, three products a k-step; mma_tf32.cuh).  A
-// warpgroup owns 64 pairs, the M of the product, each warp 16 of them; two
-// warpgroups a block, one block per SM, a fixed grid of blocks striding over
-// tiles of 128 pairs.  W2 and W3 are the B operands: split once per block
-// into hi and lo planes in shared memory, K-major in 128-byte core
-// matrices.  Layer 1 (K = 4) runs on FMAs.  An activation stays in
-// registers as accumulator fragments: n-tile ks of it is the next product's
-// A fragment of k-step ks with its channels taken in the order (2 tig,
-// 2 tig + 1) of the fragment, so the B planes hold W's rows in that order
-// and no shuffle moves the activation.  BN, ReLU and the channel max run on
-// the fragments.  Each thread keeps its columns' (sum z, sum z^2) in registers
-// while the block's tiles stay in one group, and adds them into per-warp
-// shared rows (shuffles over lane bits 2-4) when the group changes; the
-// warps' rows, then the blocks' partials (a second kernel) are summed in a
-// fixed order, so the result repeats bit for bit.
+// against 16 bytes of HBM per pair and sweep.  Design: the layer chain of
+// fusion_head.cuh (layer 1 on FMAs, W2 and W3 on wgmma m64nNk8 at 3xTF32,
+// activations kept as accumulator fragments), two warpgroups a block, one
+// block per SM, a fixed grid of blocks striding over tiles of 128 pairs; BN,
+// ReLU and the channel max run on the fragments.  Each thread keeps its
+// columns' (sum z, sum z^2) in registers while the block's tiles stay in one
+// group, and adds them into per-warp shared rows (shuffles over lane bits
+// 2-4) when the group changes; the warps' rows, then the blocks' partials (a
+// second kernel) are summed in a fixed order, so the result repeats bit for
+// bit.
 #include "fusion_head_train.cuh"
-#include "mma_tf32.cuh"
 
 namespace {
-
-constexpr int kFWarps = 8;              // two warpgroups
-constexpr int kFThreads = 32 * kFWarps;
-constexpr int kFTile = 16 * kFWarps;    // pairs per block step
-// a B plane of K = 64 input channels: 16 core matrices along K, 128 bytes
-// each, then the next 8 output channels
-constexpr uint32_t kLbo = 128, kSbo = 16 * 128;
 
 // floats of the split weights a sweep needs: none, W2, or W2 and W3 (hi and
 // lo planes each)
 __host__ __device__ constexpr int fwd_weight_floats(int mode) {
   return mode == 0 ? 0 : mode == 1 ? 2 * kC1 * kC2 : 2 * (kC1 * kC2 + kC2 * kC3);
-}
-
-// float offset in a B plane of weight W[c][n] (input channel c, output n):
-// k-step c / 8 holds channel 8 ks + 2 j at its k = j and 8 ks + 2 j + 1 at
-// k = 4 + j (the A fragments' order)
-__device__ __forceinline__ int b_offset(int c, int n) {
-  const int q = c & 7, k = (c & ~7) + ((q & 1) << 2) + (q >> 1);
-  return (n >> 3) * (kSbo / 4) + (k >> 2) * (kLbo / 4) + (n & 7) * 4 + (k & 3);
 }
 
 // the width of a sweep's per-group sums, and floats of its reduction (its
@@ -59,40 +36,6 @@ __host__ __device__ constexpr int group_width(int mode) {
 }
 
 __host__ __device__ constexpr int red_size(int mode, int F) { return F * 2 * group_width(mode); }
-
-// acc[NT] += H W over 64 channels for the warpgroup's 64 rows: H held as
-// accumulator fragments h[ks][4] (c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2,
-// c3 the same at gid + 8).  K-step ks takes n-tile ks of H as its A fragment
-// with the columns tig, tig + 4 standing for channels 8 ks + 2 tig, + 1
-// (b_offset); whi, wlo describe W's hi and lo planes.  Three products a
-// k-step, the two small terms first.
-template <int NT>
-__device__ __forceinline__ void product(const float (&h)[kC1 / 8][4], uint64_t whi,
-                                        uint64_t wlo, float (&acc)[NT][4]) {
-  uint32_t hi[kC1 / 8][4], lo[kC1 / 8][4];
-#pragma unroll
-  for (int ks = 0; ks < kC1 / 8; ++ks) {
-    const float a[4] = {h[ks][0], h[ks][2], h[ks][1], h[ks][3]};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mocopci::split_tf32(a[i], hi[ks][i], lo[ks][i]);
-  }
-  mocopci::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < kC1 / 8; ++ks) {
-    const uint64_t o = ks * (2 * kLbo >> 4);     // the k-step's two core matrices
-    if constexpr (NT == 8) {
-      mocopci::wgmma_m64n64k8(acc, lo[ks], whi + o);
-      mocopci::wgmma_m64n64k8(acc, hi[ks], wlo + o);
-      mocopci::wgmma_m64n64k8(acc, hi[ks], whi + o);
-    } else {
-      mocopci::wgmma_m64n128k8(acc, lo[ks], whi + o);
-      mocopci::wgmma_m64n128k8(acc, hi[ks], wlo + o);
-      mocopci::wgmma_m64n128k8(acc, hi[ks], whi + o);
-    }
-  }
-  mocopci::wgmma_commit();
-  mocopci::wgmma_wait();
-}
 
 // this thread's running (sum z, sum z^2) of columns nt * 8 + 2 tig + e over
 // its valid rows
@@ -191,77 +134,44 @@ __global__ void __launch_bounds__(kFThreads, 1) fusion_head_fwd_kernel(
       xv[1][i] = v1 ? xg[p0 + 8] : 0.f;
     }
 
-    // layer 1 on FMAs, in accumulator layout (element q: row q / 2, column
-    // nt * 8 + 2 tig + q % 2)
     float h1[kC1 / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kC1 / 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = nt * 8 + 2 * tig + (q & 1);
-        float z = vec[OB1 + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) z = fmaf(xv[q >> 1][i], vec[OW1 + i * kC1 + c], z);
-        h1[nt][q] = z;
-      }
+    chain_layer1(xv, vec + OW1, vec + OB1, tig, h1);
     if constexpr (MODE == 0) {
       sum_rows(h1, v0, v1, sa, sb);
       continue;
     }
-#pragma unroll
-    for (int nt = 0; nt < kC1 / 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = nt * 8 + 2 * tig + (q & 1);
-        const float zh = (h1[nt][q] - mean[c]) * rstd[c];
-        h1[nt][q] = fmaxf(fmaf(vec[OG1 + c], zh, vec[OE1 + c]), 0.f);
-      }
+    chain_activate(h1, tig, [&](int c, float z) {
+      const float zh = (z - mean[c]) * rstd[c];
+      return fmaxf(fmaf(vec[OG1 + c], zh, vec[OE1 + c]), 0.f);
+    });
 
     // layer 2: z2 = h1 W2 + b2
     float h2[kC2 / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kC2 / 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) h2[nt][q] = vec[SB2 + nt * 8 + 2 * tig + (q & 1)];
-    product(h1, w2hi, w2lo, h2);
+    chain_bias(vec + SB2, tig, h2);
+    chain_product(h1, w2hi, w2lo, h2);
     if constexpr (MODE == 1) {
       sum_rows(h2, v0, v1, sa, sb);
       continue;
     }
-#pragma unroll
-    for (int nt = 0; nt < kC2 / 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = nt * 8 + 2 * tig + (q & 1);
-        const float zh = (h2[nt][q] - mean[kC1 + c]) * rstd[kC1 + c];
-        h2[nt][q] = fmaxf(fmaf(vec[SG2 + c], zh, vec[SE2 + c]), 0.f);
-      }
+    chain_activate(h2, tig, [&](int c, float z) {
+      const float zh = (z - mean[kC1 + c]) * rstd[kC1 + c];
+      return fmaxf(fmaf(vec[SG2 + c], zh, vec[SE2 + c]), 0.f);
+    });
 
     // layer 3: z3 = h2 W3 + b3, its group sums (sweep 2) or the channel max
     float z3[kC3 / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kC3 / 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) z3[nt][q] = vec[SB3 + nt * 8 + 2 * tig + (q & 1)];
-    product(h2, w3hi, w3lo, z3);
+    chain_bias(vec + SB3, tig, z3);
+    chain_product(h2, w3hi, w3lo, z3);
     if constexpr (MODE == 2) {
       sum_rows(z3, v0, v1, sa, sb);
       continue;
     }
-    float mx[2] = {-1.f, -1.f};
-#pragma unroll
-    for (int nt = 0; nt < kC3 / 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int o = nt * 8 + 2 * tig + (q & 1), c = kC1 + kC2 + o;
-        const float zh = (z3[nt][q] - mean[c]) * rstd[c];
-        mx[q >> 1] = fmaxf(mx[q >> 1], fmaxf(fmaf(vec[SG3 + o], zh, vec[SE3 + o]), 0.f));
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
+    float mx[2];
+    chain_channel_max(z3, tig, [&](int o, float z) {
+      const int c = kC1 + kC2 + o;
+      const float zh = (z - mean[c]) * rstd[c];
+      return fmaxf(fmaf(vec[SG3 + o], zh, vec[SE3 + o]), 0.f);
+    }, mx);
     if (tig == 0) {
       if (v0) out[static_cast<size_t>(g) * P + p0] = mx[0];
       if (v1) out[static_cast<size_t>(g) * P + p0 + 8] = mx[1];

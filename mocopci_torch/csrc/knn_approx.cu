@@ -49,22 +49,16 @@
 //     into the queries' bins in shared memory ([16][tr + 8] ints), each
 //     (query, bin) owned by one thread throughout.  The bins are then
 //     extracted as above.
-#include "common.cuh"
+#include "knn_planes.cuh"
 
 namespace {
 
 constexpr int kTile = 1024;              // largest tr
-constexpr int kInf = 0x7FFFFFFF;
-constexpr unsigned kFull = 0xffffffffu;
 
 using mocopci::cp_async16z;
 using mocopci::cp_async4z;
 using mocopci::cp_async_commit;
 using mocopci::cp_async_wait0;
-
-__device__ __forceinline__ int pack(float d, int mask, int col) {
-  return (__float_as_int(d) & ~mask) | col;
-}
 
 // The k least bins of the warp, ascending (no fold: every bin is a candidate).
 template <int NT>
@@ -140,41 +134,7 @@ __device__ __forceinline__ void extract(int (&bins)[NT], int k, int mask, int fo
   extract_all(bins, k, mask, lane, o);
 }
 
-// ---- Euclidean, C <= CC <= 8 ----
-constexpr int kXWarps = 8;
-constexpr int kXThreads = 32 * kXWarps;
-constexpr int kXPlaneBytes = 96 * 1024;    // the staged planes, at most
-
-// One reference tile into the warp's bins: the lane's columns col0 + 32 t
-// (t < nt, and 32 t < lim where GUARD), their coordinates at rt[c * chunk +
-// 32 t], against the warp's QW queries.
-template <int NT, int CC, int QW, bool GUARD>
-__device__ __forceinline__ void scan_tile(const float* rt, int chunk, int C, int nt, int lim,
-                                          int col0, const float (&qv)[QW][CC], int mask,
-                                          int (&bins)[QW][NT]) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (GUARD && !(t < nt && 32 * t < lim)) continue;
-    float rc[CC];
-#pragma unroll
-    for (int c = 0; c < CC; ++c)
-      if (CC == 3 || c < C) rc[c] = rt[c * chunk + 32 * t];
-#pragma unroll
-    for (int qi = 0; qi < QW; ++qi) {
-      float diff = __fsub_rn(qv[qi][0], rc[0]);
-      float d = __fmul_rn(diff, diff);
-#pragma unroll
-      for (int c = 1; c < CC; ++c) {
-        if (CC == 3 || c < C) {
-          diff = __fsub_rn(qv[qi][c], rc[c]);
-          d = __fadd_rn(d, __fmul_rn(diff, diff));
-        }
-      }
-      bins[qi][t] = min(bins[qi][t], pack(d, mask, col0 + 32 * t));
-    }
-  }
-}
-
+// ---- Euclidean, C <= CC <= 8 (knn_planes.cuh) ----
 template <int NT, int CC, int QW>
 __global__ void __launch_bounds__(kXThreads, 2) knn_approx_xyz_kernel(
     const float* __restrict__ q, const float* __restrict__ r, int N, int M, int C, int k,
@@ -182,20 +142,12 @@ __global__ void __launch_bounds__(kXThreads, 2) knn_approx_xyz_kernel(
   extern __shared__ float rs[];            // [CC][chunk] coordinate planes
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nt = tr >> 5;
   const int nchunks = (M + chunk - 1) / chunk;
   constexpr int kGroup = kXWarps * QW;     // queries a group
   const int ngroups = (N + kGroup - 1) / kGroup;
   const float* rb = r + static_cast<size_t>(b) * M * C;
-  auto stage = [&](int base) {
-    const int cnt = min(chunk, M - base);
-    for (int e = threadIdx.x; e < cnt * C; e += kXThreads) {
-      const int row = e / C, c = e - row * C;
-      rs[c * chunk + row] = rb[static_cast<size_t>(base) * C + e];
-    }
-  };
   if (nchunks == 1) {
-    stage(0);
+    stage_planes(rb, 0, M, C, chunk, rs);
     __syncthreads();
   }
   // groups blockIdx.x, + gridDim.x, ...: one a block when the reference streams
@@ -216,18 +168,13 @@ __global__ void __launch_bounds__(kXThreads, 2) knn_approx_xyz_kernel(
       const int base = ch * chunk;
       if (nchunks > 1) {
         __syncthreads();
-        stage(base);
+        stage_planes(rb, base, M, C, chunk, rs);
         __syncthreads();
       }
-      const int cnt = min(chunk, M - base);
-      for (int s0 = 0; s0 < cnt; s0 += tr) {
-        if (cnt - s0 >= tr && nt == NT)   // a whole tile: no guards
-          scan_tile<NT, CC, QW, false>(rs + s0 + lane, chunk, C, NT, tr, base + s0 + lane, qv, mask,
-                                   bins);
-        else
-          scan_tile<NT, CC, QW, true>(rs + s0 + lane, chunk, C, nt, cnt - s0 - lane, base + s0 + lane,
-                                  qv, mask, bins);
-      }
+      scan_chunk<NT, CC, QW>(rs, chunk, C, min(chunk, M - base), tr, base, lane, qv,
+                             [&](int qi, int t, float d, int col) {
+                               bins[qi][t] = min(bins[qi][t], pack(d, mask, col));
+                             });
     }
 #pragma unroll
     for (int qi = 0; qi < QW; ++qi)

@@ -36,7 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fps": [_P, _I, _I, _I, _P, _P],
     "fps_pyramid": [_P, _I, _I, _P, _I, _P, _P],
-    "knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "knn": [_P, _P] + [_I] * 9 + [_P] * 4,
     "attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "attention_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "cross_tail": [_P] * 7 + [_I] * 7 + [_P],

@@ -5,9 +5,13 @@ One kernel replaces three TPU kernels: ``gather_planes.py``
 ``build_pair_planes`` forward (:148) and ``fusion_head.py``
 ``fusion_head_pallas`` (:66).  Pairs are k-major, p = j·N + n.  BatchNorm is
 folded into the dense weights on the host (:func:`fold_bn_dense`).
-Operations bound it.  The train path takes the planes alone
-(:func:`fusion_pair_planes`, a second entry of the same source; bytes bound
-it) and scores them with ``fusion_head_train``.
+Operations bound it: the kernel runs the train head's layer chain on the
+tensor cores at float32 grade (``csrc/fusion_head.cuh``), a fixed grid of
+blocks (chosen in the C entry) walking units of 128 queries × up to 8
+neighbour slots, each unit gathering its own pair rows.  The train path
+takes the planes alone (:func:`fusion_pair_planes`, the same gather stage as
+a second entry of the source; bytes bound it) and scores them with
+``fusion_head_train``.
 
 :func:`build_pair_planes` is ``mocopci_tpu/ops/pallas/fusion_planes.py``
 ``build_pair_planes`` on rows the caller has gathered, differentiable: the

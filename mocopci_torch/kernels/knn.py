@@ -7,6 +7,16 @@ Euclidean rows of at most ``DIRECT_MAX_C`` channels (xyz) are ranked by the
 direct sum of squared differences, in channel order and without fused
 multiply-adds, so kernel and twin rank by bit-identical distances; wider rows
 by the dot forms.  Operations bound it (every query scans every reference row).
+
+The xyz rows take a threshold and one filtered scan: a block stages the
+reference as coordinate planes (the whole cloud when it fits, as
+``knn_approx``; :func:`launch_grid`), keeps 256 bins of least distances a
+query, bounds the k-th neighbour's distance by the k-th least bin, and sorts
+the columns within that bound (at most ``CAP`` a query).  A query with more goes
+the overflow route inside the kernel (a sorted list a lane, merged); each such
+query adds one to the device counter that :func:`overflows` reads.  The dot
+form keeps a sorted list a query over up to ``MAX_SPLITS`` spans of the
+reference, a block each, merged by a second kernel (:func:`launch_grid`).
 """
 from __future__ import annotations
 
@@ -22,6 +32,14 @@ MAX_M = 65536
 MAX_C = 512
 DIRECT_MAX_C = 8
 METRICS = {"euclidean": 0, "cosine": 1}
+BIN_TILE = 256       # columns a bin tile (csrc kBinTile): bin b holds columns b mod 256
+CAP = 64             # candidates a query keeps for its sort (csrc kCap)
+GROUP = 16           # queries a group: 8 warps x 2 (csrc kXWarps x QW)
+PLANE_BYTES = 96 * 1024   # the staged coordinate planes, at most (csrc kXPlaneBytes)
+SMS = 132            # an H100's SMs
+DOT_QUERIES = 64     # queries a block of the dot form (csrc kDotQ)
+DOT_ROWS = 32        # reference rows a tile of the dot form (csrc kDotR)
+MAX_SPLITS = 16      # spans of the reference in the dot form (csrc kMaxSplits)
 # distance-matrix entries per chunk of the plain version
 _CHUNK = 1 << 22
 
@@ -69,6 +87,60 @@ def knn_plain(query: torch.Tensor, ref: torch.Tensor, k: int, metric: str) -> to
     return torch.cat(out, dim=1)
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def planes_grid(B: int, N: int, M: int, C: int, tile: int):
+    """(chunk, blocks along the queries, queries a warp) of a kernel that
+    stages the reference as coordinate planes (Euclidean, C <= 8; this one's
+    and ``knn_approx``'s): the rows a block stages (whole tiles, the whole
+    cloud when it fits), 2 queries a warp (groups of 16) where that still
+    gives every SM two blocks, else 1 (groups of 8), and, when one chunk
+    holds the cloud, enough blocks for two an SM over the B clouds, each
+    taking every gx-th group; otherwise (a streamed reference) a block a
+    group."""
+    planes = 3 if C == 3 else DIRECT_MAX_C
+    chunk = min(_round_up(M, tile), PLANE_BYTES // (4 * planes) // tile * tile)
+    qw = 2 if B * -(-N // GROUP) >= 2 * SMS else 1
+    groups = -(-N // (GROUP // 2 * qw))
+    return chunk, (min(groups, -(-2 * SMS // B)) if chunk >= M else groups), qw
+
+
+def launch_grid(B: int, N: int, M: int, C: int, metric: str):
+    """The filtered scan's :func:`planes_grid` over bin tiles; for the dot
+    form (span, splits, 0): the reference rows a split scans (whole tiles)
+    and the splits, enough for two blocks an SM where the query blocks alone
+    do not fill the card, at most ``MAX_SPLITS``."""
+    if metric == "euclidean" and C <= DIRECT_MAX_C:
+        return planes_grid(B, N, M, C, BIN_TILE)
+    blocks = B * -(-N // DOT_QUERIES)
+    splits = max(1, min(MAX_SPLITS, -(-2 * SMS // blocks)))
+    span = _round_up(-(-M // splits), DOT_ROWS)
+    return span, -(-M // span), 0
+
+
+_OVERFLOW: dict = {}
+
+
+def _overflow_counter(device: torch.device) -> torch.Tensor:
+    key = str(device)
+    if key not in _OVERFLOW:
+        _OVERFLOW[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _OVERFLOW[key]
+
+
+def overflows() -> int:
+    """Queries that took the overflow route since the last
+    :func:`reset_overflows`, over every device (reads the device counters)."""
+    return sum(int(t.item()) for t in _OVERFLOW.values())
+
+
+def reset_overflows() -> None:
+    for t in _OVERFLOW.values():
+        t.zero_()
+
+
 def knn_exact(query: torch.Tensor, ref: torch.Tensor, k: int, metric: str) -> torch.Tensor:
     """Exact kNN indices (B, N, min(k, M)) int32; for ``metric="cosine"`` the
     rows must already be normalised.  Kernel on CUDA, twin on the CPU."""
@@ -87,6 +159,12 @@ def knn_exact(query: torch.Tensor, ref: torch.Tensor, k: int, metric: str) -> to
         raise ValueError(f"knn kernel covers k <= {MAX_K}, M <= {MAX_M}, C <= {MAX_C}; "
                          f"got k={k}, M={M}, C={C}")
     out = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
-    _lib.launch("knn", query.data_ptr(), ref.data_ptr(), B, N, M, C, k, METRICS[metric],
-                out.data_ptr(), _lib.stream(query))
+    grid = launch_grid(B, N, M, C, metric)
+    dot = metric != "euclidean" or C > DIRECT_MAX_C
+    # the dot form's split lists: (distance bits, index) pairs
+    part = torch.empty((B, N, grid[1], k, 2) if dot and grid[1] > 1 else (0,),
+                       dtype=torch.int32, device=query.device)
+    _lib.launch("knn", query.data_ptr(), ref.data_ptr(), B, N, M, C, k, METRICS[metric], *grid,
+                out.data_ptr(), part.data_ptr(), _overflow_counter(query.device).data_ptr(),
+                _lib.stream(query))
     return out

@@ -30,7 +30,14 @@ from __future__ import annotations
 import torch
 
 from mocopci_torch.kernels import _lib
-from mocopci_torch.kernels.knn import DIRECT_MAX_C, METRICS, selection_distances
+from mocopci_torch.kernels.knn import (
+    DIRECT_MAX_C,
+    GROUP,
+    METRICS,
+    PLANE_BYTES,
+    planes_grid,
+    selection_distances,
+)
 
 SOURCE = "mocopci_torch/csrc/knn_approx.cu"
 REPLACES = "mocopci_tpu/ops/pallas/knn.py:181"
@@ -38,9 +45,6 @@ REPLACES = "mocopci_tpu/ops/pallas/knn.py:181"
 TILE = 1024          # reference tile, the JAX kernel's default ``tr``
 FOLD_K = 384         # 3 survivors x 128 columns
 MAX_C = 512
-GROUP = 16           # queries a group: 8 warps x 2 (csrc xyz kernel), kDQ (dot form)
-PLANE_BYTES = 96 * 1024   # the staged coordinate planes, at most (csrc kXPlaneBytes)
-SMS = 132            # an H100's SMs
 INF_KEY = 0x7FFFFFFF
 # distance-matrix entries per chunk of the plain version
 _CHUNK = 1 << 22
@@ -57,20 +61,12 @@ def tiling(M: int, k: int):
 
 
 def launch_grid(B: int, N: int, M: int, C: int, tr: int, metric: str):
-    """(chunk, blocks along the queries, queries a warp).  For Euclidean
-    C <= 8: the reference rows a block stages as planes (whole tiles, the whole
-    cloud when it fits), 2 queries a warp (groups of 16) where that still gives
-    every SM two blocks, else 1 (groups of 8), and, when one chunk holds the
-    cloud, enough blocks for two an SM over the B clouds, each taking every
-    gx-th group; otherwise (a streamed reference) a block a group.  The dot
-    form: a block a group of 16."""
+    """(chunk, blocks along the queries, queries a warp): for Euclidean C <= 8
+    ``knn.planes_grid`` over tiles of tr; the dot form a block a group of 16
+    (``GROUP``, csrc kDQ)."""
     if metric != "euclidean" or C > DIRECT_MAX_C:
         return 0, -(-N // GROUP), 1
-    planes = 3 if C == 3 else DIRECT_MAX_C
-    chunk = min(_round_up(M, tr), PLANE_BYTES // (4 * planes) // tr * tr)
-    qw = 2 if B * -(-N // GROUP) >= 2 * SMS else 1
-    groups = -(-N // (GROUP // 2 * qw))
-    return chunk, (min(groups, -(-2 * SMS // B)) if chunk >= M else groups), qw
+    return planes_grid(B, N, M, C, tr)
 
 
 def approx_distances(query: torch.Tensor, ref: torch.Tensor, metric: str) -> torch.Tensor:

@@ -89,6 +89,56 @@ def test_knn_kernel_matches_twin(card, metric, C, k):
     assert (got == want).float().mean() > 0.999
 
 
+@pytest.mark.parametrize("k", [1, 3, 16, 32])
+@pytest.mark.parametrize("M", [1500, 8192, 20000])
+def test_knn_xyz_kernel_equals_twin(card, M, k):
+    """The filtered scan (Euclidean, C = 3): indices equal to the plain
+    version's, on a ragged number of queries, the whole cloud staged (1500,
+    8192) and streamed past the planes (20000), in one launch."""
+    g = torch.Generator().manual_seed(30 + k)
+    q, r = _x(g, 2, 301, 3, scale=10.0).to(card), _x(g, 2, M, 3, scale=10.0).to(card)
+    kernels.reset_launches()
+    got = kernels.knn_exact(q, r, k, "euclidean")
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"knn": 1}
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  kernels.knn_plain(q, r, k, "euclidean").cpu().numpy())
+
+
+@pytest.mark.parametrize("metric,B,N,M,C,k", [("cosine", 1, 2048, 2048, 64, 16),
+                                              ("cosine", 1, 256, 256, 256, 16),
+                                              ("euclidean", 2, 300, 1000, 20, 32)])
+def test_knn_dot_form_splits_keep_the_result(card, monkeypatch, metric, B, N, M, C, k):
+    """The dot form over reference spans, merged, returns what one span
+    returns: each pair's distance is the same whatever the split."""
+    knn_mod = importlib.import_module("mocopci_torch.kernels.knn")
+    g = torch.Generator().manual_seed(32)
+    q, r = _x(g, B, N, C).to(card), _x(g, B, M, C).to(card)
+    if metric == "cosine":
+        q, r = _normalise(q).contiguous(), _normalise(r).contiguous()
+    split = kernels.knn_exact(q, r, k, metric)
+    assert knn_mod.launch_grid(B, N, M, C, metric)[1] > 1
+    monkeypatch.setattr(knn_mod, "launch_grid", lambda *a: (-(-M // 32) * 32, 1, 0))
+    assert torch.equal(split, kernels.knn_exact(q, r, k, metric))
+
+
+@pytest.mark.parametrize("M,C", [(3000, 3), (20000, 3), (3000, 5)])
+def test_knn_kernel_takes_the_overflow_route_on_duplicates(card, M, C):
+    """200 copies of one point and exact ties: a query at that point has more
+    candidates than the buffer holds and takes the overflow route, counted;
+    the indices stay equal to the plain version's (ties to the lowest index)."""
+    knn_mod = importlib.import_module("mocopci_torch.kernels.knn")
+    g = torch.Generator().manual_seed(31)
+    r = torch.round(_x(g, 2, M, C, scale=10.0))       # integer grid: many exact ties
+    r[:, 1000:1200] = r[:, 500:501]
+    q = torch.cat([r[:, 490:510], _x(g, 2, 77, C, scale=10.0)], dim=1)
+    q, r = q.to(card).contiguous(), r.to(card).contiguous()
+    knn_mod.reset_overflows()
+    got = kernels.knn_exact(q, r, 32, "euclidean")
+    assert knn_mod.overflows() >= 2          # the copied point, in each cloud
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  kernels.knn_plain(q, r, 32, "euclidean").cpu().numpy())
+
+
 @pytest.mark.parametrize("G,N,M,D", [
     (6, 100, 300, 8),
     (2, 33, 64, 256),      # the wide route
@@ -203,17 +253,26 @@ def test_transformer_tail_kernel_matches_twin(card, N, K, D):
     assert _bits_equal(got, kernels.transformer_tail(table, idx, xq, q, *ws))
 
 
-def test_fusion_pair_kernel_matches_twin(card):
+@pytest.mark.parametrize("N,N2,K2", [(400, 900, 8),      # ragged: the last query tile of 16
+                                     (8192, 8192, 64),   # the eval forward: units of 8 slots
+                                     (129, 300, 13),     # ragged queries, a unit a slot
+                                     (1000, 2000, 13)])  # units of 3 slots, the last of 1
+def test_fusion_pair_kernel_matches_twin(card, N, N2, K2):
+    """One launch; the planes within 1e-5 of the plain version's and bit-equal
+    to the planes entry's, the logits (3xTF32 products) within 1e-4."""
     g = torch.Generator().manual_seed(5)
-    p2, p1 = _x(g, 3, 900, 3, scale=5.0).to(card), _x(g, 3, 400, 3, scale=5.0).to(card)
-    idx = torch.randint(0, 900, (3, 400, 8), generator=g, dtype=torch.int32).to(card)
+    p2, p1 = _x(g, 3, N2, 3, scale=5.0).to(card), _x(g, 3, N, 3, scale=5.0).to(card)
+    idx = torch.randint(0, N2, (3, N, K2), generator=g, dtype=torch.int32).to(card)
     ws = []
     for ci, co in [(4, 64), (64, 64), (64, 128)]:
         ws += [_x(g, ci, co, scale=ci ** -0.5).to(card), _x(g, co, scale=0.1).to(card)]
+    kernels.reset_launches()
     planes, logits = kernels.fusion_pair(p2, idx, p1, *ws)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"fusion_pair": 1}
     want_planes, want_logits = kernels.fusion_pair_plain(p2, idx, p1, *ws)
     torch.testing.assert_close(planes, want_planes, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(logits, want_logits, atol=1e-4, rtol=1e-4)
+    assert torch.equal(planes, kernels.fusion_pair_planes(p2, idx, p1))
 
 
 @pytest.mark.parametrize("metric,C,B,N,M,k", [

@@ -1,5 +1,6 @@
-"""The CUDA-side wrappers of the train and eval attention, the train fusion
-head, the cost-volume tail, the transformer tail, approximate kNN, the Chamfer keys and FPS, driven
+"""The CUDA-side wrappers of the train and eval attention, the train and eval fusion
+heads, the cost-volume tail, the transformer tail, exact and approximate kNN, the Chamfer keys
+and FPS, driven
 with CPU tensors: the launch is replaced by a check of its arguments against the C signature
 (``_lib.SIGNATURES``), so the route each shape takes, the shapes and
 constants handed to the kernel and the refusals before any launch are held
@@ -18,6 +19,8 @@ attention_train = importlib.import_module("mocopci_torch.kernels.attention_train
 cross_tail = importlib.import_module("mocopci_torch.kernels.cross_tail")
 fps = importlib.import_module("mocopci_torch.kernels.fps")
 fusion_head_train = importlib.import_module("mocopci_torch.kernels.fusion_head_train")
+fusion_pair = importlib.import_module("mocopci_torch.kernels.fusion_pair")
+knn = importlib.import_module("mocopci_torch.kernels.knn")
 transformer_tail = importlib.import_module("mocopci_torch.kernels.transformer_tail")
 
 
@@ -454,3 +457,121 @@ def test_attention_train_fwd_wide_launch_constants(launches, G, N, M, D, rate):
     assert args[5:10] == (G, N, M, D, D ** -0.5) and args[10] == seed.data_ptr()
     assert args[11:13] == ((0, 1.0) if rate == 0.0 else attention_train.dropout_constants(rate))
     assert out.shape == (G, N, D) and lse.shape == (G, N)
+
+
+def _eval_weights(widths=fusion_pair.WIDTHS):
+    ws = []
+    for ci, co in zip(widths[:-1], widths[1:]):
+        ws += [torch.zeros(ci, co), torch.zeros(co)]
+    return ws
+
+
+@pytest.mark.parametrize("G,N,K2", [
+    (3, 8192, 64),          # the eval forward: units of 8 slots, one block an SM
+    (3, 400, 8),            # ragged: 4 query tiles (the last of 16), a unit a slot
+    (2, 129, 9),            # 2 query tiles, 9 slots
+    (1, 1, 1),
+])
+def test_fusion_pair_launch_arguments_and_fixed_grid(launches, G, N, K2):
+    """One launch with the clouds, the folded weights, both outputs and the
+    shape; the entry in C chooses its fixed grid and slot units from the shape
+    (``csrc/fusion_pair.cu``), so no grid argument is passed."""
+    torch.set_num_threads(1)
+    p2, p1 = torch.zeros(G, 50, 3), torch.zeros(G, N, 3)
+    idx = torch.zeros(G, N, K2, dtype=torch.int32)
+    planes, logits = fusion_pair.fusion_pair(p2, idx, p1, *_eval_weights())
+    assert [name for name, _ in launches] == ["fusion_pair"]
+    args = launches[0][1]
+    assert args[:3] == (p2.data_ptr(), idx.data_ptr(), p1.data_ptr())
+    assert args[9:11] == (planes.data_ptr(), logits.data_ptr())
+    assert args[11:] == (G, N, 50, K2, 0)
+    assert planes.shape == (G, 4, N * K2) and logits.shape == (G, N * K2)
+
+
+@pytest.mark.parametrize("widths", [(4, 64, 64, 64), (4, 32, 64, 128)])
+def test_fusion_pair_refuses_other_widths_before_any_launch(launches, widths):
+    p2, idx = torch.zeros(1, 50, 3), torch.zeros(1, 10, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="widths"):
+        fusion_pair.fusion_pair(p2, idx, torch.zeros(1, 10, 3), *_eval_weights(widths))
+    assert launches == []
+
+
+def test_fusion_pair_planes_keeps_its_launch_arguments(launches):
+    p2, p1 = torch.zeros(6, 8192, 3), torch.zeros(6, 8192, 3)
+    idx = torch.zeros(6, 8192, 64, dtype=torch.int32)
+    planes = fusion_pair.fusion_pair_planes_kernel(p2, idx, p1)
+    assert [name for name, _ in launches] == ["fusion_pair_planes"]
+    assert launches[0][1][3:8] == (planes.data_ptr(), 6, 8192, 8192, 64)
+
+
+@pytest.mark.parametrize("B,N,M,C,metric,chunk,blocks,qw", [
+    (6, 8192, 8192, 3, "euclidean", 8192, 44, 2),    # the fusion query: the cloud staged once
+    (2, 500, 1500, 3, "euclidean", 1536, 63, 1),     # a small grid: a query a warp
+    (1, 100, 20000, 3, "euclidean", 8192, 13, 1),    # streamed in chunks: a block a group
+    (2, 301, 40, 5, "euclidean", 256, 38, 1),        # eight planes, one bin tile
+    (2, 200, 9000, 8, "euclidean", 3072, 25, 1),     # eight planes streamed
+])
+def test_knn_takes_its_route_grid_and_buffer_constants(launches, B, N, M, C, metric, chunk,
+                                                       blocks, qw):
+    """Euclidean rows of at most 8 channels take the filtered scan with the
+    planes grid over 256-column bin tiles and no split lists; the overflow
+    counter is one int on the query's device."""
+    torch.set_num_threads(1)
+    k = min(32, M)
+    q, r = torch.zeros(B, N, C), torch.zeros(B, M, C)
+    out = knn.knn_exact(q, r, k, metric)
+    assert [name for name, _ in launches] == ["knn"]
+    args = launches[0][1]
+    assert args[2:8] == (B, N, M, C, k, knn.METRICS[metric])
+    assert args[8:11] == (chunk, blocks, qw) == knn.launch_grid(B, N, M, C, metric)
+    assert args[11] == out.data_ptr() and out.shape == (B, N, k) and out.dtype == torch.int32
+    counter = knn._overflow_counter(q.device)
+    assert args[13] == counter.data_ptr() and counter.shape == (1,)
+    assert counter.dtype == torch.int32
+    assert chunk % knn.BIN_TILE == 0 and chunk * (3 if C == 3 else 8) * 4 <= knn.PLANE_BYTES
+
+
+@pytest.mark.parametrize("B,N,M,C,metric,span,splits", [
+    (1, 2048, 2048, 64, "cosine", 256, 8),     # the exact forward's cosine calls
+    (1, 512, 512, 128, "cosine", 32, 16),
+    (1, 256, 256, 256, "cosine", 32, 8),       # one tile a split
+    (2, 2048, 2048, 64, "cosine", 416, 5),
+    (2, 200, 700, 20, "euclidean", 64, 11),    # wide Euclidean rows: the dot form
+    (6, 8192, 300, 16, "euclidean", 300 // 32 * 32 + 32, 1),   # the query blocks fill the card
+])
+def test_knn_dot_form_splits_the_reference_over_the_card(launches, B, N, M, C, metric, span,
+                                                         splits):
+    """The dot form splits the reference into spans of whole 32-row tiles
+    until the grid gives about two blocks an SM (at most 16 spans)."""
+    torch.set_num_threads(1)
+    k = 16
+    q, r = torch.zeros(B, N, C), torch.zeros(B, M, C)
+    out = knn.knn_exact(q, r, k, metric)
+    args = launches[0][1]
+    assert args[8:11] == (span, splits, 0) == knn.launch_grid(B, N, M, C, metric)
+    assert span % knn.DOT_ROWS == 0 and (splits - 1) * span < M <= splits * span
+    assert splits <= knn.MAX_SPLITS and args[11] == out.data_ptr()
+
+
+def test_knn_buffer_constants_match_the_kernel_source():
+    """The wrapper's bin tile, candidate buffer, k limit and planes size are
+    the CUDA source's."""
+    from pathlib import Path
+
+    src = (Path(knn.__file__).parents[1] / "csrc" / "knn.cu").read_text()
+    planes = (Path(knn.__file__).parents[1] / "csrc" / "knn_planes.cuh").read_text()
+    assert "constexpr int kBinNT = 8;" in src and knn.BIN_TILE == 32 * 8
+    assert f"constexpr int kCap = {knn.CAP};" in src
+    assert f"constexpr int kMaxK = {knn.MAX_K};" in src
+    assert f"constexpr int kDotQ = {knn.DOT_QUERIES};" in src
+    assert f"constexpr int kDotR = {knn.DOT_ROWS};" in src
+    assert f"constexpr int kMaxSplits = {knn.MAX_SPLITS};" in src
+    assert f"constexpr int kXPlaneBytes = {knn.PLANE_BYTES // 1024} * 1024;" in planes
+
+
+@pytest.mark.parametrize("k,M,C", [(33, 100, 3), (8, knn.MAX_M + 1, 3), (8, 100, knn.MAX_C + 1)])
+def test_knn_refuses_past_its_limits_before_any_launch(launches, k, M, C):
+    q, r = torch.zeros(1, 4, C), torch.zeros(1, M, C)
+    with pytest.raises(ValueError, match="knn kernel covers"):
+        knn.knn_exact(q, r, k, "euclidean")
+    assert launches == []
