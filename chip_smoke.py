@@ -26,7 +26,15 @@ Phases, each fatal on failure:
   5. the eval path: ``eval_step`` (forward, CD, EMD) on one sample, its
      metrics against the CPU's, the times of its parts, then the eval CLI
      ``python -m mocopci_torch.cli.test --synthetic 3`` in-process;
-  6. the train path: ``create_train_state`` at ``ModelConfig()`` (seed 0) and
+  6. the stress path: the eval forward at ``stress_model_config(16384)`` and
+     ``(32768)``, B=1, on ``bench.py``'s stress inputs (paths
+     ``stress_16384``, ``stress_32768``; FPS above 8192 points on its
+     cluster routes): launches, every FPS call bit-equal to its plain
+     version on the same inputs, the median of 3 forwards and their peak
+     memory, one profiled forward (busy share, each FPS launch and FPS's
+     share, the other kernels' device ms); at 16384 the forward against the
+     CPU (CD <= 1e-4 a frame) and in exact mode, at 32768 ``eval_step`` once;
+  7. the train path: ``create_train_state`` at ``ModelConfig()`` (seed 0) and
      6 ``train_step``s at B=2 on synthetic pairs (finite losses, launches,
      median step time of the last 5, peak memory, one profiled step with
      each train attention backward's shape, route and device ms, each FPS
@@ -39,13 +47,13 @@ Phases, each fatal on failure:
      leaf within 5e-2: see ``run_train_parity``);
      one train step at ``refine_k = 8`` (the tail's general routes);
      the train CLI for one epoch, then ``--resume`` to a second;
-  7. the op paths that reach the last four kernels (path "ops"): approx
+  8. the op paths that reach the last four kernels (path "ops"): approx
      selection (``_topk_min_indices``) on the fusion query's distances at B=2,
      exact ``ops.knn`` over a 131072-point sweep (the blocked route), the
      Chamfer VJP between 64-point and 8192-point clouds (the one-hot
      scatter), ``build_pair_planes`` forward and backward at the fusion shape;
      each result against its plain route or the CPU;
-  8. the summary lines: the card, the per-kernel JSON line, the contract line.
+  9. the summary lines: the card, the per-kernel JSON line, the contract line.
 The train kernels (scatter-add, train attention forward and backward, the two
 tails' backwards, the train fusion head forward and backward, the fusion
 planes) are checked in phase 3 at the train step's shapes, each run twice to
@@ -58,7 +66,14 @@ the eval forward's six call shapes, on both its routes (one pass up to head
 dim 64, ``attention_wide`` above), each within 1e-5 of its plain version with
 its bits repeated.  FPS at the train step's
 (6, 8192) -> 2048 and the encoder's pyramid (2, 8192) -> 2048/512/256/64 in
-one launch, each bit-equal to its plain version.  ``knn_approx`` also at the
+one launch, each bit-equal to its plain version; above 8192 points FPS's
+cluster routes at the stress forwards' calls, (2, n) -> n/4, n/16, n/32,
+n/128 and (3, n) -> n/4 for n = 32768 and 16384, bit-equal, each timed
+in µs a step beside the one-block route at 8192 (and, with
+``--parent``, beside that tree's FPS at 8192); the cost-volume tail's wide
+route ``cross_tail_wide`` at cross3 of the 32768-point forward, (1, 1024)
+queries of K = 32 over C = C2 = 256, within 1e-4 (1 + max |out|) of its
+plain version.  ``knn_approx`` also at the
 train step's largest call, (12, 8192, 8192, 3) k=32, and its cosine calls,
 (2, 2048, 2048, 64) k=16; the wide attention forward at rate 0.05 and 0, its
 bits repeated; the transformer tail on both routes of both directions (the
@@ -85,8 +100,9 @@ bit-equal to that tree's), ``chamfer_pair`` at each of its shapes, its keys
 bit-equal to that tree's, the tail's backward bit-equal to that
 tree's, exact ``knn``'s indices equal to that tree's, ``fusion_pair``'s and
 ``fusion_pair_planes``' planes and the train fusion head forward's output
-and statistics bit-equal to that tree's).  The op kernels (select_min_k, the one-hot scatter,
-the pair planes' rows forward and backward) at the shapes of phase 7; the
+and statistics bit-equal to that tree's; where that tree has the wide route
+of the cost-volume tail, it at cross3, bit-equal to that tree's).  The op kernels (select_min_k, the one-hot scatter,
+the pair planes' rows forward and backward) at the shapes of phase 8; the
 one-hot scatter beside ``torch.zeros(...).index_add_`` at both its shapes,
 by CUDA events and by device time under torch.profiler.
 Every path runs with the launch counts set to 0 just before it and read just
@@ -728,7 +744,7 @@ class Parent:
                      "attention_train_fwd_wide", "transformer_tail", "transformer_tail_general",
                      "transformer_tail_bwd", "knn_approx", "attention", "attention_wide",
                      "chamfer_pair", "knn", "fusion_pair", "fusion_pair_planes",
-                     "fusion_head_train_fwd"):
+                     "fusion_head_train_fwd", "cross_tail_wide"):
             if name in self.sig:
                 fn = getattr(self.lib, f"mocopci_{name}")
                 fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
@@ -772,6 +788,15 @@ class Parent:
         grid = [self.fwd_grid(B, N, K)] if self.fwd_grid else []
         self._call("cross_tail", tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(),
                    b.data_ptr(), out.data_ptr(), *arg, B, M, N, K, C, C2, *grid)
+        return out
+
+    def cross_tail_wide(self, tab, idx, base, w, b, nblk):
+        """That tree's wide route of the forward, on ``nblk`` blocks."""
+        B, M, C = tab.shape
+        N, K, C2 = idx.shape[1], idx.shape[2], w.shape[1]
+        out = torch.empty((B, N, C2), dtype=torch.float32, device=tab.device)
+        self._call("cross_tail_wide", tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
+                   w.data_ptr(), b.data_ptr(), out.data_ptr(), 0, B, M, N, K, C, C2, nblk)
         return out
 
     def attention(self, q, k, v, scale):
@@ -1717,6 +1742,276 @@ def run_eval(kernels, cfg, dataset, dev, model, cpu_model):
                       **timing, "cli": result}
 
 
+STRESS_SIZES = (16384, 32768)
+# launch-counter names of the kernels the stress forward runs in each kNN
+# mode: above 8192 points FPS takes its cluster routes
+STRESS_KERNELS = {mode: tuple(f"{name}_cluster" if name.startswith("fps") else name
+                              for name in names) for mode, names in FORWARD_KERNELS.items()}
+# and at 32768 points cross3's cost-volume tail (L3's 1024 queries, C = C2 =
+# 256) on its wide route
+STRESS_EXTRA = {32768: ("cross_tail_wide",)}
+
+
+def stress_levels(n):
+    """The encoder's pyramid of ``stress_model_config(n)``."""
+    return (n // 4, n // 16, n // 32, n // 128)
+
+
+def check_stress_kernels(kernels, dev, rows, parent=None):
+    """FPS's cluster routes against their plain versions, bit for bit, at the
+    stress forwards' calls: the pyramid (2, n) -> n/4, n/16, n/32, n/128 and
+    the refine head's (3, n) -> n/4 for n = 32768 and 16384; each timed in
+    µs a step (device time over the steps of every level), beside the
+    one-block route at 8192 points in this call (and, with ``parent``, that
+    tree's FPS at 8192).  Then the
+    cost-volume tail's wide route at cross3 of the 32768-point forward, (1,
+    1024) queries of K = 32 over C = C2 = 256, within 1e-4 (1 + max |out|)
+    of its plain version, its argmax instance bit-equal."""
+    fps_mod = importlib.import_module("mocopci_torch.kernels.fps")
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def per_step(fn, steps):
+        us = device_us(fn)
+        return float(us) / steps if us != "not measured" else None
+
+    x8 = torch.randn(3, 8192, 3, generator=gen, device=dev) * 10
+    one = {"fps": per_step(lambda: kernels.fps(x8, 2048), 2047),
+           "fps_pyramid": per_step(lambda: kernels.fps_pyramid(x8[:2], stress_levels(8192)),
+                                   sum(n - 1 for n in stress_levels(8192)))}
+    log(f"stress fps: the one-block route at 8192 points, us a step by device time: (3, 8192) "
+        f"-> 2048 {one['fps']}, (2, 8192) -> {stress_levels(8192)} {one['fps_pyramid']}")
+    if parent is not None:
+        pair8 = x8[:2].contiguous()
+        log(f"stress fps: the parent's at 8192 points, us a step by device time: (3, 8192) -> "
+            f"2048 {per_step(lambda: parent.fps(x8, 2048), 2047)}, (2, 8192) -> "
+            f"{stress_levels(8192)} "
+            f"{per_step(lambda: parent.fps_pyramid(pair8, stress_levels(8192)), 2876)}")
+    for n in STRESS_SIZES[::-1]:
+        tri = torch.randn(3, n, 3, generator=gen, device=dev) * 10
+        pair, lv, npt = tri[:2].contiguous(), stress_levels(n), n // 4
+        steps_p, steps_r = sum(m - 1 for m in lv), npt - 1
+        mism_p = sum(int((a != b).sum()) for a, b in zip(kernels.fps_pyramid(pair, lv),
+                                                         kernels.fps_pyramid_plain(pair, lv)))
+        mism_r = int((kernels.fps(tri, npt) != kernels.fps_plain(tri, npt)).sum())
+        log(f"stress fps_pyramid_cluster (2, {n}) -> {lv}: index mismatches {mism_p}; "
+            f"fps_cluster (3, {n}) -> {npt}: index mismatches {mism_r}")
+        if mism_p or mism_r:
+            raise SystemExit(f"stress fps at {n} points differs from the plain version")
+        us_r = per_step(lambda: kernels.fps(tri, npt), steps_r)
+        us_p = per_step(lambda: kernels.fps_pyramid(pair, lv), steps_p)
+        log(f"stress fps cluster of {fps_mod.CLUSTER} at {n} points, us a step by device "
+            f"time: fps_cluster (3, {n}) -> {npt} {us_r}, fps_pyramid_cluster (2, {n}) {us_p}")
+        if n != STRESS_SIZES[-1]:
+            continue
+        add_row(rows, "fps_cluster", fps_mod.SOURCE, fps_mod.REPLACES,
+                lambda: kernels.fps(tri, npt), lambda: kernels.fps_plain(tri, npt), None,
+                tri.numel() * F32 + 3 * npt * I32, 9.0 * 3 * steps_r * n, float(mism_r), 0.0,
+                reps=10)
+        fps_steps(rows[-1], [npt])
+        rows[-1].update(cluster=fps_mod.CLUSTER, device_us_per_step=us_r,
+                        one_block_8192_device_us_per_step=one["fps"])
+        add_row(rows, "fps_pyramid_cluster", fps_mod.SOURCE, fps_mod.REPLACES_PYRAMID,
+                lambda: kernels.fps_pyramid(pair, lv),
+                lambda: kernels.fps_pyramid_plain(pair, lv), None,
+                pair.numel() * F32 + 2 * sum(lv) * I32,
+                9.0 * 2 * sum((m - 1) * k for m, k in zip(lv, (n,) + lv)), float(mism_p), 0.0,
+                reps=10)
+        fps_steps(rows[-1], lv)
+        rows[-1].update(cluster=fps_mod.CLUSTER, device_us_per_step=us_p,
+                        one_block_8192_device_us_per_step=one["fps_pyramid"])
+
+    from mocopci_torch import stress_model_config
+
+    ct = importlib.import_module("mocopci_torch.kernels.cross_tail")
+    cfg = stress_model_config(STRESS_SIZES[-1])
+    B, N, K, C = 1, cfg.pyramid[2], cfg.flow_nei, cfg.enc_channels[3]
+    tab = torch.randn(B, N, C, generator=gen, device=dev)
+    base = torch.randn(B, N, C, generator=gen, device=dev)
+    w = torch.randn(C, C, generator=gen, device=dev) * C ** -0.5
+    b = torch.randn(C, generator=gen, device=dev) * 0.1
+    idx = torch.randint(0, N, (B, N, K), generator=gen, device=dev, dtype=torch.int32)
+    if ct.fwd_route(K, C, C) != "cross_tail_wide":
+        raise SystemExit("cross_tail: cross3 of the 32768-point forward left the wide route")
+    out = kernels.cross_tail_plain(tab, idx, base, w, b)
+    got = kernels.cross_tail(tab, idx, base, w, b)
+    amax = torch.empty((B, N, C), dtype=ct.argmax_dtype(K), device=dev)
+    same = bits_equal([ct.cross_tail_fwd(tab, idx, base, w, b, amax)], [got])
+    log(f"stress cross_tail_wide (B, N, K, C, C2) {(B, N, K, C, C)}: the argmax instance "
+        f"bit-equal {same}, argmax in [0, {K}) {0 <= int(amax.min()) and int(amax.max()) < K}")
+    if not same:
+        raise SystemExit("cross_tail_wide: the argmax instance changed the output's bits")
+    if parent is not None and "cross_tail_wide" in parent.sig:
+        nblk = min(ct.WIDE_BLOCKS, B * N)
+        log(f"stress cross_tail_wide: the parent's bit-equal "
+            f"{bits_equal([parent.cross_tail_wide(tab, idx, base, w, b, nblk)], [got])}; "
+            + beside(lambda: parent.cross_tail_wide(tab, idx, base, w, b, nblk),
+                     lambda: kernels.cross_tail(tab, idx, base, w, b)))
+    add_row(rows, "cross_tail_wide", ct.SOURCE, ct.REPLACES,
+            lambda: kernels.cross_tail(tab, idx, base, w, b),
+            lambda: kernels.cross_tail_plain(tab, idx, base, w, b), None,
+            (tab.numel() + base.numel() + w.numel() + b.numel() + out.numel()) * F32
+            + idx.numel() * I32, B * N * K * (2 * C * C + 2 * C + 3 * C),
+            float((got - out).abs().max()), 1e-4 * (1 + float(out.abs().max())))
+
+
+def stress_inputs(n, p0, dev):
+    """``bench.py``'s stress inputs: the point p0 plus normal noise of scale
+    10 (numpy seed n) for the first cloud, the second shifted by 0.05."""
+    noise = np.random.default_rng(n).normal(size=(1, n, 3)).astype(np.float32) * 10.0
+    x1 = (p0[None, None, :] * np.ones((1, n, 1), np.float32) + noise).astype(np.float32)
+    return torch.from_numpy(x1).to(dev), torch.from_numpy(x1 + np.float32(0.05)).to(dev)
+
+
+class capturing_fps:
+    """Within: each FPS call of ``ops.sampling`` appended to ``calls`` as
+    (pyramid?, xyz, npoints, indices)."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        sampling = importlib.import_module("mocopci_torch.ops.sampling")
+        self.saved = fps, fps_pyramid = sampling.fps, sampling.fps_pyramid
+
+        def one(xyz, npoint):
+            out = fps(xyz, npoint)
+            self.calls.append((False, xyz, int(npoint), out))
+            return out
+
+        def pyramid(xyz, npoints):
+            out = fps_pyramid(xyz, npoints)
+            self.calls.append((True, xyz, tuple(npoints), out))
+            return out
+        sampling.fps, sampling.fps_pyramid = one, pyramid
+        return self
+
+    def __exit__(self, *exc):
+        sampling = importlib.import_module("mocopci_torch.ops.sampling")
+        sampling.fps, sampling.fps_pyramid = self.saved
+
+
+def stress_forward(kernels, cfg, model, x1, x2, mode, what):
+    """One forward in kNN ``mode`` with the launch counts set to 0 before and
+    read after; fails unless every stress kernel of the mode launched and the
+    output is finite and of the right shape.  Returns (launches, output,
+    the FPS calls)."""
+    from mocopci_torch import interpolate
+    from mocopci_torch.ops import set_knn_mode
+
+    set_knn_mode(mode)
+    calls = []
+    kernels.reset_launches()
+    with capturing_fps(calls):
+        out = interpolate(model, x1, x2)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"{what}: launches per forward: {launches}")
+    if out.shape != (1, cfg.n_frames, cfg.npoints, 3) or not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"{what}: output wrong: {tuple(out.shape)}")
+    missing = [name for name in STRESS_KERNELS[mode] + STRESS_EXTRA.get(cfg.npoints, ())
+               if launches[name] == 0]
+    if missing or launches["fps"] or launches["fps_pyramid"]:
+        raise SystemExit(f"{what}: kernels not launched: {missing}, or FPS on the one-block "
+                         f"route: {launches['fps']}, {launches['fps_pyramid']}")
+    return launches, out, calls
+
+
+def run_stress(kernels, n, dev, p0):
+    """The eval forward at ``stress_model_config(n)``, B=1, on ``bench.py``'s
+    stress inputs (path ``stress_<n>``, approx mode): launches, every FPS call
+    bit-equal to its plain version on the same inputs, the median of 3
+    forwards and their peak memory, one profiled forward (busy share, each
+    FPS launch, the other kernels' device ms).  At 16384 also the forward
+    against the same model on the CPU (CD <= 1e-4 a frame) and in exact mode
+    (path ``stress_16384_exact``); at 32768 ``eval_step`` once (path
+    ``stress_32768_eval``)."""
+    from mocopci_torch import MoCoPCI, interpolate, stress_model_config
+    from mocopci_torch.ops import set_knn_mode
+    from mocopci_torch.training import eval_step
+
+    cfg = stress_model_config(n)
+    model = MoCoPCI(cfg, device=dev, seed=0)
+    x1, x2 = stress_inputs(n, p0, dev)
+    paths, stats = {}, {}
+    what = f"stress {n}"
+    paths[f"stress_{n}"], out, calls = stress_forward(kernels, cfg, model, x1, x2, "approx",
+                                                      what)
+    mism = 0
+    for pyramid, xyz, npoints, got in calls:
+        want = (kernels.fps_pyramid_plain(xyz, npoints) if pyramid
+                else (kernels.fps_plain(xyz, npoints),))
+        mism += sum(int((a != b).sum()) for a, b in zip(got if pyramid else (got,), want))
+    log(f"{what}: {len(calls)} FPS calls against their plain versions on the same inputs: "
+        f"index mismatches {mism}")
+    if mism or len(calls) != 2:
+        raise SystemExit(f"{what}: FPS differs from its plain version")
+
+    def timed(mode):
+        set_knn_mode(mode)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            interpolate(model, x1, x2)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"{what} {mode}: B=1 eval forward median {np.median(times):.3f} ms over 3 runs "
+            f"({', '.join(f'{t:.3f}' for t in times)}), peak memory {peak:.1f} MiB")
+        return {"forward_ms": float(np.median(times)), "forward_ms_runs": times,
+                "peak_mib": peak}
+
+    stats["approx"] = timed("approx")
+    busy = profile_fps_calls(lambda: interpolate(model, x1, x2), f"{what} forward")
+    if "profile_device_ms" in busy:
+        # the profiler's trace loses FPS launches: their CUDA-event time
+        # takes the place of what it traced of them
+        busy["busy_ms"] = (busy["profile_device_ms"] - busy["fps_traced_ms"]
+                           + busy["fps_device_ms"])
+        busy["fps_share_of_busy"] = busy["fps_device_ms"] / busy["busy_ms"]
+        log(f"{what} forward: FPS {busy['fps_device_ms']:.4f} device ms, "
+            f"{100 * busy['fps_share_of_busy']:.1f}% of the device's busy time, "
+            f"{busy['busy_ms']:.3f} ms with the FPS launches the trace lost "
+            f"({100 * busy['busy_ms'] / busy['profile_wall_ms']:.1f}% of the profiled wall)")
+    stats["approx"].update(busy)
+    if n == STRESS_SIZES[0]:
+        t0 = time.perf_counter()
+        ref = interpolate(MoCoPCI(cfg, device="cpu", seed=0), x1.cpu(), x2.cpu())
+        cpu_s = time.perf_counter() - t0
+        cds = [chamfer(out[0, j], ref[0, j].to(dev)) for j in range(cfg.n_frames)]
+        log(f"{what}: CD card vs cpu per frame {cds} (cpu forward {cpu_s:.1f} s)")
+        if max(cds) > 1e-4:
+            raise SystemExit(f"{what}: card output differs from the CPU run")
+        stats["approx"].update(cd_max=max(cds), cpu_forward_s=cpu_s)
+        paths[f"stress_{n}_exact"], _, _ = stress_forward(kernels, cfg, model, x1, x2, "exact",
+                                                          f"{what} exact")
+        stats["exact"] = timed("exact")
+        set_knn_mode("approx")
+    else:
+        gt = np.stack([(x1 + 0.05 * t).cpu().numpy()[0] for t in (0.25, 0.5, 0.75)])[None]
+        batch = {"pc1": x1.cpu().numpy(), "pc2": x2.cpu().numpy(), "gt": gt}
+        set_knn_mode("approx")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eval_step(model, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        paths[f"stress_{n}_eval"] = launches = dict(kernels.LAUNCHES)
+        metrics = {k: float(v[0]) for k, v in m.items()}
+        log(f"{what} eval_step: {ms:.3f} ms (host clock, once), metrics {metrics}, "
+            f"launches {launches}")
+        if not all(np.isfinite(v) for v in metrics.values()) or launches["chamfer_pair"] == 0:
+            raise SystemExit(f"{what} eval_step: metrics {metrics}, chamfer_pair launches "
+                             f"{launches['chamfer_pair']}")
+        stats["eval_step"] = {"ms": ms, "metrics": metrics}
+    del model
+    torch.cuda.empty_cache()
+    return paths, stats
+
+
 # the kernels one train step launches in the default (approx) kNN mode
 TRAIN_KERNELS = ("fps", "fps_pyramid", "knn_approx", "cross_tail", "cross_tail_bwd",
                  "transformer_tail", "transformer_tail_bwd", "attention_train_fwd",
@@ -2028,18 +2323,28 @@ def sm_clock() -> str:
     return out.strip().splitlines()[0] if out.strip() else "not read"
 
 
+FPS_SYMBOLS = ("fps_kernel", "fps_pyramid_kernel", "fps_cluster_kernel",
+               "fps_pyramid_cluster_kernel")
+
+
 def profile_fps_calls(fn, what, trace=None):
     """One profiled call of ``fn`` (``profile``), with each FPS launch logged
-    in call order: its entry, (B, N, npoints), device ms by CUDA events around
-    the launch and, where the profiler traced every FPS kernel, by the
-    profiler, and µs a step; the SM clock, power and temperature read before
-    and after.  ``trace``, when given, reads the profile too."""
+    in call order: its entry (the one-block or the cluster route, by N),
+    (B, N, npoints), device ms by CUDA events around the launch and, where
+    the profiler traced every FPS kernel, by the profiler, and µs a step;
+    the SM clock, power and temperature read before and after.  ``trace``,
+    when given, reads the profile too.  The result carries the FPS device ms
+    (``fps_device_ms``, by the profiler where it traced every launch, else by
+    CUDA events) and what the profiler traced of it (``fps_traced_ms``)."""
     from torch.autograd import DeviceType
 
     sampling = importlib.import_module("mocopci_torch.ops.sampling")
-    calls, saved = [], (sampling.fps, sampling.fps_pyramid)
+    fps_mod = importlib.import_module("mocopci_torch.kernels.fps")
+    calls, saved, totals = [], (sampling.fps, sampling.fps_pyramid), {}
 
     def timed(entry, launch, xyz, npoints):
+        if xyz.shape[1] > fps_mod.BLOCK_MAX_N:
+            entry += "_cluster"
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = launch()
@@ -2056,7 +2361,7 @@ def profile_fps_calls(fn, what, trace=None):
     def per_call(prof):
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                        if e.device_type == DeviceType.CUDA
-                       and ("fps_kernel" in e.name or "fps_pyramid_kernel" in e.name))
+                       and any(sym in e.name for sym in FPS_SYMBOLS))
         traced = len(spans) == len(calls)
         total = 0.0
         for i, (entry, B, N, npoints, start, end) in enumerate(calls):
@@ -2066,10 +2371,13 @@ def profile_fps_calls(fn, what, trace=None):
             prof_ms = (spans[i][1] - spans[i][0]) / 1e3 if traced else None
             log(f"{what} fps launch {entry} (B, N, npoints) ({B}, {N}, {npoints}): device ms "
                 f"{ms:.4f} by CUDA events ({1e3 * ms / steps:.4f} us a step), "
-                + (f"{prof_ms:.4f} by the profiler" if traced else "not matched in the profile"))
+                + (f"{prof_ms:.4f} by the profiler ({1e3 * prof_ms / steps:.4f} us a step)"
+                   if traced else "not matched in the profile"))
+        traced_ms = sum(b - a for a, b in spans) / 1e3
         log(f"{what} fps: {len(calls)} launches, device ms {total:.4f} by CUDA events; the "
-            f"profiler traced {len(spans)} FPS kernels, device ms "
-            f"{sum(b - a for a, b in spans) / 1e3:.4f}")
+            f"profiler traced {len(spans)} FPS kernels, device ms {traced_ms:.4f}")
+        totals["fps_device_ms"] = traced_ms if traced else total
+        totals["fps_traced_ms"] = traced_ms
         if trace is not None:
             trace(prof)
 
@@ -2078,7 +2386,7 @@ def profile_fps_calls(fn, what, trace=None):
         log(f"{what}: SM clock, max, power, temperature before: {sm_clock()}")
         busy = profile(fn, what, per_call)
         log(f"{what}: SM clock, max, power, temperature after: {sm_clock()}")
-        return busy
+        return {**busy, **totals}
     finally:
         sampling.fps, sampling.fps_pyramid = saved
 
@@ -2215,6 +2523,8 @@ def run_train_cli(kernels):
 
 # device-kernel name fragment -> port kernel, for the profile breakdown
 KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
+                  "fps_cluster_kernel": "fps_cluster",
+                  "fps_pyramid_cluster_kernel": "fps_pyramid_cluster",
                   "knn_exact_xyz_kernel": "knn",
                   "knn_dot_kernel": "knn", "knn_merge_kernel": "knn",
                   "knn_approx_xyz_kernel": "knn_approx",
@@ -2222,6 +2532,7 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                   "attention_eval_kernel": "attention",
                   "attention_eval_wide_kernel": "attention_wide",
                   "cross_tail_kernel": "cross_tail",
+                  "cross_tail_wide_kernel": "cross_tail_wide",
                   "transformer_tail_fwd_kernel": "transformer_tail",
                   "transformer_tail_general_kernel": "transformer_tail_general",
                   "fusion_pair_kernel": "fusion_pair",
@@ -2328,6 +2639,7 @@ def main() -> int:
     rows = check_kernels(kernels, cfg, dataset, dev, parent)
     check_train_kernels(kernels, cfg, dev, rows, parent)
     check_op_kernels(kernels, cfg, dev, rows)
+    check_stress_kernels(kernels, dev, rows, parent)
     torch.cuda.empty_cache()
     model = MoCoPCI(cfg, device=dev, seed=0)
     cpu_model = MoCoPCI(cfg, device="cpu", seed=0)
@@ -2337,6 +2649,11 @@ def main() -> int:
             kernels, cfg, dataset, dev, model, cpu_model, mode)
     paths["eval"], stats["eval"] = run_eval(kernels, cfg, dataset, dev, model, cpu_model)
     del model, cpu_model
+    torch.cuda.empty_cache()
+    p0 = dataset[0][0][1][0]        # the eval pair's first point, as bench.py's x1[:1, :1]
+    for n in STRESS_SIZES:
+        stress_paths, stats[f"stress_{n}"] = run_stress(kernels, n, dev, p0)
+        paths.update(stress_paths)
     paths["train"], stats["train"] = run_train(kernels, cfg, dev)
     stats["train_parity"] = run_train_parity(kernels, dev)
     paths["train_refine_k8"], stats["train_refine_k8"] = run_train_refine_k(kernels, dev)
@@ -2348,7 +2665,10 @@ def main() -> int:
     # train steps for the train kernels, the op paths for the op kernels
     home = {"knn_exact": ("slice_exact", "knn"), "chamfer_pair": ("eval", "chamfer_pair"),
             "transformer_tail_general": ("train_refine_k8", "transformer_tail_general"),
-            "transformer_tail_bwd_general": ("train_refine_k8", "transformer_tail_bwd_general")}
+            "transformer_tail_bwd_general": ("train_refine_k8", "transformer_tail_bwd_general"),
+            "fps_cluster": ("stress_32768", "fps_cluster"),
+            "fps_pyramid_cluster": ("stress_32768", "fps_pyramid_cluster"),
+            "cross_tail_wide": ("stress_32768", "cross_tail_wide")}
     home.update({name: ("ops", name) for name in OPS_KERNELS if name != "chamfer_pair"})
     home.update({name: ("train", name) for name in TRAIN_KERNELS
                  if name.endswith(("_bwd", "_fwd", "_wide")) or name in ("scatter_add",

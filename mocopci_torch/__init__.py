@@ -9,7 +9,8 @@ of it.  Every Pallas kernel on those paths has a hand-written CUDA kernel in
     model = MoCoPCI(ModelConfig())            # on the card
     frames = interpolate(model, xyz1, xyz2)   # (B, 3, N, 3)
 """
-from mocopci_torch.config import ModelConfig, timestamps, tiny_model_config
+from mocopci_torch.config import ModelConfig, stress_model_config, timestamps, tiny_model_config
 from mocopci_torch.models import MoCoPCI, interpolate
 
-__all__ = ["ModelConfig", "MoCoPCI", "interpolate", "timestamps", "tiny_model_config"]
+__all__ = ["ModelConfig", "MoCoPCI", "interpolate", "stress_model_config", "timestamps",
+           "tiny_model_config"]

@@ -2,7 +2,8 @@
 
 Defaults mirror the reference architecture exactly: pyramid 8192/2048/512/256/64,
 encoder channels 32/64/128/256/256, kNN sizes 32/32/16/32 and the hard-coded
-frame timestamps.  ``tiny_model_config`` keeps the structure at test size.
+frame timestamps.  ``tiny_model_config`` keeps the structure at test size;
+``stress_model_config`` is the dense-stress configuration of 16k-32k points.
 """
 from __future__ import annotations
 
@@ -105,6 +106,18 @@ class TrainConfig:
     # the batch runs as grad_accum sequential micro-batches whose mean
     # gradient makes one update; BatchNorm statistics chain through them
     grad_accum: int = 1
+
+
+def stress_model_config(npoints: int) -> ModelConfig:
+    """Dense-stress configuration (16k-32k points a frame): the FPS pyramid at
+    the 8192-point model's ratios (/4, /16, /32, /128) and the refine head at
+    npoints / 4; every width and kNN size as in ``ModelConfig()``.  Above 8192
+    points FPS level 0 runs across a thread-block cluster (``kernels.fps``)."""
+    return ModelConfig(
+        npoints=npoints,
+        pyramid=(npoints // 4, npoints // 16, npoints // 32, npoints // 128),
+        refine_npoint=npoints // 4,
+    )
 
 
 def tiny_model_config(npoints: int = 256) -> ModelConfig:

@@ -29,6 +29,20 @@
 // asks for it (training), is the first j attaining each max; one byte an
 // entry for K <= 255.  The (N1, K, C2) activation is never written.
 //
+// The wide route (cross_tail_wide) takes the tails whose W, transposed x and
+// staged rows pass one block's shared memory: C = C2 = 256 at cross3 of a
+// 32768-point cloud (L3's 1024 queries; the TPU kernel takes any C).  A
+// block a query at a time: its K rows become x = leaky(row + base) in shared
+// memory, row-major ([j][c], K padded to 8: coalesced loads, conflict-free
+// stores), and each thread runs the chains of two output channels c2 for 32
+// rows at once (8 for the rest), acc = fmaf(x[j][c], W[c, c2], acc) for c
+// ascending from 0, one broadcast float4 of x feeding 8 FMAs and W's rows
+// read from global memory (coalesced over c2, L2-resident) once a query for
+// K <= 32; then leaky(acc + b) and the first max over ascending j: the
+// tiled kernel's chains, so its bits and argmax.  One or four channels a
+// thread, or 16 rows a pass, ran slower (scripts/torch_variant_timing.py
+// --only wide).
+//
 // Backward (cross_tail.py bwd :172, pallas_call :178, _bwd_kernel :81): the
 // gradient of each (n, c2) goes to the first j attaining the max (the TPU
 // kernel's tie rule, cross_tail.py:20-31).  The TPU kernel recomputes the K x
@@ -252,6 +266,117 @@ __global__ void __launch_bounds__(kFThreads, 2) cross_tail_kernel(
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
+constexpr int kWThreads = 128;
+constexpr int kWCols = 2;                  // output channels a thread, kWThreads apart
+
+__host__ __device__ inline int wide_cp(int C) { return (C + 3) & ~3; }   // x's row stride
+
+// Rows j0 .. j0 + kJ - 1 of one query's x (xs, stride Cp) against the
+// thread's output channels c2[i]: the chains acc = fmaf(x[j][c], W[c, c2],
+// acc) for c ascending from 0, then leaky(acc + b) into the running max (and
+// the first j at it) over ascending j.
+template <int kJ, bool kArg>
+__device__ __forceinline__ void wide_rows(const float* xs, int Cp, const float* __restrict__ w,
+                                          int C, int C2, const int (&col)[kWCols], int j0,
+                                          int K, const float (&bv)[kWCols], float (&m)[kWCols],
+                                          int (&mj)[kWCols]) {
+  float acc[kWCols][kJ];
+#pragma unroll
+  for (int i = 0; i < kWCols; ++i)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) acc[i][j] = 0.f;
+  const float* xr = xs + j0 * Cp;
+  int c = 0;
+  for (; c + 4 <= C; c += 4) {
+    float wv[kWCols][4];
+#pragma unroll
+    for (int i = 0; i < kWCols; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wv[i][q] = __ldg(w + static_cast<size_t>(c + q) * C2 + col[i]);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(xr + j * Cp + c);
+#pragma unroll
+      for (int i = 0; i < kWCols; ++i) {
+        acc[i][j] = fmaf(x.x, wv[i][0], acc[i][j]);
+        acc[i][j] = fmaf(x.y, wv[i][1], acc[i][j]);
+        acc[i][j] = fmaf(x.z, wv[i][2], acc[i][j]);
+        acc[i][j] = fmaf(x.w, wv[i][3], acc[i][j]);
+      }
+    }
+  }
+  for (; c < C; ++c) {
+    float wv[kWCols];
+#pragma unroll
+    for (int i = 0; i < kWCols; ++i) wv[i] = __ldg(w + static_cast<size_t>(c) * C2 + col[i]);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int i = 0; i < kWCols; ++i) acc[i][j] = fmaf(xr[j * Cp + c], wv[i], acc[i][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j0 + j >= K) continue;
+#pragma unroll
+    for (int i = 0; i < kWCols; ++i) {
+      const float v = mocopci::leaky(acc[i][j] + bv[i]);
+      if (!kArg) {
+        m[i] = fmaxf(m[i], v);
+      } else if (v > m[i]) {       // ascending j: strict > keeps the first j at the max
+        m[i] = v;
+        mj[i] = j0 + j;
+      }
+    }
+  }
+}
+
+// Wide route: query n = blockIdx.x + i*gridDim.x; thread t takes the output
+// channels cb + t + i*kWThreads.
+template <typename IdxT, bool kArg>
+__global__ void __launch_bounds__(kWThreads) cross_tail_wide_kernel(
+    const float* __restrict__ tab, const int* __restrict__ idx,
+    const float* __restrict__ base, const float* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ out, IdxT* __restrict__ amax, int BN,
+    int M, int N, int K, int C, int C2) {
+  extern __shared__ __align__(16) float xs[];     // [Kp][Cp] x = leaky(row + base)
+  const int Kp = fwd_kp(K), Cp = wide_cp(C);
+  for (int n = blockIdx.x; n < BN; n += gridDim.x) {
+    const int* iq = idx + static_cast<size_t>(n) * K;
+    const float* bq = base + static_cast<size_t>(n) * C;
+    const size_t tb = static_cast<size_t>(n / N) * M;
+    __syncthreads();                 // every thread is done with the last query's x
+    for (int e = threadIdx.x; e < Kp * C; e += blockDim.x) {
+      const int j = e / C, c = e - j * C;
+      xs[j * Cp + c] = j < K ? mocopci::leaky(tab[(tb + iq[j]) * C + c] + bq[c]) : 0.f;
+    }
+    __syncthreads();
+    for (int cb = 0; cb < C2; cb += kWThreads * kWCols) {
+      int col[kWCols];
+      float bv[kWCols], m[kWCols];
+      int mj[kWCols];
+#pragma unroll
+      for (int i = 0; i < kWCols; ++i) {
+        col[i] = min(cb + static_cast<int>(threadIdx.x) + i * kWThreads, C2 - 1);
+        bv[i] = bias[col[i]];
+        m[i] = -__int_as_float(0x7f800000);
+        mj[i] = K;
+      }
+      int j0 = 0;
+      for (; j0 + 32 <= Kp; j0 += 32)
+        wide_rows<32, kArg>(xs, Cp, w, C, C2, col, j0, K, bv, m, mj);
+      for (; j0 < Kp; j0 += 8) wide_rows<8, kArg>(xs, Cp, w, C, C2, col, j0, K, bv, m, mj);
+#pragma unroll
+      for (int i = 0; i < kWCols; ++i) {
+        const int c2 = cb + static_cast<int>(threadIdx.x) + i * kWThreads;
+        if (c2 >= C2) continue;
+        const size_t o = static_cast<size_t>(n) * C2 + c2;
+        out[o] = m[i];
+        if (kArg) amax[o] = static_cast<IdxT>(mj[i] < K ? mj[i] : 0);
+      }
+    }
+  }
+}
+
 inline size_t bwd_smem_floats(int qt, int K, int C, int C2) {
   return 2 * static_cast<size_t>(qt) * K * C + 2 * static_cast<size_t>(C) * C2 + C2 +
          static_cast<size_t>(qt) * C + 2 * static_cast<size_t>(qt) * C2;
@@ -383,6 +508,19 @@ cudaError_t run_fwd(const float* tab, const int* idx, const float* base, const f
   return cudaGetLastError();
 }
 
+template <typename IdxT, bool kArg>
+cudaError_t run_wide(const float* tab, const int* idx, const float* base, const float* w,
+                     const float* b, float* out, void* amax, int B, int M, int N, int K, int C,
+                     int C2, int nblk, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(wide_cp(C)) * fwd_kp(K) * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = mocopci::allow_smem(cross_tail_wide_kernel<IdxT, kArg>, smem);
+  if (err != cudaSuccess) return err;
+  cross_tail_wide_kernel<IdxT, kArg><<<nblk, kWThreads, smem, st>>>(
+      tab, idx, base, w, b, out, static_cast<IdxT*>(amax), B * N, M, N, K, C, C2);
+  return cudaGetLastError();
+}
+
 template <typename IdxT>
 cudaError_t run_bwd(const float* tab, const int* idx, const float* base, const float* w,
                     const float* out, const void* amax, const float* dout, float* d_rows,
@@ -414,6 +552,21 @@ MOCOPCI_API int mocopci_cross_tail(const float* tab, const int* idx, const float
   if (K <= 255)
     return run_fwd<uint8_t, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk, st);
   return run_fwd<int, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk, st);
+}
+
+// As mocopci_cross_tail on the wide route: nblk blocks walk the queries, x
+// of K rows (padded to 8) by C (padded to 4) in shared memory.
+MOCOPCI_API int mocopci_cross_tail_wide(const float* tab, const int* idx, const float* base,
+                                        const float* w, const float* b, float* out, void* amax,
+                                        int B, int M, int N, int K, int C, int C2, int nblk,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (amax == nullptr)
+    return run_wide<int, false>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk, st);
+  if (K <= 255)
+    return run_wide<uint8_t, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk,
+                                   st);
+  return run_wide<int, true>(tab, idx, base, w, b, out, amax, B, M, N, K, C, C2, nblk, st);
 }
 
 // Backward of mocopci_cross_tail given its out, its amax and dout (B, N, C2):

@@ -36,10 +36,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fps": [_P, _I, _I, _I, _P, _P],
     "fps_pyramid": [_P, _I, _I, _P, _I, _P, _P],
+    "fps_cluster": [_P, _I, _I, _I, _I, _P, _P],
+    "fps_pyramid_cluster": [_P, _I, _I, _P, _I, _I, _P, _P],
     "knn": [_P, _P] + [_I] * 9 + [_P] * 4,
     "attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "attention_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "cross_tail": [_P] * 7 + [_I] * 7 + [_P],
+    "cross_tail_wide": [_P] * 7 + [_I] * 7 + [_P],
     "transformer_tail": [_P] * 13 + [_I] * 6 + [_P],
     "transformer_tail_general": [_P] * 13 + [_I] * 5 + [_P],
     "fusion_pair": [_P] * 11 + [_I, _I, _I, _I, _P],

@@ -14,6 +14,10 @@ the same table, base and weight gradients (duplicate neighbours are the only
 systematic ties, ``cross_tail.py:20-31``).  Operations bound the forward, a
 register-tiled product over chunks of 128 gathered pair rows on a fixed grid
 (``FWD_BLOCKS``); bytes (the rows' gradient it writes) bound the backward.
+Where that product's shared memory (W, x transposed, 128 staged rows) does
+not fit, as at cross3 of a 32768-point cloud (C = C2 = 256), the forward
+takes the declared route ``cross_tail_wide`` (:func:`fwd_route`): a block a
+query, the same chains, so the same bits and argmax.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ BWD_BLOCKS = 264
 FWD_BLOCKS = 264
 _FWD_ROWS = 128       # pair rows a chunk (csrc kFRows), in whole row groups of 8
 _FWD_COLS = 64        # output channels a pass (csrc kFCols)
+# the wide route's fixed grid, eight blocks of 128 threads per SM
+WIDE_BLOCKS = 1056
 
 
 def _tail_pre(rows, base, w, b):
@@ -103,6 +109,28 @@ def _bwd_smem(K, C, C2):
     return (2 * K * C + 2 * C * C2 + C2 + C + 2 * C2) * 4
 
 
+def _wide_smem(K, C):
+    """The wide route's shared memory: x of K rows padded to 8 by C padded
+    to 4."""
+    return (-(-C // 4) * 4) * (-(-K // 8) * 8) * 4
+
+
+def fwd_route(K: int, C: int, C2: int) -> str:
+    """The forward's entry point for (K, C, C2): the tiled ``cross_tail``
+    where its shared memory fits, else ``cross_tail_wide``; raises, before
+    any launch, where neither fits."""
+    if _fwd_smem(K, C, C2) <= _MAX_SMEM:
+        return "cross_tail"
+    if _wide_smem(K, C) <= _MAX_SMEM:
+        return "cross_tail_wide"
+    raise ValueError(f"cross_tail kernel: C={C}, C2={C2}, K={K} exceed shared memory")
+
+
+def _check_bwd_smem(K, C, C2):
+    if _bwd_smem(K, C, C2) > _MAX_SMEM:
+        raise ValueError(f"cross_tail backward: C={C}, C2={C2}, K={K} exceed shared memory")
+
+
 def _check(tab, idx, base, w):
     _lib.check_cuda("cross_tail tab", tab, torch.float32, 3)
     _lib.check_cuda("cross_tail idx", idx, torch.int32, 3)
@@ -113,8 +141,6 @@ def _check(tab, idx, base, w):
     C2 = w.shape[1]
     if idx.shape[0] != B or base.shape != (B, N, C) or w.shape[0] != C:
         raise ValueError("cross_tail: inconsistent shapes")
-    if max(_fwd_smem(K, C, C2), _bwd_smem(K, C, C2)) > _MAX_SMEM:
-        raise ValueError(f"cross_tail kernel: C={C}, C2={C2}, K={K} exceed shared memory")
     return B, M, N, K, C, C2
 
 
@@ -129,15 +155,17 @@ def cross_tail_fwd(tab, idx, base, w, b, argmax=None):
     """Kernel forward, (B, N, C2); fills ``argmax`` ((B, N, C2) of
     :func:`argmax_dtype` (K)) with the first j at each max when given."""
     B, M, N, K, C, C2 = _check(tab, idx, base, w)
+    route = fwd_route(K, C, C2)
     _lib.check_cuda("cross_tail b", b, torch.float32, 1)
     if b.shape != (C2,):
         raise ValueError("cross_tail: inconsistent shapes")
     if argmax is not None:
         _check_argmax(argmax, B, N, K, C2)
     out = torch.empty((B, N, C2), dtype=torch.float32, device=tab.device)
-    _lib.launch("cross_tail", tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(),
+    nblk = fwd_grid(B, N, K) if route == "cross_tail" else min(WIDE_BLOCKS, B * N)
+    _lib.launch(route, tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(),
                 b.data_ptr(), out.data_ptr(), 0 if argmax is None else argmax.data_ptr(),
-                B, M, N, K, C, C2, fwd_grid(B, N, K), _lib.stream(tab))
+                B, M, N, K, C, C2, nblk, _lib.stream(tab))
     return out
 
 
@@ -145,6 +173,7 @@ def cross_tail_bwd(tab, idx, base, w, out, argmax, dout):
     """Kernel backward from the forward's ``out`` (its sign gives leaky' at
     the max) and ``argmax``: (d_rows (B, N, K, C), d_base, dw, db)."""
     B, M, N, K, C, C2 = _check(tab, idx, base, w)
+    _check_bwd_smem(K, C, C2)
     _check_argmax(argmax, B, N, K, C2)
     _lib.check_cuda("cross_tail out", out, torch.float32, 3)
     _lib.check_cuda("cross_tail dout", dout, torch.float32, 3)
@@ -172,6 +201,8 @@ class _CrossTail(torch.autograd.Function):
             return cross_tail_plain(tab, idx, base, w, b)
         argmax = None
         if grad:
+            # a backward that cannot run is refused before the forward
+            _check_bwd_smem(idx.shape[2], tab.shape[2], w.shape[1])
             argmax = torch.empty((idx.shape[0], idx.shape[1], w.shape[1]),
                                  dtype=argmax_dtype(idx.shape[2]), device=tab.device)
         out = cross_tail_fwd(tab, idx, base, w, b, argmax)

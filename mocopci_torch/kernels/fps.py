@@ -3,8 +3,13 @@
 Replaces ``mocopci_tpu/ops/pallas/fps.py``: ``farthest_point_sample_pallas``
 (:419) by :func:`fps`, and ``farthest_point_sample_pyramid_pallas`` (:477) by
 :func:`fps_pyramid`, every level in one launch with the level subsets kept in
-shared memory.  One block per cloud; the step chain, not bytes or flops,
-bounds both (see the source note), and a step takes one block barrier.
+shared memory.  One block per cloud up to ``BLOCK_MAX_N`` points; the step
+chain, not bytes or flops, bounds both (see the source note), and a step
+takes one block barrier.  Above ``BLOCK_MAX_N`` points, up to ``MAX_N``,
+level 0 runs across a thread-block cluster of ``CLUSTER`` blocks (the
+declared routes ``fps_cluster`` and ``fps_pyramid_cluster``), a step one
+cluster barrier; a pyramid's later levels, at most ``BLOCK_MAX_N`` points
+each, run on the cluster's first block.
 """
 from __future__ import annotations
 
@@ -18,7 +23,12 @@ SOURCE = "mocopci_torch/csrc/fps.cu"
 REPLACES = "mocopci_tpu/ops/pallas/fps.py:419"
 REPLACES_PYRAMID = "mocopci_tpu/ops/pallas/fps.py:477"
 
-MAX_N = 8192          # 32 points a thread, 256 threads a block
+BLOCK_MAX_N = 8192    # one block: 32 points a thread, 256 threads
+# blocks a cluster, the portable most: chosen by scripts/fps_cluster_timing.py
+# on the card, 8 blocks at the stress sizes 16384 (1.07 µs a step against
+# 1.09 at 4 and 1.32 at 2) and 32768 (1.19 against 1.27 at 4)
+CLUSTER = 8
+MAX_N = CLUSTER * BLOCK_MAX_N
 MAX_LEVELS = 8
 
 
@@ -63,21 +73,27 @@ def _check_cloud(name: str, xyz: torch.Tensor) -> Tuple[int, int]:
 
 
 def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS indices (B, npoint) int32; the kernel on CUDA, the twin on the CPU."""
+    """FPS indices (B, npoint) int32; the kernel on CUDA (one block a cloud up
+    to ``BLOCK_MAX_N`` points, a cluster above), the twin on the CPU."""
     if _lib.dispatch_device(xyz) == "cpu":
         return fps_plain(xyz, npoint)
     B, N = _check_cloud("fps", xyz)
     if not 1 <= npoint <= N:
         raise ValueError(f"fps: need 1 <= npoint <= N = {N}, got {npoint}")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    _lib.launch("fps", xyz.data_ptr(), B, N, npoint, out.data_ptr(), _lib.stream(xyz))
+    if N <= BLOCK_MAX_N:
+        _lib.launch("fps", xyz.data_ptr(), B, N, npoint, out.data_ptr(), _lib.stream(xyz))
+    else:
+        _lib.launch("fps_cluster", xyz.data_ptr(), B, N, npoint, CLUSTER, out.data_ptr(),
+                    _lib.stream(xyz))
     return out
 
 
 def fps_pyramid(xyz: torch.Tensor, npoints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
     """One (B, npoints[l]) int32 index tensor per level, level l addressing
-    level l-1's sampled points (level 0 ``xyz``); one launch on CUDA, the
-    twin on the CPU."""
+    level l-1's sampled points (level 0 ``xyz``); one launch on CUDA (above
+    ``BLOCK_MAX_N`` points level 0 over a cluster, and every later level on
+    at most ``BLOCK_MAX_N`` points), the twin on the CPU."""
     npoints = tuple(int(n) for n in npoints)
     if _lib.dispatch_device(xyz) == "cpu":
         return fps_pyramid_plain(xyz, npoints)
@@ -88,9 +104,16 @@ def fps_pyramid(xyz: torch.Tensor, npoints: Sequence[int]) -> Tuple[torch.Tensor
         if not 1 <= n <= n_in:
             raise ValueError(f"fps_pyramid: level {l} takes {n} of {n_in} points; a level "
                              "samples 1 to all of the points of the level before")
+    if max(npoints[:-1], default=0) > BLOCK_MAX_N:
+        raise ValueError(f"fps_pyramid: a level after the first runs on one block, at most "
+                         f"{BLOCK_MAX_N} points; got levels {npoints}")
     out = torch.empty(B * sum(npoints), dtype=torch.int32, device=xyz.device)
     levels = torch.tensor(npoints, dtype=torch.int32)        # read on the host
-    _lib.launch("fps_pyramid", xyz.data_ptr(), B, N, levels.data_ptr(), len(npoints),
-                out.data_ptr(), _lib.stream(xyz))
+    if N <= BLOCK_MAX_N:
+        _lib.launch("fps_pyramid", xyz.data_ptr(), B, N, levels.data_ptr(), len(npoints),
+                    out.data_ptr(), _lib.stream(xyz))
+    else:
+        _lib.launch("fps_pyramid_cluster", xyz.data_ptr(), B, N, levels.data_ptr(),
+                    len(npoints), CLUSTER, out.data_ptr(), _lib.stream(xyz))
     return tuple(part.view(B, n) for part, n in zip(out.split([B * n for n in npoints]),
                                                     npoints))

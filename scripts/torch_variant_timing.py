@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Time design variants of the transformer tail's forward and ``chamfer_pair`` on one GPU.
+"""Time design variants of the transformer tail's forward, ``chamfer_pair`` and the wide cost-volume tail on one GPU.
 
-    python3 scripts/torch_variant_timing.py [--reps 20] [--only tail|chamfer]
+    python3 scripts/torch_variant_timing.py [--reps 20] [--only tail|chamfer|wide]
     python3 scripts/torch_variant_timing.py --card-checks all_3xtf32
 
 Each variant is this tree's ``mocopci_torch/csrc`` source with a few lines
 replaced (``TAIL_VARIANTS``, ``CHAMFER_VARIANTS``: a Chamfer variant with
-the tiling it is launched on), or the shipped kernel launched with other
-spans (``CHAMFER_SPANS``).  Every source variant is
+the tiling it is launched on; ``WIDE_VARIANTS`` of ``cross_tail.cu``'s wide
+route), or the shipped kernel launched with other spans (``CHAMFER_SPANS``)
+or grids (``WIDE_GRIDS``).  Every source variant is
 built alone (one nvcc each, all started together) into
 ``build/variants/<name>/`` and called through the same C entry point at the
 main path's shapes: the tail forward at the eval's (3, 2048, 16, 64) and the
 train step's (6, 2048, 16, 64), the Chamfer keys at the loss's (30, 8192,
-8192), the eval's (3, 8192, 8192) and the loss's (12, 2048, 2048).  A tail
-variant's output is held within 1e-4 (1 + max |out|) of the plain version
-and compared bit for bit with the shipped kernel's; a Chamfer variant's keys
-must equal the shipped kernel's.  Each is timed by torch.profiler device µs
+8192), the eval's (3, 8192, 8192) and the loss's (12, 2048, 2048), the
+wide route at cross3 of the 32768-point stress forward, (1, 1024, 32) at C =
+C2 = 256.  A tail variant's output is held within 1e-4 (1 + max |out|) of
+the plain version and compared bit for bit with the shipped kernel's; a
+Chamfer variant's keys, and a wide variant's output and argmax, must equal
+the shipped kernel's.  Each is timed by torch.profiler device µs
 (its kernel alone: outputs allocated and filled once), twice, in turns over
 the variants.  Prints the card's name and power limit first, then each
 variant kernel's registers and spills (``-Xptxas -v``); exits non-zero on a
@@ -172,6 +175,21 @@ CHAMFER_VARIANTS = {
     "q16_unroll4": ([_Q16, _replace(_J_LOOP, _J_LOOP.replace("unroll 2", "unroll 4"))],
                     (16, 512, 512)),
 }
+# name -> edits of csrc/cross_tail.cu's wide route: output channels a thread
+# (threads a block), rows of chains a pass
+_WIDE_COLS = "constexpr int kWThreads = 128;\nconstexpr int kWCols = 2;"
+_WIDE_ROWS = "for (; j0 + 32 <= Kp; j0 += 32)\n        wide_rows<32, kArg>"
+WIDE_VARIANTS = {
+    "shipped": [],
+    "cols1_256": [_replace(_WIDE_COLS, "constexpr int kWThreads = 256;\n"
+                                       "constexpr int kWCols = 1;")],
+    "cols4_64": [_replace(_WIDE_COLS, "constexpr int kWThreads = 64;\n"
+                                      "constexpr int kWCols = 4;")],
+    "rows16": [_replace(_WIDE_ROWS, "for (; j0 + 16 <= Kp; j0 += 16)\n"
+                                    "        wide_rows<16, kArg>")],
+}
+# the shipped wide kernel on other grids (blocks; WIDE_BLOCKS is shipped)
+WIDE_GRIDS = (1056, 512, 264)
 # the shipped kernel with other spans: name -> span in chunks of 64 points
 # (None: launch_grid's); "one_span" walks the whole cloud a block, "span4"
 # 256 points a block, as the kernel before this design sliced it
@@ -337,6 +355,50 @@ def time_chamfer(libs, dev, reps):
                 raise SystemExit(f"chamfer variant {name} gives other keys")
 
 
+def time_wide(libs, dev, reps):
+    from mocopci_torch.kernels import _lib
+    from mocopci_torch.kernels.cross_tail import WIDE_BLOCKS, cross_tail_plain
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    B, N, K, C = 1, 1024, 32, 256
+    tab = torch.randn(B, N, C, generator=gen, device=dev)
+    base = torch.randn(B, N, C, generator=gen, device=dev)
+    w = torch.randn(C, C, generator=gen, device=dev) * C ** -0.5
+    b = torch.randn(C, generator=gen, device=dev) * 0.1
+    idx = torch.randint(0, N, (B, N, K), generator=gen, device=dev, dtype=torch.int32)
+    want = cross_tail_plain(tab, idx, base, w, b)
+    calls, outs = {}, {}
+    runs = [(name, WIDE_BLOCKS) for name in libs] + [("shipped", g) for g in WIDE_GRIDS
+                                                    if g != WIDE_BLOCKS]
+    for name, grid in runs:
+        fn = libs[name].mocopci_cross_tail_wide
+        fn.argtypes, fn.restype = _lib.SIGNATURES["cross_tail_wide"], ctypes.c_int
+        out = torch.empty(B, N, C, device=dev)
+        amax = torch.empty(B, N, C, dtype=torch.uint8, device=dev)
+
+        def call(fn=fn, out=out, grid=grid, amax=None):
+            if fn(tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), 0 if amax is None else amax.data_ptr(), B, N, N, K, C, C,
+                  grid, stream):
+                raise RuntimeError("launch failed")
+        call(amax=amax)
+        torch.cuda.synchronize()
+        key = f"{name} grid {grid}"
+        outs[key], calls[key] = (out.clone(), amax.clone()), call
+    ref = outs[f"shipped grid {WIDE_BLOCKS}"]
+    tol = 1e-4 * (1 + float(want.abs().max()))
+    for key, (a, b_) in in_turns(calls, reps).items():
+        err = float((outs[key][0] - want).abs().max())
+        same = (torch.equal(outs[key][0].view(torch.int32), ref[0].view(torch.int32))
+                and torch.equal(outs[key][1], ref[1]))
+        print(f"wide cross tail variant {key} (B, N, K, C, C2) {(B, N, K, C, C)}: device us "
+              f"{a} / {b_}; max_abs_err {err:.3e} (tol {tol:.1e}), output and argmax "
+              f"bit-equal to the shipped kernel's {same}", flush=True)
+        if err > tol or not same:
+            raise SystemExit(f"wide variant {key} disagrees")
+
+
 def card_checks(name):
     """This tree copied with the tail variant ``name`` in place of
     ``csrc/transformer_tail.cu``; there, the card tests of the tail and the
@@ -372,7 +434,7 @@ def card_checks(name):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("tail", "chamfer"))
+    ap.add_argument("--only", choices=("tail", "chamfer", "wide"))
     ap.add_argument("--card-checks", metavar="TAIL_VARIANT", choices=sorted(TAIL_VARIANTS),
                     help="instead of timing: the card tests and chip_smoke.py on a copy of "
                          "this tree with that tail variant in place")
@@ -387,13 +449,18 @@ def main() -> int:
         return 1 if card_checks(args.card_checks) else 0
     out_dir = os.path.join(ROOT, "build", "variants")
     dev = torch.device("cuda")
-    tail = build(TAIL_VARIANTS, "transformer_tail.cu", out_dir) if args.only != "chamfer" else None
+    tail = (build(TAIL_VARIANTS, "transformer_tail.cu", out_dir)
+            if args.only in (None, "tail") else None)
     chamfer = (build({name: edits for name, (edits, _) in CHAMFER_VARIANTS.items()},
-                     "chamfer_pair.cu", out_dir) if args.only != "tail" else None)
+                     "chamfer_pair.cu", out_dir) if args.only in (None, "chamfer") else None)
+    wide = (build(WIDE_VARIANTS, "cross_tail.cu", out_dir)
+            if args.only in (None, "wide") else None)
     if tail is not None:
         time_tail(tail(), dev, args.reps)
     if chamfer is not None:
         time_chamfer(chamfer(), dev, args.reps)
+    if wide is not None:
+        time_wide(wide(), dev, args.reps)
     return 0
 
 

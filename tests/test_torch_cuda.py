@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from mocopci_torch import MoCoPCI, interpolate, kernels, ops, tiny_model_config
+from mocopci_torch import (MoCoPCI, interpolate, kernels, ops, stress_model_config,
+                           tiny_model_config)
 from mocopci_torch.kernels.knn_approx import tiling
 from mocopci_torch.ops import distance
 from mocopci_torch.ops.distance import _normalise
@@ -71,6 +72,119 @@ def test_fps_pyramid_kernel_equals_twin(card, B, N, levels):
     for a, w, n in zip(got, want, levels):
         assert a.shape == (B, n) and a.dtype == torch.int32
         np.testing.assert_array_equal(a.cpu().numpy(), w.cpu().numpy())
+
+
+def _fps_over(xyz, npoint, c):
+    """The ``fps_cluster`` entry at a cluster of ``c`` blocks."""
+    from mocopci_torch.kernels import _lib
+    out = torch.empty((xyz.shape[0], npoint), dtype=torch.int32, device=xyz.device)
+    _lib.launch("fps_cluster", xyz.data_ptr(), xyz.shape[0], xyz.shape[1], npoint, c,
+                out.data_ptr(), _lib.stream(xyz))
+    return out
+
+
+def _fps_pyramid_over(xyz, levels, c):
+    """The ``fps_pyramid_cluster`` entry at a cluster of ``c`` blocks."""
+    from mocopci_torch.kernels import _lib
+    B = xyz.shape[0]
+    out = torch.empty(B * sum(levels), dtype=torch.int32, device=xyz.device)
+    lv = torch.tensor(levels, dtype=torch.int32)
+    _lib.launch("fps_pyramid_cluster", xyz.data_ptr(), B, xyz.shape[1], lv.data_ptr(),
+                len(levels), c, out.data_ptr(), _lib.stream(xyz))
+    return tuple(part.view(B, n) for part, n in zip(out.split([B * n for n in levels]), levels))
+
+
+def _cluster_sizes(N):
+    """Of the cluster sizes timed (2, 4 and 8), those whose blocks hold N
+    points."""
+    fps_mod = importlib.import_module("mocopci_torch.kernels.fps")
+    return [c for c in (2, 4, 8) if -(-N // c) <= fps_mod.BLOCK_MAX_N]
+
+
+@pytest.mark.parametrize("B,N,npoint,dup", [(2, 8193, 2048, False), (2, 12288, 12288, False),
+                                            (3, 16384, 4096, False), (2, 20000, 5000, True),
+                                            (3, 32768, 8192, False), (2, 32768, 4096, True),
+                                            (1, 65536, 2048, False)])
+def test_fps_cluster_kernel_equals_twin(card, B, N, npoint, dup):
+    """Above 8192 points, level 0 over a cluster: one ``fps_cluster`` launch
+    at the chosen size, then the entry at every size that held the cloud
+    when the size was chosen, each bit-equal
+    to the plain version; every point sampled at 12288, the cap (65536: 8
+    blocks of 8192 points), and clouds whose upper half repeats the lower
+    half, so every tie spans two blocks' spans and must go to the lower
+    index."""
+    g = torch.Generator().manual_seed(22)
+    xyz = _x(g, B, N, 3, scale=10.0)
+    if dup:
+        xyz[:, N // 2:] = xyz[:, :N - N // 2].clone()
+    xyz = xyz.to(card)
+    want = kernels.fps_plain(xyz, npoint)
+    kernels.reset_launches()
+    got = kernels.fps(xyz, npoint)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"fps_cluster": 1}
+    assert torch.equal(got, want)
+    for c in _cluster_sizes(N):
+        assert torch.equal(_fps_over(xyz, npoint, c), want), c
+    if dup:
+        assert (got < N // 2).all()
+
+
+@pytest.mark.parametrize("N", [16384, 32768])
+def test_fps_pyramid_cluster_kernel_equals_twin(card, N):
+    """The encoder's pyramid at the stress ratios (n/4, n/16, n/32, n/128) in
+    one launch, level 0 over a cluster and the later levels on its first
+    block, at the chosen cluster size and through the entry at every size
+    that holds the cloud."""
+    g = torch.Generator().manual_seed(23)
+    xyz = _x(g, 2, N, 3, scale=10.0).to(card)
+    levels = (N // 4, N // 16, N // 32, N // 128)
+    want = kernels.fps_pyramid_plain(xyz, levels)
+    kernels.reset_launches()
+    got = kernels.fps_pyramid(xyz, levels)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"fps_pyramid_cluster": 1}
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    for c in _cluster_sizes(N):
+        assert all(torch.equal(a, w) for a, w in zip(_fps_pyramid_over(xyz, levels, c),
+                                                     want)), c
+
+
+def test_knn_kernels_at_the_stress_shapes(card):
+    """knn_approx at (2, 32768, 32768, 3) k=32 (tr 1024, 15 index bits, the
+    fold) and exact knn at (2, 16384, 16384, 3) k=32, each bit-equal to its
+    plain version."""
+    g = torch.Generator().manual_seed(24)
+    p = _x(g, 2, 32768, 3, scale=10.0).to(card)
+    q = (p + 0.05 * _x(g, 2, 32768, 3).to(card)).contiguous()
+    assert tiling(32768, 32) == (1024, 15, True)
+    assert torch.equal(kernels.knn_approx(q, p, 32, "euclidean"),
+                       kernels.knn_approx_plain(q, p, 32, "euclidean"))
+    q, p = q[:, :16384].contiguous(), p[:, :16384].contiguous()
+    assert torch.equal(kernels.knn_exact(q, p, 32, "euclidean"),
+                       kernels.knn_plain(q, p, 32, "euclidean"))
+
+
+def test_stress_forward_on_card_launches_the_cluster_routes(card):
+    """stress_model_config(16384), B=1, approx mode: the encoder's pyramid and
+    the refine head's FPS each one cluster launch, every eval kernel
+    launched, the output finite."""
+    cfg = stress_model_config(16384)
+    rng = np.random.default_rng(0)
+    x1 = (rng.normal(size=(1, cfg.npoints, 3)) * 10).astype(np.float32)
+    x2 = (x1 + 0.1 * rng.normal(size=x1.shape)).astype(np.float32)
+    saved = distance.get_knn_mode()
+    distance.set_knn_mode("approx")
+    try:
+        model = MoCoPCI(cfg, device="cuda")
+        kernels.reset_launches()
+        got = interpolate(model, x1, x2)
+        torch.cuda.synchronize()
+    finally:
+        distance.set_knn_mode(saved)
+    launched = {name: n for name, n in kernels.LAUNCHES.items() if n > 0}
+    assert launched["fps_pyramid_cluster"] == 1 and launched["fps_cluster"] == 1, launched
+    assert set(launched) == (FORWARD_KERNELS["approx"] - {"fps", "fps_pyramid"}) | {
+        "fps_cluster", "fps_pyramid_cluster"}, launched
+    assert got.shape == (1, 3, cfg.npoints, 3) and torch.isfinite(got).all()
 
 
 @pytest.mark.parametrize("metric,C,k", [("euclidean", 3, 32), ("euclidean", 3, 3),
@@ -227,6 +341,110 @@ def test_cross_tail_argmax_matches_twin(card, N, K, C, C2):
     torch.testing.assert_close(hg, hw, atol=1e-5, rtol=0)
     torch.testing.assert_close(hg[:, :, 0], out, atol=1e-5, rtol=1e-5)
     assert (amax == want).float().mean() > 0.99
+
+
+def _cross_tail_inputs(g, card, B, N, K, C, C2, M=700):
+    tab, base = _x(g, B, M, C).to(card), _x(g, B, N, C).to(card)
+    w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
+    idx = torch.randint(0, M, (B, N, K), generator=g, dtype=torch.int32)
+    idx[:, :, 1] = idx[:, :, 0]                  # a duplicate neighbour: exact ties
+    return tab, idx.to(card), base, w, b
+
+
+@pytest.mark.parametrize("B,N,K,C,C2", [(1, 1024, 32, 256, 256),   # cross3 at 32768 points
+                                        (2, 301, 30, 192, 64),     # K padded to 8, ragged
+                                        (2, 37, 5, 256, 300)])     # more channels than threads
+def test_cross_tail_wide_route_matches_twin(card, B, N, K, C, C2):
+    """Past the tiled forward's shared memory, one ``cross_tail_wide``
+    launch: within 1e-4 of the plain version; the instance with the argmax
+    returns the same bits and, where its first j differs from the twin's,
+    the two pre-max values agree within 1e-5."""
+    from mocopci_torch.kernels.cross_tail import (
+        _tail_pre,
+        argmax_dtype,
+        cross_tail_argmax_plain,
+        cross_tail_fwd,
+        fwd_route,
+    )
+
+    assert fwd_route(K, C, C2) == "cross_tail_wide"
+    g = torch.Generator().manual_seed(25)
+    tab, idx, base, w, b = _cross_tail_inputs(g, card, B, N, K, C, C2)
+    kernels.reset_launches()
+    got = kernels.cross_tail(tab, idx, base, w, b)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"cross_tail_wide": 1}
+    torch.testing.assert_close(got, kernels.cross_tail_plain(tab, idx, base, w, b),
+                               atol=1e-4, rtol=1e-4)
+    amax = torch.empty((B, N, C2), dtype=argmax_dtype(K), device=card)
+    assert _bits_equal(cross_tail_fwd(tab, idx, base, w, b, amax), got)
+    want = cross_tail_argmax_plain(tab, idx, base, w, b)
+    h = _tail_pre(kernels._lib.group_rows(tab, idx), base, w, b)
+    hg, hw = h.gather(2, amax.long()[:, :, None]), h.gather(2, want.long()[:, :, None])
+    torch.testing.assert_close(hg, hw, atol=1e-5, rtol=0)
+    assert (amax == want).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("B,N,K,C,C2", [(2, 301, 32, 64, 64), (2, 50, 300, 8, 16),
+                                        (2, 301, 4, 32, 96), (2, 101, 13, 30, 40)])
+def test_cross_tail_wide_route_repeats_the_tiled_bits(card, monkeypatch, B, N, K, C, C2):
+    """The wide route runs the tiled kernel's chains: where both fit, its
+    output and argmax are bit-equal to the tiled kernel's (also with C not a
+    multiple of 4, where its last channels run one at a time)."""
+    ct = importlib.import_module("mocopci_torch.kernels.cross_tail")
+    g = torch.Generator().manual_seed(26)
+    tab, idx, base, w, b = _cross_tail_inputs(g, card, B, N, K, C, C2)
+    outs = []
+    for route in ("cross_tail", "cross_tail_wide"):
+        monkeypatch.setattr(ct, "fwd_route", lambda *a, r=route: r)
+        amax = torch.empty((B, N, C2), dtype=ct.argmax_dtype(K), device=card)
+        kernels.reset_launches()
+        outs.append((ct.cross_tail_fwd(tab, idx, base, w, b, amax), amax))
+        assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {route: 1}
+    (o1, a1), (o2, a2) = outs
+    assert _bits_equal(o1, o2) and torch.equal(a1, a2)
+
+
+@pytest.mark.parametrize("kernel", ["chamfer_pair", "fusion_pair", "cross_tail",
+                                    "transformer_tail"])
+def test_eval_kernels_at_the_stress_shapes(card, kernel):
+    """The eval kernels at the calls of stress_model_config(32768) against
+    their plain versions, with the tolerances of their own card tests: the
+    Chamfer keys of eval_step's (3, 32768)² bit-equal, the fusion head at
+    (3, 32768, 64) pairs, the cost-volume tail at L1's (3, 8192, 32), the
+    transformer tail at the refine head's (3, 8192, 16)."""
+    g = torch.Generator().manual_seed(27)
+    kernels.reset_launches()
+    if kernel == "chamfer_pair":
+        p1, p2 = _x(g, 3, 32768, 3, scale=5.0).to(card), _x(g, 3, 32768, 3, scale=5.0).to(card)
+        got, want = kernels.chamfer_pair_keys(p1, p2), kernels.chamfer_pair_keys_plain(p1, p2)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    elif kernel == "fusion_pair":
+        p2, p1 = _x(g, 3, 32768, 3, scale=5.0).to(card), _x(g, 3, 32768, 3, scale=5.0).to(card)
+        idx = torch.randint(0, 32768, (3, 32768, 64), generator=g, dtype=torch.int32).to(card)
+        ws = []
+        for ci, co in [(4, 64), (64, 64), (64, 128)]:
+            ws += [_x(g, ci, co, scale=ci ** -0.5).to(card), _x(g, co, scale=0.1).to(card)]
+        planes, logits = kernels.fusion_pair(p2, idx, p1, *ws)
+        want_planes, want_logits = kernels.fusion_pair_plain(p2, idx, p1, *ws)
+        torch.testing.assert_close(planes, want_planes, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(logits, want_logits, atol=1e-4, rtol=1e-4)
+    elif kernel == "cross_tail":
+        tab, idx, base, w, b = _cross_tail_inputs(g, card, 3, 8192, 32, 64, 64, M=8192)
+        torch.testing.assert_close(kernels.cross_tail(tab, idx, base, w, b),
+                                   kernels.cross_tail_plain(tab, idx, base, w, b),
+                                   atol=1e-4, rtol=1e-4)
+    else:
+        D = 64
+        table = _x(g, 3, 8192, 3 + 2 * D).to(card)
+        xq, q = _x(g, 3, 8192, 3).to(card), _x(g, 3, 8192, D).to(card)
+        ws = []
+        for ci, co in [(3, D), (D, D), (D, D), (D, D)]:
+            ws += [_x(g, ci, co, scale=ci ** -0.5).to(card), _x(g, co, scale=0.1).to(card)]
+        idx = torch.randint(0, 8192, (3, 8192, 16), generator=g, dtype=torch.int32).to(card)
+        torch.testing.assert_close(kernels.transformer_tail(table, idx, xq, q, *ws),
+                                   kernels.transformer_tail_plain(table, idx, xq, q, *ws),
+                                   atol=1e-4, rtol=1e-4)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {kernel: 1}
 
 
 @pytest.mark.parametrize("N,K,D", [(300, 16, 64), (301, 4, 64), (2048, 16, 64), (300, 8, 64),

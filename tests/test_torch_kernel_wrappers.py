@@ -191,26 +191,42 @@ def test_cross_tail_fwd_walks_units_on_the_fixed_grid(launches, B, N, K, tile, b
     assert out.shape == (B, N, 64)
 
 
-@pytest.mark.parametrize("K,C,C2,fits", [(32, 64, 64, True), (32, 128, 128, True),
-                                         (4, 192, 64, False), (32, 128, 256, False)])
-def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, fits):
-    """The forward's footprint (W and b in 64-column passes, x transposed, a
-    chunk of 128 staged rows, base rows, maxima) past 227 KB is refused by
-    the forward and by the autograd forward before any launch; at (4, 192,
-    64) only the forward's footprint is past it."""
-    assert (cross_tail._fwd_smem(K, C, C2) <= cross_tail._MAX_SMEM) == fits
+@pytest.mark.parametrize("K,C,C2,route", [(32, 64, 64, "cross_tail"),
+                                           (32, 128, 128, "cross_tail"),
+                                           (4, 192, 64, "cross_tail_wide"),
+                                           (32, 128, 256, "cross_tail_wide"),
+                                           (32, 256, 256, "cross_tail_wide"),
+                                           (300, 256, 64, None)])
+def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, route):
+    """The tiled forward's footprint (W and b in 64-column passes, x
+    transposed, a chunk of 128 staged rows, base rows, maxima) past 227 KB
+    takes the wide route, whose footprint is x alone (K padded to 8, by C
+    padded to 4; cross3 of a 32768-point cloud is (32, 256, 256)); past that too the
+    forward and the autograd forward are refused before any launch.  The
+    autograd forward that needs a gradient is refused before any launch
+    where the backward's footprint is past 227 KB; at (4, 192, 64) it fits."""
+    assert (cross_tail._fwd_smem(K, C, C2) <= cross_tail._MAX_SMEM) == (route == "cross_tail")
     tab, idx, base, w, b = _tail_inputs(K=K, C=C, C2=C2)
-    if fits:
-        cross_tail.cross_tail_fwd(tab, idx, base, w, b)
-        assert len(launches) == 1
+    if route is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            cross_tail.cross_tail_fwd(tab, idx, base, w, b)
+        with pytest.raises(ValueError, match="shared memory"):
+            cross_tail.cross_tail(tab, idx, base, w.requires_grad_(), b)
+        assert not launches
         return
-    if (K, C, C2) == (4, 192, 64):
-        assert cross_tail._bwd_smem(K, C, C2) <= cross_tail._MAX_SMEM
-    with pytest.raises(ValueError, match="shared memory"):
-        cross_tail.cross_tail_fwd(tab, idx, base, w, b)
-    with pytest.raises(ValueError, match="shared memory"):
+    cross_tail.cross_tail_fwd(tab, idx, base, w, b)
+    assert [name for name, _ in launches] == [route]
+    blocks = (cross_tail.fwd_grid(2, 40, K) if route == "cross_tail"
+              else min(cross_tail.WIDE_BLOCKS, 2 * 40))
+    assert launches[0][1][6:14] == (0, 2, 50, 40, K, C, C2, blocks)
+    if cross_tail._bwd_smem(K, C, C2) <= cross_tail._MAX_SMEM:
         cross_tail.cross_tail(tab, idx, base, w.requires_grad_(), b)
-    assert not launches
+        assert [name for name, _ in launches] == [route, route]
+        assert launches[1][1][6] != 0             # the argmax the backward reads
+        return
+    with pytest.raises(ValueError, match="backward.*shared memory"):
+        cross_tail.cross_tail(tab, idx, base, w.requires_grad_(), b)
+    assert len(launches) == 1
 
 
 @pytest.mark.parametrize("D,route", [(8, "attention"), (6, "attention"), (64, "attention"),
