@@ -32,7 +32,8 @@ Phases, each fatal on failure:
      cluster routes): launches, every FPS call bit-equal to its plain
      version on the same inputs, the median of 3 forwards and their peak
      memory, one profiled forward (busy share, each FPS launch and FPS's
-     share, the other kernels' device ms); at 16384 the forward against the
+     share, the other kernels' device ms), the attention kernel's launches
+     over more than 4096 keys; at 16384 the forward against the
      CPU (CD <= 1e-4 a frame) and in exact mode, at 32768 ``eval_step`` once;
   7. the train path: ``create_train_state`` at ``ModelConfig()`` (seed 0) and
      6 ``train_step``s at B=2 on synthetic pairs (finite losses, launches,
@@ -47,6 +48,15 @@ Phases, each fatal on failure:
      leaf within 5e-2: see ``run_train_parity``);
      one train step at ``refine_k = 8`` (the tail's general routes);
      the train CLI for one epoch, then ``--resume`` to a second;
+     the dense-stress train step (paths ``stress_train_16384`` and
+     ``stress_train_32768``): ``create_train_state`` at
+     ``stress_model_config(n)``, ``TrainConfig(batch_size=1)``, and 4
+     ``train_step``s at B=1 on synthetic pairs, approx kNN, dropout on
+     (finite losses, every train kernel launched with FPS on its cluster
+     routes, the attention launches over more than 4096 keys, at 32768 the
+     cost-volume tail's wide routes both ways, the median of the last 3
+     steps, peak memory, one profiled step with its busy share and top
+     device ops);
   8. the op paths that reach the last four kernels (path "ops"): approx
      selection (``_topk_min_indices``) on the fusion query's distances at B=2,
      exact ``ops.knn`` over a 131072-point sweep (the blocked route), the
@@ -73,7 +83,15 @@ in µs a step beside the one-block route at 8192 (and, with
 ``--parent``, beside that tree's FPS at 8192); the cost-volume tail's wide
 route ``cross_tail_wide`` at cross3 of the 32768-point forward, (1, 1024)
 queries of K = 32 over C = C2 = 256, within 1e-4 (1 + max |out|) of its
-plain version.  ``knn_approx`` also at the
+plain version, and its wide backward ``cross_tail_bwd_wide`` there against
+``cross_tail_bwd_plain`` (after the scatter, within 1e-4 over max(1,
+|value|)), its bits repeated, and forced at C = C2 = 64 against the tiled
+backward (d_rows and d_base bit-equal, dW and db within 1e-5 (1 + max)); the
+train attention (forward and backward, rate 0.05 and 0) and the eval
+attention at the 32768-point calls over 8192 keys, (8 and 40, 8192, 8192,
+8), their bits repeated and their first 2 groups against the plain
+versions, each timed beside its bound and the plain version on those
+groups (``keys_8192`` in the kernel rows).  ``knn_approx`` also at the
 train step's largest call, (12, 8192, 8192, 3) k=32, and its cosine calls,
 (2, 2048, 2048, 64) k=16; the wide attention forward at rate 0.05 and 0, its
 bits repeated; the transformer tail on both routes of both directions (the
@@ -632,6 +650,12 @@ def check_knn_approx_step(kernels, cfg, p1, p2, rnd, parent=None):
             raise SystemExit(f"knn_approx {what}: indices differ from the plain version")
 
 
+def rel_err(got, want) -> float:
+    """Largest abs error of each tensor over max(1, its largest value)."""
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
 def bits_equal(a, b) -> bool:
     return all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
                for x, y in zip(a, b))
@@ -982,11 +1006,6 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
     def err_of(got, want):
         return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
-    def rel_err(got, want):
-        """Largest abs error of each tensor over max(1, its largest value)."""
-        return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
-                   for g, w in zip(got, want))
-
     def sdpa_bwd(q, k, v, do, sc):
         """SDPA's float32 backward without dropout (autograd of one call): the
         library yardstick of both attention backward routes."""
@@ -1201,15 +1220,11 @@ def check_train_kernels(kernels, cfg, dev, rows, parent=None):
         f"max(1, |value|) {err:.3e}")
     if not same:
         raise SystemExit("cross_tail_bwd: a run did not repeat its bits")
-    # the bound: the sparse work from the saved argmax (gv W into one row per
-    # channel, leaky' of every row, dW and db), every input read once (the
-    # argmax a byte an entry), every output written once
+    # the bound: the sparse work from the saved argmax (cross_bwd_work)
     add_row(rows, "cross_tail_bwd", cross_tail.SOURCE, cross_tail.REPLACES_BWD,
             lambda: cross_tail.cross_tail_bwd(tab, idx, base, w, out, amax, dout),
             lambda: cross_tail.cross_tail_bwd_plain(tab, idx, base, w, b, dout), None,
-            (tab.numel() + 2 * base.numel() + 2 * w.numel() + b.numel() + 2 * out.numel()
-             + N * K * C * G) * F32 + idx.numel() * I32 + amax.numel() * amax.element_size(),
-            G * N * (4.0 * C * C + 3 * K * C), err, 1e-4)
+            *cross_bwd_work(G, M, N, K, C, C), err, 1e-4)
     if parent is not None:
         pout = parent.cross_tail_fwd(tab, idx, base, w, b)
         pgot = parent.cross_tail_bwd(tab, idx, base, w, b, pout, amax, dout)
@@ -1852,6 +1867,159 @@ def check_stress_kernels(kernels, dev, rows, parent=None):
             (tab.numel() + base.numel() + w.numel() + b.numel() + out.numel()) * F32
             + idx.numel() * I32, B * N * K * (2 * C * C + 2 * C + 3 * C),
             float((got - out).abs().max()), 1e-4 * (1 + float(out.abs().max())))
+    check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax)
+    check_long_attention(kernels, gen, rows, cfg)
+
+
+def check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax):
+    """The cost-volume tail's wide backward ``cross_tail_bwd_wide`` at cross3
+    of the 32768-point step, (1, 1024, 32) at C = C2 = 256, from the wide
+    forward's argmax: its bits repeated, its gradients against
+    ``cross_tail_bwd_plain`` (the rows' gradient after its scatter into the
+    table, as the twin splits a tie evenly) within 1e-4 over max(1, |value|).
+    Then both backward routes at C = C2 = 64, the wide one forced: d_rows and
+    d_base bit-equal, dW and db within 1e-5 (1 + max |value|)."""
+    scatter_add = importlib.import_module("mocopci_torch.kernels.scatter_add")
+    dev = tab.device
+
+    def d_tab(r, idx, M):
+        B, N, K, C = r.shape
+        return scatter_add.gather_backward(r.reshape(B, N * K, C), idx.reshape(B, N * K), M)
+
+    B, M, C = tab.shape
+    N, K, C2 = idx.shape[1], idx.shape[2], w.shape[1]
+    if ct.bwd_route(K, C, C2) != "cross_tail_bwd_wide":
+        raise SystemExit("cross_tail: cross3 of the 32768-point step left the wide backward")
+    out = ct.cross_tail_fwd(tab, idx, base, w, b, amax)
+    dout = torch.randn(B, N, C2, generator=gen, device=dev)
+    got = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
+    same = bits_equal(got, ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout))
+    want = ct.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
+    err = rel_err([d_tab(got[0], idx, M), *got[1:]], [d_tab(want[0], idx, M), *want[1:]])
+    log(f"stress cross_tail_bwd_wide (B, N, K, C, C2) {(B, N, K, C, C2)}: repeat bit-equal "
+        f"{same}; d_tab/d_base/dw/db error over max(1, |value|) {err:.3e} (tol 1e-4)")
+    if not same:
+        raise SystemExit("cross_tail_bwd_wide: a run did not repeat its bits")
+    add_row(rows, "cross_tail_bwd_wide", ct.SOURCE, ct.REPLACES_BWD,
+            lambda: ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout),
+            lambda: ct.cross_tail_bwd_plain(tab, idx, base, w, b, dout), None,
+            *cross_bwd_work(B, M, N, K, C, C2), err, 1e-4)
+
+    # both routes where both fit: C = C2 = 64, the wide one forced
+    C = C2 = 64
+    tab64 = torch.randn(B, M, C, generator=gen, device=dev)
+    base64 = torch.randn(B, N, C, generator=gen, device=dev)
+    w64 = torch.randn(C, C, generator=gen, device=dev) * C ** -0.5
+    b64 = torch.randn(C, generator=gen, device=dev) * 0.1
+    idx64 = idx.clone()
+    idx64[:, :, 1] = idx64[:, :, 0]           # a duplicate neighbour: every max ties
+    amax64 = torch.empty((B, N, C2), dtype=ct.argmax_dtype(K), device=dev)
+    out64 = ct.cross_tail_fwd(tab64, idx64, base64, w64, b64, amax64)
+    dout64 = torch.randn(B, N, C2, generator=gen, device=dev)
+    tiled = ct.cross_tail_bwd(tab64, idx64, base64, w64, out64, amax64, dout64)
+    saved = ct.bwd_route
+    ct.bwd_route = lambda *a: "cross_tail_bwd_wide"
+    try:
+        kernels.reset_launches()
+        wide = ct.cross_tail_bwd(tab64, idx64, base64, w64, out64, amax64, dout64)
+        launched = kernels.LAUNCHES["cross_tail_bwd_wide"]
+    finally:
+        ct.bwd_route = saved
+    same = bits_equal(wide[:2], tiled[:2])
+    gap = max(float((a - t).abs().max()) / (1 + float(t.abs().max()))
+              for a, t in zip(wide[2:], tiled[2:]))
+    log(f"stress cross_tail_bwd_wide forced at (B, N, K, C, C2) {(B, N, K, C, C2)}: d_rows and "
+        f"d_base bit-equal to the tiled backward's {same}; dW, db within {gap:.3e} (1 + max) "
+        f"(tol 1e-5)")
+    if not same or gap > 1e-5 or launched != 1:
+        raise SystemExit("cross_tail_bwd_wide: differs from the tiled backward")
+
+
+# the 32768-point step's attentions over 8192 keys: the EI injector and
+# extractor (8 heads) and the L1 MultiFrameBlock (5 frames x 8 heads), D = 8
+LONG_ATTENTION = ((8, 8192, 8192, 8), (40, 8192, 8192, 8))
+LONG_SUBSET = 2       # groups held to the plain version (the mask's hash takes g)
+
+
+def check_long_attention(kernels, gen, rows, cfg):
+    """The train attention (forward and backward, rate ``cfg.attn_drop`` and
+    0) and the eval attention at the 32768-point calls over 8192 keys,
+    ``LONG_ATTENTION``: each kernel on every group, repeated for its bits,
+    and held on its first ``LONG_SUBSET`` groups to its plain version on
+    those groups (a (G, 8192, 8192) plain matrix and its int64 mask pass
+    what the card holds at G = 40): the forward within 1e-5, the backward
+    within 1e-4, the eval attention within 1e-5.  Each timed beside its
+    bound and its plain version's time on the subset; the numbers go to the
+    kernel rows under ``keys_8192``."""
+    attention_train = importlib.import_module("mocopci_torch.kernels.attention_train")
+    dev = torch.device("cuda")
+    seed_i = -12345
+    seed = torch.tensor([seed_i], dtype=torch.int32, device=dev)
+    by_name = {r["name"]: r for r in rows}
+    g = LONG_SUBSET
+    for G, N, M, D in LONG_ATTENTION:
+        q, k, v, do = (torch.randn(G, L, D, generator=gen, device=dev)
+                       for L in (N, M, M, N))
+        sc = D ** -0.5
+        sub = [t[:g] for t in (q, k, v)]
+        for rate in (cfg.attn_drop, 0.0):
+            out, lse = attention_train.attention_train_fwd(q, k, v, seed, sc, rate)
+            same = bits_equal([out, lse], attention_train.attention_train_fwd(q, k, v, seed, sc,
+                                                                              rate))
+            err = float((out[:g] - attention_train.attention_train_plain(*sub, seed_i, sc, rate))
+                        .abs().max())
+            err_lse = float((lse[:g] - torch.logsumexp(sub[0] @ sub[1].transpose(1, 2) * sc, -1))
+                            .abs().max())
+            got = attention_train.attention_train_bwd(q, k, v, out, lse, do, seed, sc, rate)
+            same_b = bits_equal(got, attention_train.attention_train_bwd(q, k, v, out, lse, do,
+                                                                         seed, sc, rate))
+            want = attention_train.attention_train_bwd_plain(*sub, seed_i, sc, rate, do[:g])
+            err_b = max(float((a[:g] - w_).abs().max()) for a, w_ in zip(got, want))
+            del want
+            ms_f = median_ms(lambda: attention_train.attention_train_fwd(q, k, v, seed, sc, rate),
+                             10)
+            ms_b = median_ms(lambda: attention_train.attention_train_bwd(
+                q, k, v, out, lse, do, seed, sc, rate), 10)
+            plain_f = median_ms(lambda: attention_train.attention_train_plain(
+                *sub, seed_i, sc, rate), 3)
+            plain_b = median_ms(lambda: attention_train.attention_train_bwd_plain(
+                *sub, seed_i, sc, rate, do[:g]), 3)
+            b_f, b_b = call_bound("fwd", G, N, M, D), call_bound("bwd", G, N, M, D)
+            log(f"stress attention_train (G, N, M, D, rate) {(G, N, M, D, rate)}: fwd "
+                f"max_abs_err {err:.3e}, lse {err_lse:.3e} (tol 1e-5, {g} groups), repeat "
+                f"bit-equal {same}, ms {ms_f:.4f}, bound_ms {b_f:.5f}, plain_ms on {g} groups "
+                f"{plain_f:.4f}; bwd max_abs_err {err_b:.3e} (tol 1e-4), repeat bit-equal "
+                f"{same_b}, ms {ms_b:.4f}, bound_ms {b_b:.5f}, plain_ms on {g} groups "
+                f"{plain_b:.4f}")
+            if not (same and same_b) or err > 1e-5 or err_lse > 1e-5 or err_b > 1e-4:
+                raise SystemExit(f"attention_train at {(G, N, M, D, rate)} disagrees with its "
+                                 "plain version or did not repeat its bits")
+            shape = {"G": G, "N": N, "M": M, "D": D, "rate": rate, "plain_groups": g}
+            by_name["attention_train_fwd"].setdefault("keys_8192", []).append(
+                {**shape, "ms": ms_f, "bound_ms": b_f, "plain_ms": plain_f,
+                 "max_abs_err": max(err, err_lse)})
+            by_name["attention_train_bwd"].setdefault("keys_8192", []).append(
+                {**shape, "ms": ms_b, "bound_ms": b_b, "plain_ms": plain_b,
+                 "max_abs_err": err_b})
+            del out, lse, got
+        with torch.no_grad():
+            att = kernels.attention(q, k, v, sc)
+            same = bits_equal([att], [kernels.attention(q, k, v, sc)])
+            err = float((att[:g] - kernels.attention_plain(*sub, sc)).abs().max())
+            ms = median_ms(lambda: kernels.attention(q, k, v, sc), 10)
+            plain = median_ms(lambda: kernels.attention_plain(*sub, sc), 3)
+        b_a = call_bound("attn", G, N, M, D)
+        log(f"stress attention (G, N, M, D) {(G, N, M, D)}: max_abs_err {err:.3e} (tol 1e-5, "
+            f"{g} groups), repeat bit-equal {same}, ms {ms:.4f}, bound_ms {b_a:.5f}, plain_ms "
+            f"on {g} groups {plain:.4f}")
+        if not same or err > 1e-5:
+            raise SystemExit(f"attention at {(G, N, M, D)} disagrees with its plain version or "
+                             "did not repeat its bits")
+        by_name["attention"].setdefault("keys_8192", []).append(
+            {"G": G, "N": N, "M": M, "D": D, "plain_groups": g, "ms": ms, "bound_ms": b_a,
+             "plain_ms": plain, "max_abs_err": err})
+        del q, k, v, do, sub, att
+        torch.cuda.empty_cache()
 
 
 def stress_inputs(n, p0, dev):
@@ -1899,13 +2067,14 @@ def stress_forward(kernels, cfg, model, x1, x2, mode, what):
     from mocopci_torch.ops import set_knn_mode
 
     set_knn_mode(mode)
-    calls = []
+    calls, long_keys = [], {}
     kernels.reset_launches()
-    with capturing_fps(calls):
+    with capturing_fps(calls), counting_long_attention(long_keys):
         out = interpolate(model, x1, x2)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    log(f"{what}: launches per forward: {launches}")
+    log(f"{what}: launches per forward: {launches}; attention launches over more than "
+        f"{LONG_KEYS} keys: {long_keys}")
     if out.shape != (1, cfg.n_frames, cfg.npoints, 3) or not bool(torch.isfinite(out).all()):
         raise SystemExit(f"{what}: output wrong: {tuple(out.shape)}")
     missing = [name for name in STRESS_KERNELS[mode] + STRESS_EXTRA.get(cfg.npoints, ())
@@ -1913,6 +2082,8 @@ def stress_forward(kernels, cfg, model, x1, x2, mode, what):
     if missing or launches["fps"] or launches["fps_pyramid"]:
         raise SystemExit(f"{what}: kernels not launched: {missing}, or FPS on the one-block "
                          f"route: {launches['fps']}, {launches['fps_pyramid']}")
+    if cfg.pyramid[0] > LONG_KEYS and not long_keys.get("attention"):
+        raise SystemExit(f"{what}: no eval attention over more than {LONG_KEYS} keys")
     return launches, out, calls
 
 
@@ -2072,6 +2243,111 @@ def run_train(kernels, cfg, dev):
                       "loss": [a["loss"] for a in auxes], **busy}
 
 
+STRESS_TRAIN_STEPS = 4
+# the train kernels of the stress step: above 8192 points FPS takes its
+# cluster routes; at 32768 cross3's cost-volume tail (L3's 1024 queries, C =
+# C2 = 256) takes its wide routes both ways
+STRESS_TRAIN_KERNELS = tuple(f"{name}_cluster" if name.startswith("fps") else name
+                             for name in TRAIN_KERNELS)
+STRESS_TRAIN_EXTRA = {32768: ("cross_tail_wide", "cross_tail_bwd_wide")}
+# the argument that holds M, the keys, in each attention entry's C call
+ATTENTION_KEYS_ARG = {"attention": 6, "attention_wide": 6, "attention_train_fwd": 7,
+                      "attention_train_fwd_wide": 7, "attention_train_bwd": 12,
+                      "attention_train_bwd_wide": 12}
+LONG_KEYS = 4096
+
+
+class counting_long_attention:
+    """Within: each attention launch over more than ``LONG_KEYS`` keys counted
+    in ``counts`` by entry."""
+
+    def __init__(self, counts):
+        self.counts = counts
+
+    def __enter__(self):
+        lib = importlib.import_module("mocopci_torch.kernels._lib")
+        launch = self.saved = lib.launch
+
+        def spied(name, *args):
+            launch(name, *args)
+            if name in ATTENTION_KEYS_ARG and args[ATTENTION_KEYS_ARG[name]] > LONG_KEYS:
+                self.counts[name] = self.counts.get(name, 0) + 1
+        lib.launch = spied
+        return self
+
+    def __exit__(self, *exc):
+        importlib.import_module("mocopci_torch.kernels._lib").launch = self.saved
+
+
+def run_stress_train(kernels, n, dev):
+    """``create_train_state`` at ``stress_model_config(n)``, ``TrainConfig(
+    batch_size=1)``, seed 0, then STRESS_TRAIN_STEPS train steps at B=1 on
+    synthetic pairs of n points, approx kNN, dropout on (path
+    ``stress_train_<n>``): finite losses, every train kernel launched (FPS on
+    its cluster routes), the attention launches over more than 4096 keys,
+    the median step time of the last 3 (host clock, synchronized), peak
+    memory; then one profiled step (busy share, each FPS launch, the top
+    device ops)."""
+    from mocopci_torch import ops, stress_model_config
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.data import SyntheticInterpolationDataset, batches
+    from mocopci_torch.training import create_train_state, train_step
+
+    what = f"stress train {n}"
+    ops.set_knn_mode("approx")
+    cfg, tcfg = stress_model_config(n), TrainConfig(batch_size=1)
+    data = SyntheticInterpolationDataset(length=STRESS_TRAIN_STEPS, num_points=n, seed=2)
+    steps = list(batches(data, 1, shuffle=False))
+    model, state = create_train_state(cfg, tcfg, steps_per_epoch=len(steps), device=dev)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    long_keys, times, auxes = {}, [], []
+    with counting_long_attention(long_keys):
+        for batch in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, aux = train_step(state, batch, rng)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            auxes.append({k: float(v) for k, v in aux.items()})
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"{what}: launches per {len(steps)} steps: {launches}")
+    log(f"{what}: attention launches over more than {LONG_KEYS} keys: {long_keys}")
+    for i, aux in enumerate(auxes):
+        log(f"{what}: step {i} " + json.dumps({k: round(v, 6) for k, v in aux.items()}))
+    bad = [i for i, aux in enumerate(auxes) if not all(np.isfinite(v) for v in aux.values())]
+    if bad:
+        raise SystemExit(f"{what}: loss not finite at steps {bad}")
+    missing = [name for name in STRESS_TRAIN_KERNELS + STRESS_TRAIN_EXTRA.get(n, ())
+               if launches[name] == 0]
+    if missing or launches["fps"] or launches["fps_pyramid"]:
+        raise SystemExit(f"{what}: kernels not launched: {missing}, or FPS on the one-block "
+                         f"route: {launches['fps']}, {launches['fps_pyramid']}")
+    if cfg.pyramid[0] > LONG_KEYS and not (long_keys.get("attention_train_fwd")
+                                           and long_keys.get("attention_train_bwd")):
+        raise SystemExit(f"{what}: no train attention over more than {LONG_KEYS} keys")
+    step_ms = float(np.median(times[1:]))
+    log(f"{what}: stress_model_config({n}) B=1 step median {step_ms:.3f} ms over the last "
+        f"{len(times) - 1} (first {times[0]:.1f} ms, all {', '.join(f'{t:.3f}' for t in times)}"
+        f"), peak memory {peak:.1f} MiB; {card_line()}")
+    busy = profile_fps_calls(lambda: train_step(state, steps[0], rng), f"{what} step")
+    if "profile_device_ms" in busy:
+        busy["busy_ms"] = (busy["profile_device_ms"] - busy["fps_traced_ms"]
+                           + busy["fps_device_ms"])
+        log(f"{what} step: {busy['busy_ms']:.3f} device ms busy with the FPS launches the "
+            f"trace lost ({100 * busy['busy_ms'] / busy['profile_wall_ms']:.1f}% of the "
+            f"profiled wall)")
+    del model, state
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "step_ms_all": times, "peak_mib": peak,
+                      "loss": [a["loss"] for a in auxes], "long_key_launches": long_keys,
+                      **busy}
+
+
 def call_bound(kind, B, N, M, C, k=0, wide=False) -> float:
     """bound_ms of one call of the step or forward, counted as the kernel rows
     count it: the train attention forward ("fwd", 4 C + 3 flops a pair at
@@ -2136,14 +2412,27 @@ def chamfer_floor(G, N, M) -> float:
     return G * N * M * CHAMFER_ISSUE / (132 * 4 * 32 * 1.98e9) * 1e3
 
 
-def tail_bound(B, M, N, K, C, C2, argmax=False) -> float:
+def tail_bound(B, M, N, K, C, C2, argmax=False, bwd=False) -> float:
     """bound_ms of one cost-volume tail forward, counted as its kernel row
     counts it: the table, base, W, b and idx read once, out (and the argmax,
     a byte an entry for K <= 255) written once; 2 C C2 + 2 C + 3 C2 f32
-    flops a pair."""
+    flops a pair.  With ``bwd``, of one backward (``cross_bwd_work``)."""
+    if bwd:
+        return bound(*cross_bwd_work(B, M, N, K, C, C2))[0]
     nbytes = ((B * M * C + B * N * C + C * C2 + C2 + B * N * C2) * F32 + B * N * K * I32
               + (B * N * C2 * (1 if K <= 255 else 4) if argmax else 0))
     return bound(nbytes, B * N * K * (2.0 * C * C2 + 2 * C + 3 * C2))[0]
+
+
+def cross_bwd_work(B, M, N, K, C, C2):
+    """(bytes, f32 flops) of one cost-volume tail backward from the saved
+    argmax, as the ``cross_tail_bwd`` row counts them: the table, base, W,
+    out, dout, idx and the argmax (a byte an entry for K <= 255) read once,
+    d_rows, d_base, dW and db written once; gv W into one row a channel and
+    dW (4 C C2 a query) and leaky' of every row (3 K C a query)."""
+    nbytes = ((B * M * C + 2 * B * N * C + 2 * C * C2 + C2 + 2 * B * N * C2 + B * N * K * C)
+              * F32 + B * N * K * I32 + B * N * C2 * (1 if K <= 255 else 4))
+    return nbytes, B * N * (4.0 * C * C2 + 3 * K * C)
 
 
 class recording:
@@ -2546,6 +2835,7 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                                                    "(both routes)",
                   "attention_train_bwd_wide_kernel": "attention_train_bwd_wide",
                   "cross_tail_bwd_kernel": "cross_tail_bwd",
+                  "cross_tail_bwd_wide_": "cross_tail_bwd_wide",   # its transpose and sum too
                   "transformer_tail_bwd_kernel": "transformer_tail_bwd",
                   "transformer_tail_bwd_general_kernel": "transformer_tail_bwd_general",
                   "fusion_pair_planes_kernel": "fusion_pair_planes",
@@ -2655,6 +2945,9 @@ def main() -> int:
         stress_paths, stats[f"stress_{n}"] = run_stress(kernels, n, dev, p0)
         paths.update(stress_paths)
     paths["train"], stats["train"] = run_train(kernels, cfg, dev)
+    for n in STRESS_SIZES:
+        paths[f"stress_train_{n}"], stats[f"stress_train_{n}"] = run_stress_train(kernels, n,
+                                                                                  dev)
     stats["train_parity"] = run_train_parity(kernels, dev)
     paths["train_refine_k8"], stats["train_refine_k8"] = run_train_refine_k(kernels, dev)
     stats["train_cli"] = run_train_cli(kernels)
@@ -2668,7 +2961,8 @@ def main() -> int:
             "transformer_tail_bwd_general": ("train_refine_k8", "transformer_tail_bwd_general"),
             "fps_cluster": ("stress_32768", "fps_cluster"),
             "fps_pyramid_cluster": ("stress_32768", "fps_pyramid_cluster"),
-            "cross_tail_wide": ("stress_32768", "cross_tail_wide")}
+            "cross_tail_wide": ("stress_32768", "cross_tail_wide"),
+            "cross_tail_bwd_wide": ("stress_train_32768", "cross_tail_bwd_wide")}
     home.update({name: ("ops", name) for name in OPS_KERNELS if name != "chamfer_pair"})
     home.update({name: ("train", name) for name in TRAIN_KERNELS
                  if name.endswith(("_bwd", "_fwd", "_wide")) or name in ("scatter_add",

@@ -2,7 +2,8 @@
 // attentions (EI cross-attention, Cross_Frame_Att, Multi_Frame_Att).
 //
 // Replaces mocopci_tpu/ops/pallas/attention.py: fused_attention_pallas (:60,
-// pallas_call :88), over M <= 4096 keys.
+// pallas_call :88), over M <= 16384 keys (the wrapper's cap; no dropout
+// counter bounds it).
 //
 // Bound on the H100: operations (4*N*M*D flops against (N + M)*D*4 bytes per
 // group).  Design: the training attention's forward without its dropout and
@@ -59,7 +60,7 @@ cudaError_t launch_eval(const float* q, const float* k, const float* v, float* o
 }  // namespace
 
 // q (G, N, D), k/v (G, M, D) f32 -> out (G, N, D) for 1 <= D <= 64, in one
-// pass over M <= 4096 keys.
+// pass over M <= 16384 keys.
 MOCOPCI_API int mocopci_attention(const float* q, const float* k, const float* v, float* out,
                                   int G, int N, int M, int D, float scale, void* stream) {
   if (D < 1 || D > kMaxFwdD) return cudaErrorInvalidValue;
@@ -72,7 +73,7 @@ MOCOPCI_API int mocopci_attention(const float* q, const float* k, const float* v
   }
 }
 
-// The same for D > 64, on the tensor cores (M <= 4096).
+// The same for D > 64, on the tensor cores (M <= 16384).
 MOCOPCI_API int mocopci_attention_wide(const float* q, const float* k, const float* v,
                                        float* out, int G, int N, int M, int D, float scale,
                                        void* stream) {

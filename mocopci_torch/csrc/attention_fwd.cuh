@@ -1,12 +1,13 @@
 // The softmax attention forward's two bodies, shared by the eval attention
 // (csrc/attention.cu) and the training attention (csrc/attention_train.cu):
-// out = (softmax(q k^T * scale) * keep) v in f32 over M <= 4096 keys, in one
-// pass over the keys, streamed through shared memory under an online softmax
-// in log2 units.  Each file wraps them in __global__ kernels of its own name,
-// so a profile tells the two apart.  Template flags: DROP applies the dropout
-// keep factor (the hash of (seed, g, row, col), attention_train.cu's header),
-// LSE writes each row's log-sum-exp for the backward.  The eval kernels set
-// neither and pass kscale = 1: out = acc * (1 / den).
+// out = (softmax(q k^T * scale) * keep) v in f32 over M keys (the wrappers
+// cap M at 16384), in one pass over the keys, streamed through shared memory
+// under an online softmax in log2 units.  Each file wraps them in __global__
+// kernels of its own name, so a profile tells the two apart.  Template
+// flags: DROP applies the dropout keep factor (the hash of (seed, g, row,
+// col), attention_train.cu's header), LSE writes each row's log-sum-exp for
+// the backward.  The eval kernels set neither and pass kscale = 1: out = acc
+// * (1 / den).
 #pragma once
 
 #include <stdint.h>
@@ -33,6 +34,17 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
+}
+
+// The dropout counter's row shift: pair (row, col) hashes (row << s) ^ col
+// with s = max(12, ceil(log2 M)), so a column never reaches the row's bits
+// and the counter is unique while N <= 2^(32 - s).  Up to 4096 keys s = 12,
+// the TPU kernel's counter bit for bit (mocopci_tpu/ops/pallas/
+// attention_train.py:48-58); past 4096 the port's own.
+__device__ __forceinline__ int row_shift(int M) {
+  int s = 12;
+  while (s < 31 && (1 << s) < M) ++s;
+  return s;
 }
 
 // An A fragment from (hi, lo) pairs a0..a3 in the fragment's order.
@@ -128,10 +140,10 @@ __device__ __forceinline__ void attention_fwd_body(
   const int g = blockIdx.y;
   const int i = blockIdx.x * (blockDim.x / (LPK * KS)) + tid / (LPK * KS);
   const bool row_ok = i < N;
-  // the hash of pair (i, j) is fmix32(rg ^ j), rg = (i << 12) ^ fmix32(g ^ seed)
+  // the hash of pair (i, j) is fmix32(rg ^ j), rg = (i << row_shift(M)) ^ fmix32(g ^ seed)
   uint32_t rg = 0u;
   if (DROP)
-    rg = (static_cast<uint32_t>(i) << 12) ^
+    rg = (static_cast<uint32_t>(i) << row_shift(M)) ^
          fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
   const size_t gk = static_cast<size_t>(g) * M * D;
   const float* kg = k + gk;
@@ -354,7 +366,7 @@ __device__ __forceinline__ void attention_fwd_wide_body(
   const int mh = warp >> 2, kq = warp & 3;
   // the softmax: row sr, keys sl + 8 j
   const int sr = tid >> 3, sl = tid & 7;
-  const uint32_t rg = DROP ? (static_cast<uint32_t>(i0 + sr) << 12) ^ gseed : 0u;
+  const uint32_t rg = DROP ? (static_cast<uint32_t>(i0 + sr) << row_shift(M)) ^ gseed : 0u;
 
   stage_y<kYQ, kYC>(qg, i0, N, D, 0, stg, kYLd);
   stage_y<kYK, kYC>(kg, 0, M, D, 0, stg + kYQ * kYLd, kYLd);

@@ -4,9 +4,13 @@
 //
 // Replaces mocopci_tpu/ops/pallas/attention_train.py: attention_train (:160),
 // forward pallas_call :181 and backward pallas_call :206.  The keep factor is
-// the TPU kernel's _keep_mask (:46-64) bit for bit: h = fmix32(((row << 12) ^
-// col) ^ fmix32(g ^ seed)) in uint32 (murmur3's finaliser), kept where the low
-// 24 bits, as int32, are >= int32(rate * 2^24), scaled by f32(1 / (1 - rate)).
+// h = fmix32(((row << s) ^ col) ^ fmix32(g ^ seed)) in uint32 (murmur3's
+// finaliser), kept where the low 24 bits, as int32, are >= int32(rate *
+// 2^24), scaled by f32(1 / (1 - rate)); s = row_shift(M) = max(12,
+// ceil(log2 M)) (attention_fwd.cuh).  Up to 4096 keys s = 12 and h is the TPU
+// kernel's _keep_mask (:46-64) bit for bit; past 4096 keys, where the TPU's
+// counter would alias (its JAX module takes an XLA path there), the shift
+// grows with M so that every pair keeps a counter of its own.
 //
 // Bound on the H100: operations (4*N*M*D flops forward, about 10*N*M*D
 // backward, against (N + M)*D*4 bytes per group).  Design:
@@ -29,10 +33,10 @@
 
 namespace {
 
-// gseed = fmix32(g ^ seed)
-__device__ __forceinline__ float keep_factor(uint32_t gseed, int row, int col, int thr,
+// gseed = fmix32(g ^ seed), sh = row_shift(M)
+__device__ __forceinline__ float keep_factor(uint32_t gseed, int sh, int row, int col, int thr,
                                              float kscale) {
-  const uint32_t ctr = (static_cast<uint32_t>(row) << 12) ^ static_cast<uint32_t>(col);
+  const uint32_t ctr = (static_cast<uint32_t>(row) << sh) ^ static_cast<uint32_t>(col);
   const uint32_t h = fmix32(ctr ^ gseed);
   return static_cast<int>(h & 0xFFFFFFu) >= thr ? kscale : 0.f;
 }
@@ -216,6 +220,7 @@ __global__ void __launch_bounds__(kBwdThreads) attention_train_bwd_kernel(
   const int jg = kt * TK + j;
   const bool key_ok = jg < M;
   const float c2 = scale * kLog2e;                // P = 2^(c2 l - log2(e) lse)
+  const int sh = row_shift(M);
   uint32_t gseed = 0u;
   if (DROP) gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
   const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
@@ -285,7 +290,7 @@ __global__ void __launch_bounds__(kBwdThreads) attention_train_bwd_kernel(
       const float P = key_ok ? exp2f(fmaf(lo, c2, -lb[i] * kLog2e)) : 0.f;
       float pd = P, dsv;
       if (DROP) {
-        const float kf = keep_factor(gseed, i0 + i, jg, thr, kscale);
+        const float kf = keep_factor(gseed, sh, i0 + i, jg, thr, kscale);
         pd = P * kf;
         dsv = P * (da * kf - tb[i]);
       } else {
@@ -509,6 +514,7 @@ __global__ void __launch_bounds__(kWThreads, 1) attention_train_bwd_wide_kernel(
   const int kt = blockIdx.x, g = blockIdx.y;
   const int j0 = kt * kWKeys, d0 = blockIdx.z * kWD, W = min(kWD, D - d0);
   const float c2 = scale * kLog2e;
+  const int sh = row_shift(M);
   uint32_t gseed = 0u;
   if (DROP) gseed = fmix32(static_cast<uint32_t>(g) ^ static_cast<uint32_t>(*seed));
   const size_t gq = static_cast<size_t>(g) * N * D, gk = static_cast<size_t>(g) * M * D;
@@ -623,7 +629,7 @@ __global__ void __launch_bounds__(kWThreads, 1) attention_train_bwd_wide_kernel(
       const float P = ig < N && jg < M ? exp2f(fmaf(S, c2, -lb[i] * kLog2e)) : 0.f;
       float pd = P, dsv;
       if (DROP) {
-        const float kf = keep_factor(gseed, ig, jg, thr, kscale);
+        const float kf = keep_factor(gseed, sh, ig, jg, thr, kscale);
         pd = P * kf;
         dsv = P * (dP * kf - tb[i]);
       } else {
@@ -725,7 +731,7 @@ cudaError_t launch_bwd_wide(const float* q, const float* k, const float* v, cons
 }  // namespace
 
 // q (G, N, D), k/v (G, M, D) -> out (G, N, D), lse (G, N) for D <= 64, in one
-// pass over the keys; M <= 4096; seed: one int32 in device memory (the
+// pass over the keys (M <= 16384); seed: one int32 in device memory (the
 // caller's random draw stays on the card).  thr = int32(rate * 2^24), kscale
 // = f32(1 / (1 - rate)); rate 0 (thr 0, kscale 1) takes the kernel without
 // the keep factor.
@@ -744,7 +750,7 @@ MOCOPCI_API int mocopci_attention_train_fwd(const float* q, const float* k, cons
 }
 
 // The wide route, D > 64: the same outputs for any D <= 2048, in one pass
-// over the keys on the tensor cores (M <= 4096).  Rate 0 (thr 0, kscale 1)
+// over the keys on the tensor cores (M <= 16384).  Rate 0 (thr 0, kscale 1)
 // takes the kernel without the keep factor.
 MOCOPCI_API int mocopci_attention_train_fwd_wide(const float* q, const float* k, const float* v,
                                                  float* out, float* lse, int G, int N, int M,

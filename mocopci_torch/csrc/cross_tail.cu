@@ -57,6 +57,27 @@
 // ascending, in shared memory, then writes its column of d_rows (zeros where a row won no
 // channel) and d_base; the block's dW and db are summed per entry in query
 // order, and the per-block partials in block order (deterministic).
+//
+// The backward's wide route (cross_tail_bwd_wide) takes the tails whose
+// tiled footprint (W and dW transposed, a query's rows and their gradient)
+// passes a block's shared memory: C = C2 = 256 at cross3 of a 32768-point
+// cloud, about 594 KB.  A fixed grid of blocks walks groups of kBQ queries
+// (group u = blockIdx.x + i*gridDim.x), a thread a channel c:
+//   gv = dout * leaky'(pre1 at j*) and j* of the group's outputs go to
+//     shared memory;
+//   c2 ascending, dx[q][j*(q, c2)][c] = fmaf(gv[q][c2], W[c, c2], dx) for
+//     the group's queries, W read once a group from a transposed copy in
+//     global memory (L2-resident, coalesced over c): the tiled kernel's
+//     chain, so its d_rows and d_base bit for bit;
+//   row j ascending, p = row + base (the row read from the table), d = dx *
+//     leaky'(p) into d_rows and d_base, and x0 = leaky(p) in dx's place;
+//   dW[c, c2] += x0[q][j*(q, c2)][c] gv[q][c2] over the group's queries in
+//     order, db[c2] += gv[q][c2], into the block's partial (dW transposed),
+//     which stays in global memory across its groups, each entry read and
+//     written by one thread.
+// The partials are summed in block order (deterministic), dW transposed
+// back on the way.  Shared memory: the group's x, kBQ * K * C floats (128 KB
+// at K = 32, C = 256), and its gv and j*.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -496,6 +517,144 @@ __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
   for (int e = tid; e < C2; e += kThreads) pb[C * C2 + e] = db[e];
 }
 
+constexpr int kBQ = 4;                  // the wide backward's queries a group
+constexpr int kBWThreads = 256;
+
+__host__ __device__ inline size_t bwd_wide_smem_floats(int K, int C, int C2) {
+  return static_cast<size_t>(kBQ) * (static_cast<size_t>(K) * C + 2 * C2);
+}
+
+// wt[c2 * C + c] = w[c * C2 + c2]
+__global__ void __launch_bounds__(256) cross_tail_bwd_wide_transpose_kernel(
+    const float* __restrict__ w, float* __restrict__ wt, int C, int C2) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= C * C2) return;
+  const int c2 = e / C, c = e - c2 * C;
+  wt[e] = w[static_cast<size_t>(c) * C2 + c2];
+}
+
+template <typename IdxT>
+__global__ void __launch_bounds__(kBWThreads) cross_tail_bwd_wide_kernel(
+    const float* __restrict__ tab, const int* __restrict__ idx,
+    const float* __restrict__ base, const float* __restrict__ wt,
+    const float* __restrict__ out, const IdxT* __restrict__ amax,
+    const float* __restrict__ dout, float* __restrict__ d_rows, float* __restrict__ d_base,
+    float* __restrict__ partial, int BN, int M, int N, int K, int C, int C2) {
+  extern __shared__ float sm[];
+  float* xs = sm;                                   // [kBQ][K][C] dx, then x0
+  float* gv = xs + kBQ * K * C;                     // [kBQ][C2] dout * leaky'(pre1 at j*)
+  int* js = reinterpret_cast<int*>(gv + kBQ * C2);  // [kBQ][C2] j*
+  const int tid = threadIdx.x;
+  float* pb = partial + static_cast<size_t>(blockIdx.x) * (static_cast<size_t>(C) * C2 + C2);
+  const int ngroups = (BN + kBQ - 1) / kBQ;
+  for (int u = blockIdx.x; u < ngroups; u += gridDim.x) {
+    const int q0 = u * kBQ, nq = min(kBQ, BN - q0);
+    const bool first = u == static_cast<int>(blockIdx.x);
+    __syncthreads();                  // the last group's readers are done
+    for (int e = tid; e < nq * C2; e += kBWThreads) {
+      const size_t o = static_cast<size_t>(q0) * C2 + e;
+      gv[e] = out[o] >= 0.f ? dout[o] : 0.1f * dout[o];
+      js[e] = static_cast<int>(amax[o]);
+    }
+    for (int e = tid; e < nq * K * C; e += kBWThreads) xs[e] = 0.f;
+    __syncthreads();
+    // dx: each output channel's gradient lands on its one row j*, c2 ascending
+    for (int c = tid; c < C; c += kBWThreads) {
+      int c2 = 0;
+      for (; c2 + 8 <= C2; c2 += 8) {     // 8 of W's entries in flight, then their chains
+        float wv[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) wv[e] = __ldg(wt + static_cast<size_t>(c2 + e) * C + c);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          for (int q = 0; q < nq; ++q) {
+            float* t = xs + (q * K + js[q * C2 + c2 + e]) * C + c;
+            *t = fmaf(gv[q * C2 + c2 + e], wv[e], *t);
+          }
+      }
+      for (; c2 < C2; ++c2) {
+        const float wv = __ldg(wt + static_cast<size_t>(c2) * C + c);
+        for (int q = 0; q < nq; ++q) {
+          float* t = xs + (q * K + js[q * C2 + c2]) * C + c;
+          *t = fmaf(gv[q * C2 + c2], wv, *t);
+        }
+      }
+      for (int q = 0; q < nq; ++q) {
+        const int n = q0 + q;
+        const int* iq = idx + static_cast<size_t>(n) * K;
+        const float* tb = tab + static_cast<size_t>(n / N) * M * C + c;
+        const float bb = base[static_cast<size_t>(n) * C + c];
+        float* dr = d_rows + static_cast<size_t>(n) * K * C + c;
+        float* xq = xs + q * K * C + c;
+        float s = 0.f;
+        for (int j = 0; j < K; ++j) {
+          const float p = tb[static_cast<size_t>(iq[j]) * C] + bb;
+          const float d = xq[j * C] * mocopci::dleaky(p);
+          xq[j * C] = mocopci::leaky(p);
+          dr[static_cast<size_t>(j) * C] = d;
+          s += d;
+        }
+        d_base[static_cast<size_t>(n) * C + c] = s;
+      }
+    }
+    __syncthreads();                  // x0 of the group is complete
+    // dW[c, c2] (transposed: pb[c2 * C + c]) over the group's queries in order
+    for (int c = tid; c < C; c += kBWThreads) {
+      for (int c2 = 0; c2 < C2; ++c2) {
+        float acc = first ? 0.f : pb[static_cast<size_t>(c2) * C + c];
+        for (int q = 0; q < nq; ++q)
+          acc = fmaf(xs[(q * K + js[q * C2 + c2]) * C + c], gv[q * C2 + c2], acc);
+        pb[static_cast<size_t>(c2) * C + c] = acc;
+      }
+    }
+    for (int c2 = tid; c2 < C2; c2 += kBWThreads) {
+      float acc = first ? 0.f : pb[static_cast<size_t>(C) * C2 + c2];
+      for (int q = 0; q < nq; ++q) acc += gv[q * C2 + c2];
+      pb[static_cast<size_t>(C) * C2 + c2] = acc;
+    }
+  }
+}
+
+// dwb = [dW (C, C2) | db (C2)] = the sum of the nblk partials in block order,
+// each partial [dW transposed (C2, C) | db (C2)]
+__global__ void __launch_bounds__(256) cross_tail_bwd_wide_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ dwb, int nblk, int C, int C2) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;   // e = c2 * C + c, then db
+  const size_t E = static_cast<size_t>(C) * C2 + C2;
+  if (e >= static_cast<int>(E)) return;
+  float acc = 0.f;
+  for (int b = 0; b < nblk; ++b) acc += partial[static_cast<size_t>(b) * E + e];
+  if (e < C * C2) {
+    const int c2 = e / C, c = e - c2 * C;
+    dwb[static_cast<size_t>(c) * C2 + c2] = acc;
+  } else {
+    dwb[e] = acc;
+  }
+}
+
+template <typename IdxT>
+cudaError_t run_bwd_wide(const float* tab, const int* idx, const float* base, const float* w,
+                         const float* out, const void* amax, const float* dout, float* d_rows,
+                         float* d_base, float* dwb, float* work, int B, int M, int N, int K,
+                         int C, int C2, int nblk, cudaStream_t st) {
+  const size_t smem = bwd_wide_smem_floats(K, C, C2) * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = mocopci::allow_smem(cross_tail_bwd_wide_kernel<IdxT>, smem);
+  if (err != cudaSuccess) return err;
+  float* wt = work;
+  float* partial = work + static_cast<size_t>(C) * C2;
+  cross_tail_bwd_wide_transpose_kernel<<<mocopci::ceil_div(C * C2, 256), 256, 0, st>>>(w, wt, C,
+                                                                                        C2);
+  MOCOPCI_CHECK_LAUNCH();
+  cross_tail_bwd_wide_kernel<IdxT><<<nblk, kBWThreads, smem, st>>>(
+      tab, idx, base, wt, out, static_cast<const IdxT*>(amax), dout, d_rows, d_base, partial,
+      B * N, M, N, K, C, C2);
+  MOCOPCI_CHECK_LAUNCH();
+  cross_tail_bwd_wide_reduce_kernel<<<mocopci::ceil_div(C * C2 + C2, 256), 256, 0, st>>>(
+      partial, dwb, nblk, C, C2);
+  return cudaGetLastError();
+}
+
 template <typename IdxT, bool kArg>
 cudaError_t run_fwd(const float* tab, const int* idx, const float* base, const float* w,
                     const float* b, float* out, void* amax, int B, int M, int N, int K, int C,
@@ -586,4 +745,23 @@ MOCOPCI_API int mocopci_cross_tail_bwd(const float* tab, const int* idx, const f
                               N, K, C, C2, nblk, st);
   if (err != cudaSuccess) return err;
   return mocopci::reduce_partials(partial, dwb, nblk, C * C2 + C2, st);
+}
+
+// The backward's wide route (C = C2 = 256 at cross3 of a 32768-point cloud):
+// the same outputs as mocopci_cross_tail_bwd, d_rows and d_base bit for bit.
+// work: C * C2 + nblk * (C * C2 + C2) floats of scratch (W transposed, then
+// the block partials); nblk blocks walk groups of 4 queries (at most
+// ceil(B * N / 4) blocks, so that each writes its partial), reduced in
+// block order.
+MOCOPCI_API int mocopci_cross_tail_bwd_wide(const float* tab, const int* idx, const float* base,
+                                            const float* w, const float* out, const void* amax,
+                                            const float* dout, float* d_rows, float* d_base,
+                                            float* dwb, float* work, int B, int M, int N, int K,
+                                            int C, int C2, int nblk, void* stream) {
+  if (nblk < 1 || nblk > mocopci::ceil_div(B * N, kBQ)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return K <= 255 ? run_bwd_wide<uint8_t>(tab, idx, base, w, out, amax, dout, d_rows, d_base,
+                                          dwb, work, B, M, N, K, C, C2, nblk, st)
+                  : run_bwd_wide<int>(tab, idx, base, w, out, amax, dout, d_rows, d_base, dwb,
+                                      work, B, M, N, K, C, C2, nblk, st);
 }

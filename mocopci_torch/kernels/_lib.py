@@ -54,6 +54,7 @@ SIGNATURES = {
     "attention_train_bwd": [_P] * 10 + [_I] * 4 + [_F, _P, _I, _F, _P],
     "attention_train_bwd_wide": [_P] * 10 + [_I] * 4 + [_F, _P, _I, _F, _P],
     "cross_tail_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    "cross_tail_bwd_wide": [_P] * 11 + [_I] * 7 + [_P],
     "transformer_tail_bwd": [_P] * 18 + [_I] * 6 + [_P],
     "transformer_tail_bwd_general": [_P] * 18 + [_I] * 6 + [_P],
     "fusion_pair_planes": [_P] * 4 + [_I] * 4 + [_P],

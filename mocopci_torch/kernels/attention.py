@@ -1,12 +1,14 @@
 """Softmax attention: CUDA kernels ``csrc/attention.cu`` and their plain twin.
 
 Replaces ``mocopci_tpu/ops/pallas/attention.py``: ``fused_attention_pallas``
-(:60).  f32 softmax over at most ``MAX_SEQ`` keys, in one pass over the keys
-under an online softmax (the training attention's forward bodies without
-dropout or log-sum-exp).  Two routes, each its own counted entry point,
-picked by the head dim D alone: ``attention`` up to ``MAX_ONE_PASS_D`` (FMAs),
-``attention_wide`` above (the products on the tensor cores at float32
-grade).  Operations bound both.
+(:60).  f32 softmax over at most ``MAX_SEQ`` keys (the Pallas kernel's 4096,
+lifted to the training attention's cap: with no dropout no counter bounds
+it), in one pass over the keys under an online softmax (the training
+attention's forward bodies without dropout or log-sum-exp).  Two routes,
+each its own counted entry point, picked by the head dim D alone:
+``attention`` up to ``MAX_ONE_PASS_D`` (FMAs), ``attention_wide`` above
+(the products on the tensor cores at float32 grade).  Operations bound
+both.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from mocopci_torch.kernels import _lib
 SOURCE = "mocopci_torch/csrc/attention.cu"
 REPLACES = "mocopci_tpu/ops/pallas/attention.py:60"
 
-MAX_SEQ = 4096
+MAX_SEQ = 16384     # as kernels/attention_train.py MAX_SEQ
 MAX_ONE_PASS_D = 64     # the one-pass route's widest head (csrc kMaxFwdD)
 
 

@@ -1,22 +1,26 @@
 """Training attention with dropout: CUDA ``csrc/attention_train.cu`` and its twin.
 
 Replaces ``mocopci_tpu/ops/pallas/attention_train.py``: ``attention_train``
-(:160), forward (:181) and backward (:206).  The dropout mask is the TPU
-kernel's counter hash (``_keep_mask`` :46-64), a pure function of (seed,
-group, row, column), rebuilt bit for bit by the forward kernel, the backward
-kernel and the twin; the twin computes it in int64 masked to 32 bits, as
-PyTorch has little uint32 arithmetic.  Operations bound it.
+(:160), forward (:181) and backward (:206).  The dropout mask is a counter
+hash, a pure function of (seed, group, row, column), rebuilt bit for bit by
+the forward kernel, the backward kernel and the twin; the twin computes it
+in int64 masked to 32 bits, as PyTorch has little uint32 arithmetic.  The
+counter of pair (row, col) is ``(row << s) ^ col`` with ``s =
+row_shift(M)``, max(12, ceil(log2 M)): up to 4096 keys s = 12 and the mask
+is the TPU kernel's ``_keep_mask`` (:46-64) bit for bit; past 4096 keys
+(where JAX takes its chunked XLA path, whose mask is drawn otherwise) the
+shift grows so that no two pairs share a counter.  Operations bound it.
 
 Each direction has two routes, each its own counted entry point, picked by
 the head dim D alone.  The forward: D <= ``MAX_FWD_D`` takes
 ``attention_train_fwd`` (one pass over the keys, streamed through shared
 memory, with an online softmax), wider heads (the ``CrossFrameBlock``'s D =
-256) ``attention_train_fwd_wide`` (a block per 8 queries, their logit rows
-in shared memory).  The backward, both routes one pass over the pairs (each
-pair computed once) between a dot prologue and a dq epilogue: D <=
-``MAX_BWD_D`` takes ``attention_train_bwd`` (FMAs), wider heads
-``attention_train_bwd_wide`` (the five products on the tensor cores at
-float32 grade).  Both routes of a direction return the same (out, lse) or
+256) ``attention_train_fwd_wide`` (one pass over tiles of 64 keys, both
+products on ``mma.sync`` at float32 grade).  The backward, both routes one
+pass over the pairs (each pair computed once) between a dot prologue and a
+dq epilogue: D <= ``MAX_BWD_D`` takes ``attention_train_bwd`` (FMAs), wider
+heads ``attention_train_bwd_wide`` (the five products on the tensor cores
+at float32 grade).  Both routes of a direction return the same (out, lse) or
 (dq, dk, dv).
 """
 from __future__ import annotations
@@ -30,7 +34,8 @@ SOURCE = "mocopci_torch/csrc/attention_train.cu"
 REPLACES = "mocopci_tpu/ops/pallas/attention_train.py:181"      # forward pallas_call
 REPLACES_BWD = "mocopci_tpu/ops/pallas/attention_train.py:206"  # backward pallas_call
 
-MAX_SEQ = 4096
+# keys a call takes: the counter's shift is 14 there, unique up to 2^18 queries
+MAX_SEQ = 16384
 MAX_D = 2048
 MAX_FWD_D = 64      # the one-pass forward's widest head (csrc kMaxFwdD)
 MAX_BWD_D = 64      # the one-pass backward's widest head (csrc kMaxBwdD)
@@ -60,15 +65,26 @@ def dropout_constants(rate: float):
     return int(np.int32(rate * (1 << 24))), float(np.float32(1.0 / (1.0 - rate)))
 
 
+def row_shift(M: int) -> int:
+    """The counter's row shift for M keys, max(12, ceil(log2 M)) (csrc
+    ``row_shift``): 12, the TPU kernel's, up to 4096 keys."""
+    return max(12, (M - 1).bit_length())
+
+
+def dropout_counter(N: int, M: int, device=None) -> torch.Tensor:
+    """(N, M) int64 counters ``(row << row_shift(M)) ^ col``, unique while
+    N <= 2^(32 - row_shift(M))."""
+    rows = torch.arange(N, dtype=torch.int64, device=device)[:, None] << row_shift(M)
+    return rows ^ torch.arange(M, dtype=torch.int64, device=device)[None, :]
+
+
 def keep_mask_plain(seed: int, G: int, N: int, M: int, rate: float,
                     device=None) -> torch.Tensor:
     """(G, N, M) f32 keep factors: 1/(1-rate) where kept, 0 where dropped."""
     thr, kscale = dropout_constants(rate)
     g = torch.arange(G, dtype=torch.int64, device=device)
     gseed = _fmix32(g ^ (int(seed) & _M32))                       # (G,)
-    rows = torch.arange(N, dtype=torch.int64, device=device)[:, None] << 12
-    cols = torch.arange(M, dtype=torch.int64, device=device)[None, :]
-    h = _fmix32((rows ^ cols)[None] ^ gseed[:, None, None])
+    h = _fmix32(dropout_counter(N, M, device)[None] ^ gseed[:, None, None])
     keep = (h & 0xFFFFFF) >= thr
     return torch.where(keep, torch.tensor(kscale, device=device),
                        torch.tensor(0.0, device=device))
@@ -98,9 +114,9 @@ def _check(q, k, v):
     if k.shape != (G, M, D) or v.shape != (G, M, D):
         raise ValueError(f"attention_train: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if not 1 <= M <= MAX_SEQ or D > MAX_D:
-        raise ValueError(f"attention_train kernel covers M <= {MAX_SEQ}, D <= {MAX_D}; "
-                         f"got M={M}, D={D}")
+    if not 1 <= M <= MAX_SEQ or D > MAX_D or N > 2 ** (32 - row_shift(M)):
+        raise ValueError(f"attention_train kernel covers M <= {MAX_SEQ}, D <= {MAX_D}, "
+                         f"N <= 2^(32 - row_shift(M)); got N={N}, M={M}, D={D}")
 
 
 def _check_seed(seed, q):

@@ -17,7 +17,13 @@ register-tiled product over chunks of 128 gathered pair rows on a fixed grid
 Where that product's shared memory (W, x transposed, 128 staged rows) does
 not fit, as at cross3 of a 32768-point cloud (C = C2 = 256), the forward
 takes the declared route ``cross_tail_wide`` (:func:`fwd_route`): a block a
-query, the same chains, so the same bits and argmax.
+query, the same chains, so the same bits and argmax.  The backward likewise
+(:func:`bwd_route`): where its tiled footprint (W and dW transposed, a
+query's rows and their gradient) does not fit, ``cross_tail_bwd_wide``
+takes groups of 4 queries a block, W read from a transposed copy in L2 and
+dW summed into per-block partials in global memory; its d_rows and d_base
+are the tiled kernel's bits, its dW and db the same sums in another
+grouping.
 """
 from __future__ import annotations
 
@@ -43,6 +49,10 @@ _FWD_ROWS = 128       # pair rows a chunk (csrc kFRows), in whole row groups of 
 _FWD_COLS = 64        # output channels a pass (csrc kFCols)
 # the wide route's fixed grid, eight blocks of 128 threads per SM
 WIDE_BLOCKS = 1056
+# the wide backward's fixed grid, one block per SM, each walking groups of
+# BWD_WIDE_QUERIES queries (csrc kBQ) and summing its dW / db partial
+BWD_WIDE_BLOCKS = 132
+BWD_WIDE_QUERIES = 4
 
 
 def _tail_pre(rows, base, w, b):
@@ -109,6 +119,12 @@ def _bwd_smem(K, C, C2):
     return (2 * K * C + 2 * C * C2 + C2 + C + 2 * C2) * 4
 
 
+def _bwd_wide_smem(K, C, C2):
+    """The wide backward's shared memory (csrc ``bwd_wide_smem_floats``): a
+    group's rows by C, then its gradients and argmax by C2."""
+    return BWD_WIDE_QUERIES * (K * C + 2 * C2) * 4
+
+
 def _wide_smem(K, C):
     """The wide route's shared memory: x of K rows padded to 8 by C padded
     to 4."""
@@ -126,9 +142,15 @@ def fwd_route(K: int, C: int, C2: int) -> str:
     raise ValueError(f"cross_tail kernel: C={C}, C2={C2}, K={K} exceed shared memory")
 
 
-def _check_bwd_smem(K, C, C2):
-    if _bwd_smem(K, C, C2) > _MAX_SMEM:
-        raise ValueError(f"cross_tail backward: C={C}, C2={C2}, K={K} exceed shared memory")
+def bwd_route(K: int, C: int, C2: int) -> str:
+    """The backward's entry point for (K, C, C2): the tiled ``cross_tail_bwd``
+    where its shared memory fits, else ``cross_tail_bwd_wide``; raises,
+    before any launch, where neither fits."""
+    if _bwd_smem(K, C, C2) <= _MAX_SMEM:
+        return "cross_tail_bwd"
+    if _bwd_wide_smem(K, C, C2) <= _MAX_SMEM:
+        return "cross_tail_bwd_wide"
+    raise ValueError(f"cross_tail backward: C={C}, C2={C2}, K={K} exceed shared memory")
 
 
 def _check(tab, idx, base, w):
@@ -173,7 +195,7 @@ def cross_tail_bwd(tab, idx, base, w, out, argmax, dout):
     """Kernel backward from the forward's ``out`` (its sign gives leaky' at
     the max) and ``argmax``: (d_rows (B, N, K, C), d_base, dw, db)."""
     B, M, N, K, C, C2 = _check(tab, idx, base, w)
-    _check_bwd_smem(K, C, C2)
+    route = bwd_route(K, C, C2)
     _check_argmax(argmax, B, N, K, C2)
     _lib.check_cuda("cross_tail out", out, torch.float32, 3)
     _lib.check_cuda("cross_tail dout", dout, torch.float32, 3)
@@ -183,11 +205,17 @@ def cross_tail_bwd(tab, idx, base, w, out, argmax, dout):
     d_rows = torch.empty((B, N, K, C), dtype=torch.float32, device=dev)
     d_base = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     dwb = torch.empty(C * C2 + C2, dtype=torch.float32, device=dev)
-    nblk = min(BWD_BLOCKS, B * N)     # a block with no tile writes zero partials
-    partial = torch.empty(nblk * (C * C2 + C2), dtype=torch.float32, device=dev)
-    _lib.launch("cross_tail_bwd", tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
+    if route == "cross_tail_bwd":
+        nblk = min(BWD_BLOCKS, B * N)     # a block with no tile writes zero partials
+        work = torch.empty(nblk * (C * C2 + C2), dtype=torch.float32, device=dev)
+    else:
+        # every block takes a group, so every partial is written; W
+        # transposed before the partials
+        nblk = min(BWD_WIDE_BLOCKS, -(-B * N // BWD_WIDE_QUERIES))
+        work = torch.empty(C * C2 + nblk * (C * C2 + C2), dtype=torch.float32, device=dev)
+    _lib.launch(route, tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
                 w.data_ptr(), out.data_ptr(), argmax.data_ptr(), dout.data_ptr(),
-                d_rows.data_ptr(), d_base.data_ptr(), dwb.data_ptr(), partial.data_ptr(),
+                d_rows.data_ptr(), d_base.data_ptr(), dwb.data_ptr(), work.data_ptr(),
                 B, M, N, K, C, C2, nblk, _lib.stream(tab))
     return d_rows, d_base, dwb[:C * C2].view(C, C2), dwb[C * C2:]
 
@@ -201,8 +229,8 @@ class _CrossTail(torch.autograd.Function):
             return cross_tail_plain(tab, idx, base, w, b)
         argmax = None
         if grad:
-            # a backward that cannot run is refused before the forward
-            _check_bwd_smem(idx.shape[2], tab.shape[2], w.shape[1])
+            # a backward that no route can take is refused before the forward
+            bwd_route(idx.shape[2], tab.shape[2], w.shape[1])
             argmax = torch.empty((idx.shape[0], idx.shape[1], w.shape[1]),
                                  dtype=argmax_dtype(idx.shape[2]), device=tab.device)
         out = cross_tail_fwd(tab, idx, base, w, b, argmax)

@@ -6,19 +6,23 @@
   - ``MultiFrameBlock``: the L2/L1 time-token decoder stage against the
     time-reversed token sequence.
 
-Softmax attention with at most ``MAX_SEQ`` keys runs in the ``attention``
-kernel (CUDA) or its twin (CPU); longer sequences use the plain
+Eval softmax attention runs in the ``attention`` kernel on the card up to
+its ``MAX_SEQ`` keys, and in its twin on the CPU up to ``PLAIN_MAX_SEQ``
+(4096, where JAX's Pallas path stops); longer sequences use the plain
 query-chunked form.  In train mode (``train=True``) every attention runs in
-the ``attention_train`` kernel with its backward, as on the TPU, with the
-dropout seed drawn per call from ``rng`` (rate 0 and seed 0 without one);
-train attention over more than ``MAX_SEQ`` keys (JAX's chunked dropout path)
-is not ported.
+the ``attention_train`` kernel with its backward (its twin on the CPU), up
+to its ``MAX_SEQ`` keys, with the dropout seed drawn per call from ``rng``
+(rate 0 and seed 0 without one).  Past 4096 keys JAX trains through its
+chunked XLA path (``_chunked_mha_dropout``), whose mask is drawn by
+``jax.random`` and not by the kernel's counter hash: there the two packages
+agree at rate 0 only.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from mocopci_torch.kernels import _lib
 from mocopci_torch.kernels import attention as attention_kernel
 from mocopci_torch.kernels import attention_train
 from mocopci_torch.kernels.attention import MAX_SEQ
@@ -27,6 +31,16 @@ from mocopci_torch.nn.basic import Dense, EasyMlp, FrameBatchNorm, Mlp, MlpT, dr
 # above this many entries per (batch, frame, head) the long-sequence path
 # chunks the queries
 _DENSE_ATTN_LIMIT = 8 * 1024 * 1024
+# the eval twin's keys on the CPU (the Pallas kernel's MAX_SEQ); above, the
+# plain query-chunked form, as JAX's dense einsum and chunked map
+PLAIN_MAX_SEQ = 4096
+
+
+def _eval_fused(q, M: int) -> bool:
+    """Whether eval attention over M keys takes the ``attention`` entry: the
+    kernel on the card up to ``MAX_SEQ`` keys, its twin on the CPU up to
+    ``PLAIN_MAX_SEQ``."""
+    return M <= (MAX_SEQ if _lib.dispatch_device(q) == "cuda" else PLAIN_MAX_SEQ)
 
 
 def _to_g(x, L, D):
@@ -58,10 +72,6 @@ def _sdpa_train(q, k, v, scale, rate, rng):
     lead = q.shape[:-3]
     N, H, D = q.shape[-3:]
     M = k.shape[-3]
-    if M > MAX_SEQ:
-        raise NotImplementedError(
-            f"train attention over {M} > {MAX_SEQ} keys (the JAX package's chunked "
-            "dropout path) is not ported yet: see ROADMAP.md, section 1")
     if rng is None:
         rate = 0.0
     seed = _dropout_seed(rate, rng, q.device)
@@ -70,7 +80,7 @@ def _sdpa_train(q, k, v, scale, rate, rng):
 
 
 def _dense_mha(q, k, v, scale):
-    """Plain softmax attention in (..., N, H, D) layout (M > MAX_SEQ)."""
+    """Plain softmax attention in (..., N, H, D) layout (past the fused cap)."""
     attn = torch.softmax(torch.einsum("...nhd,...mhd->...hnm", q, k) * scale, dim=-1)
     return torch.einsum("...hnm,...mhd->...nhd", attn, v)
 
@@ -107,7 +117,7 @@ class CrossAttention(nn.Module):
         if train:
             out = _sdpa_train(q, k, v, hd ** -0.5, 0.0, None)
         else:
-            sdpa = _fused_sdpa if M <= MAX_SEQ else _dense_mha
+            sdpa = _fused_sdpa if _eval_fused(q, M) else _dense_mha
             out = sdpa(q, k, v, hd ** -0.5)
         return self.proj(out.reshape(B, N, C))
 
@@ -187,7 +197,7 @@ class CrossFrameBlock(nn.Module):
         if train:
             out = _sdpa_train(q, k, v, C ** -0.5, self.attn_drop, rng)
         else:
-            sdpa = _fused_sdpa if M <= MAX_SEQ else _dense_mha
+            sdpa = _fused_sdpa if _eval_fused(q, M) else _dense_mha
             out = sdpa(q, k, v, C ** -0.5)                 # (B, F, N, H, C)
         out = out.sum(dim=1).transpose(1, 2)               # (B, H, N, C)
         out = dropout(self.attn_proj(out), self.drop, rng)
@@ -228,7 +238,7 @@ class MultiFrameBlock(nn.Module):
         k, v = kv[:, :, :, 0], kv[:, :, :, 1]
         if train:
             out = _sdpa_train(q, k, v, hd ** -0.5, self.attn_drop, rng)
-        elif M <= MAX_SEQ:
+        elif _eval_fused(q, M):
             out = _fused_sdpa(q, k, v, hd ** -0.5)
         elif N * M > _DENSE_ATTN_LIMIT:
             out = _chunked_mha(q, k, v, hd ** -0.5)

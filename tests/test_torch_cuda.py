@@ -256,7 +256,9 @@ def test_knn_kernel_takes_the_overflow_route_on_duplicates(card, M, C):
 @pytest.mark.parametrize("G,N,M,D", [
     (6, 100, 300, 8),
     (2, 33, 64, 256),      # the wide route
-    (3, 40, 4096, 16),     # M = MAX_SEQ
+    (3, 40, 4096, 16),     # M = 4096, the TPU kernel's MAX_SEQ
+    (2, 100, 4160, 8),     # past it
+    (1, 64, 8192, 8),      # the 32768-point forward's L1 keys
     (3, 333, 517, 32),     # N, M not multiples of the query tile or key tile
     (2, 129, 70, 64),
     (2, 129, 70, 6),       # D % 4 != 0, padded to 8
@@ -269,7 +271,8 @@ def test_knn_kernel_takes_the_overflow_route_on_duplicates(card, M, C):
     (8, 512, 512, 16),
     (8, 2048, 2048, 8),
     (8, 256, 256, 256),    # the eval forward's wide call
-    (1, 100, 4096, 256),   # the wide route at M = MAX_SEQ
+    (1, 100, 4096, 256),   # the wide route at M = 4096
+    (1, 40, 4160, 256),    # and past it
     (1, 40, 50, 512),      # more head dims than a block holds: two slices
 ])
 def test_attention_kernel_matches_twin(card, G, N, M, D):
@@ -445,6 +448,49 @@ def test_eval_kernels_at_the_stress_shapes(card, kernel):
                                    kernels.transformer_tail_plain(table, idx, xq, q, *ws),
                                    atol=1e-4, rtol=1e-4)
     assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {kernel: 1}
+
+
+@pytest.mark.parametrize("N,K,C,C2,force", [(301, 32, 256, 256, False), (300, 4, 256, 256, False),
+                                            (301, 32, 64, 64, True), (50, 300, 8, 16, True)])
+def test_cross_tail_bwd_wide_matches_twin_and_the_tiled_bits(card, monkeypatch, N, K, C, C2,
+                                                             force):
+    """The wide backward at cross3's C = C2 = 256 (its route by size), at a
+    ragged N = 301 (groups of 4 queries) and K = 4; forced where the tiled
+    backward also fits, at C = C2 = 64 and K = 300 (an int32 argmax), where
+    its d_rows and d_base equal the tiled kernel's bits and its dW, db the
+    tiled sums within 1e-5 (1 + max); against the plain version after the
+    scatter, its bits repeated."""
+    ct = importlib.import_module("mocopci_torch.kernels.cross_tail")
+    from mocopci_torch.kernels.scatter_add import gather_backward
+
+    g = torch.Generator().manual_seed(14)
+    tab, base = _x(g, 2, 700, C).to(card), _x(g, 2, N, C).to(card)
+    w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
+    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32)
+    idx[:, :, 1 % K] = idx[:, :, 0]
+    idx = idx.to(card)
+    dout = _x(g, 2, N, C2).to(card)
+    amax = torch.empty((2, N, C2), dtype=ct.argmax_dtype(K), device=card)
+    out = ct.cross_tail_fwd(tab, idx, base, w, b, amax)
+    tiled = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout) if force else None
+    if force:
+        monkeypatch.setattr(ct, "bwd_route", lambda *a: "cross_tail_bwd_wide")
+    assert ct.bwd_route(K, C, C2) == "cross_tail_bwd_wide"
+    kernels.reset_launches()
+    got = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"cross_tail_bwd_wide": 1}
+    want = ct.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
+    d_tab = [gather_backward(r.reshape(2, N * K, C), idx.reshape(2, -1), 700)
+             for r in (got[0], want[0])]
+    torch.testing.assert_close(d_tab[0], d_tab[1], atol=1e-4, rtol=1e-4)
+    for a, c in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
+    again = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
+    assert all(_bits_equal(a, c) for a, c in zip(got, again))
+    if force:
+        assert _bits_equal(got[0], tiled[0]) and _bits_equal(got[1], tiled[1])
+        for a, c in zip(got[2:], tiled[2:]):
+            assert float((a - c).abs().max()) <= 1e-5 * (1 + float(c.abs().max()))
 
 
 @pytest.mark.parametrize("N,K,D", [(300, 16, 64), (301, 4, 64), (2048, 16, 64), (300, 8, 64),
@@ -652,14 +698,17 @@ def test_scatter_add_kernel_matches_twin_and_repeats(card, planes):
     (2, 129, 70, 6),       # D % 4 != 0, padded to 8
     (2, 150, 333, 12),     # D padded to 16
     (2, 100, 130, 64),
-    (1, 70, 4096, 8),      # M = MAX_SEQ
+    (1, 70, 4096, 8),      # M = 4096: the TPU kernel's counter, its last key
     (1, 129, 4096, 64),
+    (2, 70, 4160, 8),      # past it: the port's counter (shift 13)
+    (1, 64, 8192, 16),     # the 32768-point step's L1 keys
     (2, 33, 64, 256),      # the wide route
     (16, 256, 256, 256),   # its train step shape (CrossFrameBlock at L3)
     (3, 100, 77, 70),      # D not a multiple of 8
     (2, 70, 130, 128),
     (1, 40, 50, 512),      # more head dims than a block holds: two slices
-    (1, 100, 4096, 256),   # the wide route at M = MAX_SEQ, N not a multiple of its 64
+    (1, 100, 4096, 256),   # the wide route at M = 4096, N not a multiple of its 64
+    (1, 40, 4160, 256),    # and past it
 ])
 def test_attention_train_kernel_matches_twin(card, G, N, M, D, rate):
     """Output, its log-sum-exp and the gradients against the plain version,
@@ -726,6 +775,49 @@ def test_cross_tail_bwd_kernel_matches_twin_with_ties(card, N, K, C, C2):
         torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
     again = cross_tail_bwd(tab, idx, base, w, out, amax, dout)
     assert all(_bits_equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("N,K,C,C2,force", [(301, 32, 256, 256, False), (300, 4, 256, 256, False),
+                                            (301, 32, 64, 64, True), (50, 300, 8, 16, True)])
+def test_cross_tail_bwd_wide_matches_twin_and_the_tiled_bits(card, monkeypatch, N, K, C, C2,
+                                                             force):
+    """The wide backward at cross3's C = C2 = 256 (its route by size), at a
+    ragged N = 301 (groups of 4 queries) and K = 4; forced where the tiled
+    backward also fits, at C = C2 = 64 and K = 300 (an int32 argmax), where
+    its d_rows and d_base equal the tiled kernel's bits and its dW, db the
+    tiled sums within 1e-5 (1 + max); against the plain version after the
+    scatter, its bits repeated."""
+    ct = importlib.import_module("mocopci_torch.kernels.cross_tail")
+    from mocopci_torch.kernels.scatter_add import gather_backward
+
+    g = torch.Generator().manual_seed(14)
+    tab, base = _x(g, 2, 700, C).to(card), _x(g, 2, N, C).to(card)
+    w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
+    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32)
+    idx[:, :, 1 % K] = idx[:, :, 0]
+    idx = idx.to(card)
+    dout = _x(g, 2, N, C2).to(card)
+    amax = torch.empty((2, N, C2), dtype=ct.argmax_dtype(K), device=card)
+    out = ct.cross_tail_fwd(tab, idx, base, w, b, amax)
+    tiled = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout) if force else None
+    if force:
+        monkeypatch.setattr(ct, "bwd_route", lambda *a: "cross_tail_bwd_wide")
+    assert ct.bwd_route(K, C, C2) == "cross_tail_bwd_wide"
+    kernels.reset_launches()
+    got = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"cross_tail_bwd_wide": 1}
+    want = ct.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
+    d_tab = [gather_backward(r.reshape(2, N * K, C), idx.reshape(2, -1), 700)
+             for r in (got[0], want[0])]
+    torch.testing.assert_close(d_tab[0], d_tab[1], atol=1e-4, rtol=1e-4)
+    for a, c in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
+    again = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
+    assert all(_bits_equal(a, c) for a, c in zip(got, again))
+    if force:
+        assert _bits_equal(got[0], tiled[0]) and _bits_equal(got[1], tiled[1])
+        for a, c in zip(got[2:], tiled[2:]):
+            assert float((a - c).abs().max()) <= 1e-5 * (1 + float(c.abs().max()))
 
 
 @pytest.mark.parametrize("N,K,D", [(300, 16, 64), (301, 4, 64), (2048, 16, 64), (300, 8, 64),

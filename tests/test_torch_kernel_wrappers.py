@@ -196,6 +196,7 @@ def test_cross_tail_fwd_walks_units_on_the_fixed_grid(launches, B, N, K, tile, b
                                            (4, 192, 64, "cross_tail_wide"),
                                            (32, 128, 256, "cross_tail_wide"),
                                            (32, 256, 256, "cross_tail_wide"),
+                                           (64, 256, 256, "cross_tail_wide"),
                                            (300, 256, 64, None)])
 def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, route):
     """The tiled forward's footprint (W and b in 64-column passes, x
@@ -204,7 +205,9 @@ def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, route):
     padded to 4; cross3 of a 32768-point cloud is (32, 256, 256)); past that too the
     forward and the autograd forward are refused before any launch.  The
     autograd forward that needs a gradient is refused before any launch
-    where the backward's footprint is past 227 KB; at (4, 192, 64) it fits."""
+    where no backward route fits (the wide backward's footprint is 4
+    queries' rows and their gradients and argmax: it fits at (32, 256, 256)
+    and not at (64, 256, 256)); at (4, 192, 64) the tiled backward fits."""
     assert (cross_tail._fwd_smem(K, C, C2) <= cross_tail._MAX_SMEM) == (route == "cross_tail")
     tab, idx, base, w, b = _tail_inputs(K=K, C=C, C2=C2)
     if route is None:
@@ -219,7 +222,8 @@ def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, route):
     blocks = (cross_tail.fwd_grid(2, 40, K) if route == "cross_tail"
               else min(cross_tail.WIDE_BLOCKS, 2 * 40))
     assert launches[0][1][6:14] == (0, 2, 50, 40, K, C, C2, blocks)
-    if cross_tail._bwd_smem(K, C, C2) <= cross_tail._MAX_SMEM:
+    if (cross_tail._bwd_smem(K, C, C2) <= cross_tail._MAX_SMEM
+            or cross_tail._bwd_wide_smem(K, C, C2) <= cross_tail._MAX_SMEM):
         cross_tail.cross_tail(tab, idx, base, w.requires_grad_(), b)
         assert [name for name, _ in launches] == [route, route]
         assert launches[1][1][6] != 0             # the argmax the backward reads
