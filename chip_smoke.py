@@ -718,6 +718,41 @@ def build_parent(tree):
     return finish
 
 
+def bind_entries(lib, sig, names):
+    """Give the entries ``mocopci_<name>`` of a built library (``ctypes``)
+    the argument types of ``sig`` (a tree's ``_lib.SIGNATURES``), for each
+    name that ``sig`` has."""
+    import ctypes
+
+    for name in names:
+        if name in sig:
+            fn = getattr(lib, f"mocopci_{name}")
+            fn.argtypes, fn.restype = sig[name], ctypes.c_int
+
+
+def launch_fps(lib, xyz, what, cluster=None):
+    """One FPS launch through a built library's C entries on the current
+    stream: ``what`` a count gives ``fps`` (``fps_cluster`` over ``cluster``
+    blocks) as (B, what) indices; a tuple of level sizes gives
+    ``fps_pyramid`` (``fps_pyramid_cluster``), the levels one after the other
+    as one flat tensor."""
+    B, N, _ = xyz.shape
+    c = [] if cluster is None else [cluster]
+    if isinstance(what, tuple):
+        name = "fps_pyramid"
+        out = torch.empty(B * sum(what), dtype=torch.int32, device=xyz.device)
+        levels = torch.tensor(what, dtype=torch.int32)
+        args = (xyz.data_ptr(), B, N, levels.data_ptr(), len(what), *c, out.data_ptr())
+    else:
+        name = "fps"
+        out = torch.empty((B, what), dtype=torch.int32, device=xyz.device)
+        args = (xyz.data_ptr(), B, N, what, *c, out.data_ptr())
+    name += "" if cluster is None else "_cluster"
+    if getattr(lib, f"mocopci_{name}")(*args, torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError(f"{name} failed to launch")
+    return out
+
+
 def _bwd_blocks(tree, module):
     """``BWD_BLOCKS`` of another checkout's ``mocopci_torch/kernels/<module>.py``."""
     with open(os.path.join(tree, "mocopci_torch", "kernels", f"{module}.py")) as f:
@@ -763,37 +798,41 @@ class Parent:
             self.fwd_grid = mod.fwd_grid
         self.bwd_blocks, self.tail_bwd_blocks = (_bwd_blocks(tree, name)
                                                  for name in ("cross_tail", "transformer_tail"))
+        with open(os.path.join(tree, "mocopci_torch", "kernels", "fps.py")) as f:
+            m = re.search(r"^CLUSTER = (\d+)", f.read(), re.M)
+        self.cluster = int(m.group(1)) if m else None
         self.lib = ctypes.CDLL(path)
-        for name in ("cross_tail", "cross_tail_bwd", "fps", "fps_pyramid", "attention_train_fwd",
-                     "attention_train_fwd_wide", "transformer_tail", "transformer_tail_general",
-                     "transformer_tail_bwd", "knn_approx", "attention", "attention_wide",
-                     "chamfer_pair", "knn", "fusion_pair", "fusion_pair_planes",
-                     "fusion_head_train_fwd", "cross_tail_wide"):
-            if name in self.sig:
-                fn = getattr(self.lib, f"mocopci_{name}")
-                fn.argtypes, fn.restype = self.sig[name], ctypes.c_int
+        bind_entries(self.lib, self.sig, (
+            "cross_tail", "cross_tail_bwd", "fps", "fps_pyramid", "attention_train_fwd",
+            "attention_train_fwd_wide", "transformer_tail", "transformer_tail_general",
+            "transformer_tail_bwd", "knn_approx", "attention", "attention_wide", "chamfer_pair",
+            "knn", "fusion_pair", "fusion_pair_planes", "fusion_head_train_fwd",
+            "cross_tail_wide", "fps_cluster", "fps_pyramid_cluster"))
 
     def _call(self, name, *args):
         if getattr(self.lib, f"mocopci_{name}")(*args, torch.cuda.current_stream().cuda_stream):
             raise RuntimeError(f"the parent's {name} failed")
 
     def fps(self, xyz, npoint):
-        B, N, _ = xyz.shape
-        out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-        self._call("fps", xyz.data_ptr(), B, N, npoint, out.data_ptr())
-        return out
+        return launch_fps(self.lib, xyz, npoint)
+
+    def fps_cluster(self, xyz, npoint):
+        """That tree's ``fps_cluster`` at its own ``CLUSTER``."""
+        return launch_fps(self.lib, xyz, npoint, self.cluster)
+
+    def fps_pyramid_cluster(self, xyz, npoints):
+        """That tree's ``fps_pyramid_cluster`` at its own ``CLUSTER``, the
+        levels one after the other as one flat tensor."""
+        return launch_fps(self.lib, xyz, tuple(npoints), self.cluster)
 
     def fps_pyramid(self, xyz, npoints):
         """That tree's pyramid: its one launch, or a launch a level with the
         row gathers between levels, as that tree's ``ops.sampling`` did."""
         from mocopci_torch.kernels._lib import group_rows
 
-        B, N, _ = xyz.shape
+        B = xyz.shape[0]
         if "fps_pyramid" in self.sig:
-            out = torch.empty(B * sum(npoints), dtype=torch.int32, device=xyz.device)
-            levels = torch.tensor(npoints, dtype=torch.int32)
-            self._call("fps_pyramid", xyz.data_ptr(), B, N, levels.data_ptr(), len(npoints),
-                       out.data_ptr())
+            out = launch_fps(self.lib, xyz, tuple(npoints))
             return tuple(o.view(B, n) for o, n in zip(out.split([B * n for n in npoints]),
                                                       npoints))
         idxs, pc = [], xyz
@@ -1777,8 +1816,10 @@ def check_stress_kernels(kernels, dev, rows, parent=None):
     stress forwards' calls: the pyramid (2, n) -> n/4, n/16, n/32, n/128 and
     the refine head's (3, n) -> n/4 for n = 32768 and 16384; each timed in
     µs a step (device time over the steps of every level), beside the
-    one-block route at 8192 points in this call (and, with ``parent``, that
-    tree's FPS at 8192).  Then the
+    one-block route at 8192 points in this call; with ``parent``, that
+    tree's one-block routes at 8192 and its cluster routes at each n (at its
+    own ``CLUSTER``, indices held equal to this tree's) beside this tree's,
+    in turns by CUDA events.  Then the
     cost-volume tail's wide route at cross3 of the 32768-point forward, (1,
     1024) queries of K = 32 over C = C2 = 256, within 1e-4 (1 + max |out|)
     of its plain version, its argmax instance bit-equal."""
@@ -1789,6 +1830,12 @@ def check_stress_kernels(kernels, dev, rows, parent=None):
         us = device_us(fn)
         return float(us) / steps if us != "not measured" else None
 
+    def turns(there, here, steps):
+        """The parent's call against this tree's in turns (there, here, here,
+        there), in µs a step by CUDA events."""
+        us = [1e3 * median_ms(f, 10) / steps for f in (there, here, here, there)]
+        return f"there {us[0]:.4f} / {us[3]:.4f}, here {us[1]:.4f} / {us[2]:.4f}"
+
     x8 = torch.randn(3, 8192, 3, generator=gen, device=dev) * 10
     one = {"fps": per_step(lambda: kernels.fps(x8, 2048), 2047),
            "fps_pyramid": per_step(lambda: kernels.fps_pyramid(x8[:2], stress_levels(8192)),
@@ -1796,11 +1843,12 @@ def check_stress_kernels(kernels, dev, rows, parent=None):
     log(f"stress fps: the one-block route at 8192 points, us a step by device time: (3, 8192) "
         f"-> 2048 {one['fps']}, (2, 8192) -> {stress_levels(8192)} {one['fps_pyramid']}")
     if parent is not None:
-        pair8 = x8[:2].contiguous()
-        log(f"stress fps: the parent's at 8192 points, us a step by device time: (3, 8192) -> "
-            f"2048 {per_step(lambda: parent.fps(x8, 2048), 2047)}, (2, 8192) -> "
-            f"{stress_levels(8192)} "
-            f"{per_step(lambda: parent.fps_pyramid(pair8, stress_levels(8192)), 2876)}")
+        pair8, lv8 = x8[:2].contiguous(), stress_levels(8192)
+        one_r = turns(lambda: parent.fps(x8, 2048), lambda: kernels.fps(x8, 2048), 2047)
+        one_p = turns(lambda: parent.fps_pyramid(pair8, lv8),
+                      lambda: kernels.fps_pyramid(pair8, lv8), 2876)
+        log(f"stress fps: the parent's one-block route at 8192 points, µs a step by CUDA "
+            f"events: (3, 8192) -> 2048 {one_r}; (2, 8192) -> {lv8} {one_p}")
     for n in STRESS_SIZES[::-1]:
         tri = torch.randn(3, n, 3, generator=gen, device=dev) * 10
         pair, lv, npt = tri[:2].contiguous(), stress_levels(n), n // 4
@@ -1816,6 +1864,20 @@ def check_stress_kernels(kernels, dev, rows, parent=None):
         us_p = per_step(lambda: kernels.fps_pyramid(pair, lv), steps_p)
         log(f"stress fps cluster of {fps_mod.CLUSTER} at {n} points, us a step by device "
             f"time: fps_cluster (3, {n}) -> {npt} {us_r}, fps_pyramid_cluster (2, {n}) {us_p}")
+        if parent is not None and parent.cluster is not None:
+            flat = torch.cat([i.reshape(-1) for i in kernels.fps_pyramid(pair, lv)])
+            same = (torch.equal(parent.fps_cluster(tri, npt), kernels.fps(tri, npt))
+                    and torch.equal(parent.fps_pyramid_cluster(pair, lv), flat))
+            t_r = turns(lambda: parent.fps_cluster(tri, npt), lambda: kernels.fps(tri, npt),
+                        steps_r)
+            t_p = turns(lambda: parent.fps_pyramid_cluster(pair, lv),
+                        lambda: kernels.fps_pyramid(pair, lv), steps_p)
+            log(f"stress fps at {n} points, the parent's cluster routes ({parent.cluster} "
+                f"blocks; indices equal {same}) against this tree's ({fps_mod.CLUSTER}), µs a "
+                f"step by CUDA events: fps_cluster (3, {n}) -> {npt} {t_r}; "
+                f"fps_pyramid_cluster (2, {n}) -> {lv} {t_p}")
+            if not same:
+                raise SystemExit("stress fps: the parent's indices differ from this tree's")
         if n != STRESS_SIZES[-1]:
             continue
         add_row(rows, "fps_cluster", fps_mod.SOURCE, fps_mod.REPLACES,

@@ -34,16 +34,25 @@
 // one SM (32768 points and their min-distances are 512 KB), so level 0 runs
 // across a thread-block cluster of R <= 8 blocks: block r holds the
 // contiguous span [r*S, r*S + S) of the cloud, S = ceil(N / R) <= 8192, in
-// its planes and registers as the one-block kernel holds its cloud.  A step:
-// each warp's winner (min-distance bits, global index, coordinates) is stored
-// into every block's exchange slot of the step's parity through distributed
-// shared memory, then ONE cluster barrier (arrive.release, wait.acquire), then
-// every warp of every block reduces the R x warps slots itself: largest
+// its planes and registers as the one-block kernel holds its cloud.  What
+// sets a step's pace there is the exchange between the blocks, not the
+// arithmetic (2, 4 and 8 blocks took about the same time when each step
+// ended in a cluster barrier).  So the exchange is completed by the data: at
+// a step each warp's lanes r' < R push the warp's winner (min-distance bits,
+// global index, coordinates) into block r''s exchange slot of the step's
+// parity with st.async, which completes the bytes on block r''s mbarrier of
+// that parity; every warp waits on its own block's mbarrier, not on a
+// rendezvous of the cluster, and merges the R x warps entries: largest
 // distance first, then the lowest global index, so every block agrees on the
-// winner and ties across spans resolve as torch.argmax resolves them.  The
-// later levels of a pyramid (at most 8192 points) run on rank 0 alone, with
-// fps_level, from the level-0 winners' coordinates that rank 0 wrote into its
-// level-1 region.
+// winner and ties across spans resolve as torch.argmax resolves them.  No
+// cluster barrier runs inside the step loop: one before it (the mbarriers
+// and the planes ready), one after it (no block exits while a peer may still
+// store into its shared memory).  Reducing each block's warps first (one
+// block barrier) and pushing only the block's winner, R entries a step, was
+// 1-2% slower at 32768 points (scripts/fps_cluster_timing.py builds and
+// times that variant beside this source).  The later levels of
+// a pyramid (at most 8192 points) run on rank 0 alone, with fps_level, from
+// the level-0 winners' coordinates that rank 0 wrote into its level-1 region.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -57,8 +66,13 @@ constexpr int kMaxBlockN = kMaxThreads * 32;   // points one block holds: a clou
 constexpr int kMaxLevels = 8;
 constexpr int kSlotFloats = 2 * 32 * 2;   // the step slots, in floats
 constexpr int kMaxCluster = 8;            // the portable cluster size
-constexpr int kMaxEntries = kMaxCluster * kMaxThreads / 32;   // exchange slots a parity
-constexpr int kExchangeFloats = 2 * kMaxEntries * (2 + 4);    // [2][64] uint2 + [2][64] float4
+// the exchange: a slot a sender (a warp of the cluster) in each parity; an
+// entry is (distance bits, global index, x, y) and z, 20 bytes in a room of
+// 32, and the two mbarriers follow the slots
+constexpr int kSlotsPerParity = kMaxCluster * kMaxThreads / 32;
+constexpr int kEntryBytes = 20;
+constexpr int kEntryFloats = 8;
+constexpr int kExchangeFloats = 2 * kSlotsPerParity * kEntryFloats + 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;
 
@@ -202,21 +216,82 @@ __device__ __forceinline__ void cluster_barrier() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the .shared::cluster address of this block's shared address a in rank's block
+__device__ __forceinline__ unsigned map_rank(unsigned a, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+// the one arrival of the barrier's current phase, which then completes once
+// `bytes` have landed
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of the given parity completes; the stores that completed
+// it, made by other blocks, are then visible to this thread
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// An entry into the slot at .shared::cluster address `slot` of another block
+// (or this one), its 20 bytes completed on that block's mbarrier `bar`.
+__device__ __forceinline__ void send_entry(unsigned slot, unsigned bar, unsigned d, unsigned idx,
+                                           float x, float y, float z) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%2, %3, %4, %5}, "
+      "[%1];\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%6], %7, [%1];\n" ::"r"(slot),
+      "r"(bar), "r"(d), "r"(idx), "r"(__float_as_uint(x)), "r"(__float_as_uint(y)),
+      "r"(slot + 16), "r"(__float_as_uint(z))
+      : "memory");
+}
+
 // Level 0 of a cloud across the R blocks of a cluster: this block (rank r)
 // holds the n_here points [base, base + n_here) in the planes (X, Y, Z),
 // thread t its points t + i * blockDim.  (lx, ly, lz) is the cloud's point 0.
 // Rank 0 writes the indices and, where nx is given, the winners'
-// coordinates.  xv and xc are the exchange slots ([2][kMaxEntries] each).
+// coordinates.  xe is the exchange ([2][kSlotsPerParity] entries of
+// kEntryFloats), bars its two mbarriers, initialised with the steps 1 and 2
+// expected (fps_cloud_cluster).
+//
+// A step s: every warp stores its winner into slot (s & 1, its rank's
+// warp) of every block, completing on that block's mbarrier s & 1, whose
+// phase ((s - 1) >> 1) & 1 is step s's.  The slots of a parity need no
+// barrier: a peer's step s + 2 store into them needs every step s + 1 entry
+// of this block, and a warp sends its own only after it has read step s.
+// For the same reason no mbarrier runs two phases ahead of a warp that
+// waits on it.
 template <int kPer>
 __device__ void fps_level_cluster(const float* X, const float* Y, const float* Z, int n_here,
                                   int base, int npoint, float lx, float ly, float lz,
                                   int* __restrict__ out, float* nx, float* ny, float* nz,
-                                  uint2* xv, float4* xc) {
+                                  float* xe, unsigned long long* bars) {
   cg::cluster_group cluster = cg::this_cluster();
   const int r = static_cast<int>(cluster.block_rank());
   const int R = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x, act = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = act >> 5, ne = R * nw;
+  const int lane = tid & 31, warp = tid >> 5, nw = act >> 5;
+  const int ne = R * nw;   // entries a block receives a step
+  const unsigned bytes = static_cast<unsigned>(ne * kEntryBytes);
   float px[kPer], py[kPer], pz[kPer], md[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -227,6 +302,14 @@ __device__ void fps_level_cluster(const float* X, const float* Y, const float* Z
     pz[i] = real ? Z[n] : 0.f;
     md[i] = real ? 1e10f : 0.f;
   }
+  // lane q < R sends to rank q: its slot (parity 0, this sender) and its
+  // mbarrier 0 there, in .shared::cluster addresses
+  const int sender = r * nw + warp;
+  const unsigned bar_here = smem_u32(bars);
+  const unsigned q = static_cast<unsigned>(lane < R ? lane : 0);
+  const unsigned slot_to = map_rank(smem_u32(xe + sender * kEntryFloats), q);
+  const unsigned bar_to = map_rank(bar_here, q);
+  constexpr unsigned kParityBytes = kSlotsPerParity * kEntryFloats * sizeof(float);
   const bool writer = r == 0 && tid == 0;
   if (writer) {
     out[0] = 0;
@@ -253,23 +336,25 @@ __device__ void fps_level_cluster(const float* X, const float* Y, const float* Z
     }
     const unsigned wm = __reduce_max_sync(kFull, bv);
     const unsigned wl = __reduce_min_sync(kFull, bv == wm ? bi : kNone);
-    const int par = (s & 1) * kMaxEntries;
+    const int p = s & 1;
     if (lane < R) {
-      // a padded point (md 0) carries no index: it never meets a real one
+      // a padded point (md 0) carries no index: kNone loses every tie
       const bool real = wl < static_cast<unsigned>(n_here);
-      const int slot = par + r * nw + warp;
-      *cluster.map_shared_rank(xv + slot, lane) =
-          make_uint2(wm, real ? static_cast<unsigned>(base) + wl : kNone);
-      *cluster.map_shared_rank(xc + slot, lane) =
-          real ? make_float4(X[wl], Y[wl], Z[wl], 0.f) : make_float4(0.f, 0.f, 0.f, 0.f);
+      send_entry(slot_to + p * kParityBytes, bar_to + 8 * p, wm,
+                 real ? static_cast<unsigned>(base) + wl : kNone, real ? X[wl] : 0.f,
+                 real ? Y[wl] : 0.f, real ? Z[wl] : 0.f);
     }
-    cluster_barrier();
-    // the other parity's slots are the next step's: no block stores into a
-    // slot another may still read
-    uint2 e = lane < ne ? xv[par + lane] : make_uint2(0u, kNone);
+    mbar_wait(bar_here + 8 * p, ((s - 1) >> 1) & 1);
+    // the phase of step s + 2, expected before warp 0 sends its step s + 1
+    // entry: a peer's step s + 2 store needs that entry, so none can land
+    // before the expectation
+    if (tid == 0 && s + 2 < npoint) mbar_expect(bar_here + 8 * p, bytes);
+    const float* ex = xe + p * kSlotsPerParity * kEntryFloats;
+    uint2 e = lane < ne ? *reinterpret_cast<const uint2*>(ex + lane * kEntryFloats)
+                        : make_uint2(0u, kNone);
     int pos = lane;
     if (lane + 32 < ne) {
-      const uint2 f = xv[par + lane + 32];
+      const uint2 f = *reinterpret_cast<const uint2*>(ex + (lane + 32) * kEntryFloats);
       if (f.x > e.x || (f.x == e.x && f.y < e.y)) {
         e = f;
         pos = lane + 32;
@@ -278,10 +363,10 @@ __device__ void fps_level_cluster(const float* X, const float* Y, const float* Z
     const unsigned m = __reduce_max_sync(kFull, e.x);
     const unsigned win = __reduce_min_sync(kFull, e.x == m ? e.y : kNone);
     const int from = __ffs(__ballot_sync(kFull, e.x == m && e.y == win)) - 1;
-    const float4 c = xc[par + __shfl_sync(kFull, pos, from)];
-    lx = c.x;
-    ly = c.y;
-    lz = c.z;
+    const float* c = ex + __shfl_sync(kFull, pos, from) * kEntryFloats;
+    lx = c[2];
+    ly = c[3];
+    lz = c[4];
     if (writer) {
       out[s] = static_cast<int>(win);
       if (nx != nullptr) {
@@ -299,18 +384,20 @@ __host__ __device__ inline int span_capacity(int S, const Levels& lv) {
   return lv.count > 2 ? max(S, lv.n[1]) : S;
 }
 
-// Cloud blockIdx.y across the cluster along x: the exchange slots, the step
-// slots of the later levels, this block's span of S = ceil(N / R) points as
-// three planes, then on rank 0 of a pyramid the level-1 region (capacity
-// n_0), where rank 0 runs the later levels alone, alternating with the planes.
+// Cloud blockIdx.y across the cluster along x: the exchange slots and the
+// two mbarriers, the step slots of the later levels, this block's span of
+// S = ceil(N / R) points as three planes, then on rank 0 of a pyramid the
+// level-1 region (capacity n_0), where rank 0 runs the later levels alone,
+// alternating with the planes.
 __device__ void fps_cloud_cluster(const float* __restrict__ xyz, int N, const Levels& lv,
                                   int* __restrict__ out) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int r = static_cast<int>(cluster.block_rank());
   const int R = static_cast<int>(cluster.num_blocks());
-  uint2* xv = reinterpret_cast<uint2*>(smem);
-  float4* xc = reinterpret_cast<float4*>(smem + 4 * kMaxEntries);
+  float* xe = smem;
+  auto* bars =
+      reinterpret_cast<unsigned long long*>(smem + 2 * kSlotsPerParity * kEntryFloats);
   uint2* slots = reinterpret_cast<uint2*>(smem + kExchangeFloats);
   float* sm = smem + kExchangeFloats + kSlotFloats;
   const int b = blockIdx.y;
@@ -321,8 +408,19 @@ __device__ void fps_cloud_cluster(const float* __restrict__ xyz, int N, const Le
     const int n = e / 3, c = e - n * 3;
     sm[c * cap + n] = x[3 * base + e];
   }
-  // every block of the cluster has started (its slots may be written) and
-  // holds its planes
+  if (threadIdx.x == 0) {
+    const unsigned bar = smem_u32(bars);
+    const int nw = static_cast<int>(blockDim.x) >> 5;
+    const unsigned bytes = static_cast<unsigned>(R * nw * kEntryBytes);
+    mbar_init(bar);
+    mbar_init(bar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // steps 1 and 2 expected (mbarrier 1, then 0); the loop expects the rest
+    if (lv.n[0] > 1) mbar_expect(bar + 8, bytes);
+    if (lv.n[0] > 2) mbar_expect(bar, bytes);
+  }
+  // every block of the cluster has started, initialised its mbarriers (its
+  // slots may be written) and holds its planes
   cluster_barrier();
   float* reg = sm + 3 * cap;
   float* nx = r == 0 && lv.count > 1 ? reg : nullptr;
@@ -330,20 +428,22 @@ __device__ void fps_cloud_cluster(const float* __restrict__ xyz, int N, const Le
   const int per = mocopci::ceil_div(S, blockDim.x);
   if (per > 16)
     fps_level_cluster<32>(sm, sm + cap, sm + 2 * cap, n_here, base, lv.n[0], x[0], x[1], x[2],
-                          o, nx, reg + cap1, reg + 2 * cap1, xv, xc);
+                          o, nx, reg + cap1, reg + 2 * cap1, xe, bars);
   else if (per > 8)
     fps_level_cluster<16>(sm, sm + cap, sm + 2 * cap, n_here, base, lv.n[0], x[0], x[1], x[2],
-                          o, nx, reg + cap1, reg + 2 * cap1, xv, xc);
+                          o, nx, reg + cap1, reg + 2 * cap1, xe, bars);
   else
     fps_level_cluster<8>(sm, sm + cap, sm + 2 * cap, n_here, base, lv.n[0], x[0], x[1], x[2],
-                         o, nx, reg + cap1, reg + 2 * cap1, xv, xc);
-  // after the last step's cluster barrier no block touches another's memory;
-  // rank 0 runs the later levels as fps_cloud runs its levels, alternating
-  // between the level-1 region and the planes (the loop is fps_cloud's, not
-  // shared with it: sharing it moved the one-block kernels' registers and
-  // cost them 3-4% in time, scripts/fps_cluster_timing.py --other)
+                         o, nx, reg + cap1, reg + 2 * cap1, xe, bars);
+  // every block has waited for its last step's entries, so every store into
+  // its shared memory has landed: after this barrier no block touches
+  // another's memory and any may exit.  Rank 0 runs the later levels as
+  // fps_cloud runs its levels, alternating between the level-1 region and
+  // the planes (the loop is fps_cloud's, not shared with it: sharing it moved
+  // the one-block kernels' registers and cost them 3-4% in time,
+  // scripts/fps_cluster_timing.py --other)
+  cluster_barrier();
   if (r != 0 || lv.count == 1) return;
-  __syncthreads();
   float* src = reg;
   float* dst = sm;
   int cap_src = cap1, cap_dst = cap, n_in = lv.n[0], off = lv.n[0];

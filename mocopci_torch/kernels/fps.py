@@ -7,9 +7,12 @@ shared memory.  One block per cloud up to ``BLOCK_MAX_N`` points; the step
 chain, not bytes or flops, bounds both (see the source note), and a step
 takes one block barrier.  Above ``BLOCK_MAX_N`` points, up to ``MAX_N``,
 level 0 runs across a thread-block cluster of ``CLUSTER`` blocks (the
-declared routes ``fps_cluster`` and ``fps_pyramid_cluster``), a step one
-cluster barrier; a pyramid's later levels, at most ``BLOCK_MAX_N`` points
-each, run on the cluster's first block.
+declared routes ``fps_cluster`` and ``fps_pyramid_cluster``): at a step
+each warp pushes its winner into every block's shared memory with
+``st.async``, and each block waits on its own ``mbarrier``, which those
+stores complete, with no cluster barrier inside the step loop; a
+pyramid's later levels, at most ``BLOCK_MAX_N`` points each, run on the
+cluster's first block.
 """
 from __future__ import annotations
 
@@ -25,8 +28,9 @@ REPLACES_PYRAMID = "mocopci_tpu/ops/pallas/fps.py:477"
 
 BLOCK_MAX_N = 8192    # one block: 32 points a thread, 256 threads
 # blocks a cluster, the portable most: chosen by scripts/fps_cluster_timing.py
-# on the card, 8 blocks at the stress sizes 16384 (1.07 µs a step against
-# 1.09 at 4 and 1.32 at 2) and 32768 (1.19 against 1.27 at 4)
+# on the card with the mbarrier exchange, 8 blocks at the stress sizes 16384
+# (fps_cluster 0.581 µs a step against 0.588 at 4 and 0.818 at 2) and 32768
+# (0.687 against 0.836 at 4)
 CLUSTER = 8
 MAX_N = CLUSTER * BLOCK_MAX_N
 MAX_LEVELS = 8

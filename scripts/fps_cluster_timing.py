@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""FPS above 8192 points on one GPU: the cluster routes at each cluster size.
+"""FPS above 8192 points on one GPU: the cluster routes by cluster size.
 
-    python3 scripts/fps_cluster_timing.py [--other TREE]
+    python3 scripts/fps_cluster_timing.py [--other TREE] [--reps 20]
 
-Builds ``mocopci_torch/csrc/fps.cu`` alone (with ``-Xptxas -v``), then times
-``fps_cluster`` and ``fps_pyramid_cluster`` at each cluster size that holds
-the cloud (2, 4 and 8 blocks, in turns 2, 4, 8, 8, 4, 2) at the stress
-forward's calls, the refine head's (3, n) -> n/4 and the encoder's pyramid
-(2, n) -> n/4, n/16, n/32, n/128, for n in 12288, 16384 and 32768, by CUDA
-events and by profiler device time, in µs a step (device time over the
-steps of every level), beside the one-block route at 8192 points.  The
-card tests (``tests/test_torch_cuda.py``) hold every size bit for bit
-against the plain versions.
+Builds ``mocopci_torch/csrc/fps.cu`` alone (with ``-Xptxas -v``).  Holds
+``fps_cluster`` and ``fps_pyramid_cluster`` bit for bit against the plain
+versions at each cluster size that holds the cloud (2, 4 and 8 blocks), over
+3 launches, at the stress forward's calls: the refine head's (3, n) -> n/4
+and the encoder's pyramid (2, n) -> n/4, n/16, n/32, n/128 for n in 16384
+and 32768, and (2, 32768) -> 8192 on a cloud whose upper half repeats the
+lower (every step ties across spans).  Then it times, by CUDA events (median
+of ``--reps``), each size in µs a step (the time over the steps of every
+level), at those calls and at 12288 points, beside the one-block route at
+8192 points.
 
-``--other TREE`` (another
-checkout, for example the parent commit from ``git archive``) builds that
-tree's ``fps.cu`` too, compares its one-block kernels' SASS with this tree's
-(the first differing lines printed) and times its ``fps`` and
-``fps_pyramid`` at 8192 points beside this tree's, in turns (there, here,
-here, there).  The size chosen is ``CLUSTER`` in
-``mocopci_torch/kernels/fps.py``.
+``--other TREE`` (another checkout, for example the parent commit from
+``git archive``) builds that tree's ``fps.cu`` too ("there"; both builds
+started together), holds and times its cluster routes in turns with this
+tree's ("here": there, here, here, there), compares its one-block kernels'
+SASS with this tree's (the first differing lines printed) and times its
+``fps`` and ``fps_pyramid`` at 8192 points beside this tree's in the same
+turns.  The size chosen is ``CLUSTER`` in ``mocopci_torch/kernels/fps.py``;
+the card tests (``tests/test_torch_cuda.py``) hold it at every size.
 """
 import argparse
 import ctypes
@@ -41,28 +43,28 @@ fps_mod = importlib.import_module("mocopci_torch.kernels.fps")
 ENTRIES = ("fps", "fps_pyramid", "fps_cluster", "fps_pyramid_cluster")
 
 
-def build(tree=ROOT, tag="here"):
-    """That tree's fps.cu and common.cu into a library of their own:
-    (the loaded library, its path)."""
+def start_build(tree, tag):
+    """Start building that tree's fps.cu and common.cu into a library of
+    their own; returns a function that waits and gives (library, path)."""
     out_dir = os.path.join(ROOT, "build", "fps_cluster")
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, f"libfps_{tag}.so")
     csrc = os.path.join(tree, "mocopci_torch", "csrc")
     cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", csrc, "-o", out,
            os.path.join(csrc, "fps.cu"), os.path.join(csrc, "common.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    for line in (res.stdout + res.stderr).splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line or "error" in line:
-            print(f"{tag}: {line}", flush=True)
-    if res.returncode:
-        raise SystemExit(res.stdout + res.stderr)
-    lib = ctypes.CDLL(out)
-    for name in ENTRIES if tag == "here" else ENTRIES[:2]:
-        fn = getattr(lib, f"mocopci_{name}")
-        fn.argtypes, fn.restype = _lib.SIGNATURES[name], ctypes.c_int
-    lib.mocopci_error_string.argtypes = [ctypes.c_int]
-    lib.mocopci_error_string.restype = ctypes.c_char_p
-    return lib, out
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        text, _ = proc.communicate()
+        for line in text.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line or "error" in line:
+                print(f"{tag}: {line}", flush=True)
+        if proc.returncode:
+            raise SystemExit(text)
+        lib = ctypes.CDLL(out)
+        cs.bind_entries(lib, _lib.SIGNATURES, ENTRIES)
+        return lib, out
+    return finish
 
 
 def one_block_sass(path):
@@ -82,49 +84,6 @@ def one_block_sass(path):
     return kernels
 
 
-def compare_other(tree, dev) -> None:
-    """That tree's one-block kernels against this tree's: SASS, then device
-    time at 8192 points in turns."""
-    other, path = build(tree, "other")
-    here = one_block_sass(os.path.join(ROOT, "build", "fps_cluster", "libfps_here.so"))
-    there = one_block_sass(path)
-    for k in ("fps_kernel", "fps_pyramid_kernel"):
-        a, b = there.get(k, []), here.get(k, [])
-        diff = [(x, y) for x, y in zip(a, b) if x != y]
-        print(f"sass {k}: {len(a)} lines there, {len(b)} here, {len(diff)} differ", flush=True)
-        for x, y in diff[:10]:
-            print(f"  there: {x}\n  here:  {y}", flush=True)
-    g = torch.Generator(device=dev).manual_seed(5)
-    xyz6 = torch.randn(6, 8192, 3, generator=g, device=dev) * 10
-    xyz2 = xyz6[:2].contiguous()
-    lv = (2048, 512, 256, 64)
-    st = torch.cuda.current_stream().cuda_stream
-
-    def fps_there(xyz, n):
-        out = torch.empty((xyz.shape[0], n), dtype=torch.int32, device=dev)
-        assert other.mocopci_fps(xyz.data_ptr(), xyz.shape[0], 8192, n, out.data_ptr(), st) == 0
-        return out
-
-    def pyramid_there(xyz):
-        out = torch.empty(xyz.shape[0] * sum(lv), dtype=torch.int32, device=dev)
-        levels = torch.tensor(lv, dtype=torch.int32)
-        assert other.mocopci_fps_pyramid(xyz.data_ptr(), xyz.shape[0], 8192, levels.data_ptr(),
-                                         len(lv), out.data_ptr(), st) == 0
-        return out
-
-    same = (torch.equal(fps_there(xyz6, 2048), fps_mod.fps(xyz6, 2048)) and torch.equal(
-        pyramid_there(xyz2), torch.cat([t.reshape(-1) for t in fps_mod.fps_pyramid(xyz2, lv)])))
-    print(f"other tree's one-block FPS bit-equal to this tree's: {same}", flush=True)
-    for what, there_fn, here_fn in (
-            ("fps (6, 8192) -> 2048", lambda: fps_there(xyz6, 2048),
-             lambda: fps_mod.fps(xyz6, 2048)),
-            (f"fps_pyramid (2, 8192) -> {lv}", lambda: pyramid_there(xyz2),
-             lambda: fps_mod.fps_pyramid(xyz2, lv))):
-        us = [cs.device_us(f) for f in (there_fn, here_fn, here_fn, there_fn)]
-        print(f"time {what}: device us there {us[0]} / {us[3]}, here {us[1]} / {us[2]}, in turns",
-              flush=True)
-
-
 def stress_levels(n):
     return (n // 4, n // 16, n // 32, n // 128)
 
@@ -133,66 +92,112 @@ def sizes(N):
     return [c for c in (2, 4, 8) if -(-N // c) <= fps_mod.BLOCK_MAX_N]
 
 
-def fps_over(xyz, npoint, c):
-    """The ``fps_cluster`` entry at a cluster of ``c`` blocks."""
-    out = torch.empty((xyz.shape[0], npoint), dtype=torch.int32, device=xyz.device)
-    _lib.launch("fps_cluster", xyz.data_ptr(), xyz.shape[0], xyz.shape[1], npoint, c,
-                out.data_ptr(), _lib.stream(xyz))
-    return out
-
-
-def fps_pyramid_over(xyz, levels, c):
-    """The ``fps_pyramid_cluster`` entry at a cluster of ``c`` blocks."""
-    out = torch.empty(xyz.shape[0] * sum(levels), dtype=torch.int32, device=xyz.device)
-    lv = torch.tensor(levels, dtype=torch.int32)
-    _lib.launch("fps_pyramid_cluster", xyz.data_ptr(), xyz.shape[0], xyz.shape[1],
-                lv.data_ptr(), len(levels), c, out.data_ptr(), _lib.stream(xyz))
-    return out
-
-
-def time_all(dev) -> None:
+def calls(dev):
+    """(label, cloud, what, steps): the stress calls, largest first."""
     g = torch.Generator(device=dev).manual_seed(4)
-
-    def line(what, fn, steps):
-        ms = cs.median_ms(fn)
-        us = cs.device_us(fn)
-        per = f"{float(us) / steps:.4f}" if us != "not measured" else "not measured"
-        print(f"time {what}: {ms:.4f} ms by CUDA events ({1e3 * ms / steps:.4f} us a step), "
-              f"device us {us} ({per} us a step over {steps} steps)", flush=True)
-
-    xyz3 = torch.randn(3, 8192, 3, generator=g, device=dev) * 10
-    xyz2 = torch.randn(2, 8192, 3, generator=g, device=dev) * 10
-    line("fps one block (3, 8192) -> 2048", lambda: fps_mod.fps(xyz3, 2048), 2047)
-    lv = stress_levels(8192)
-    line(f"fps_pyramid one block (2, 8192) -> {lv}", lambda: fps_mod.fps_pyramid(xyz2, lv),
-         sum(n - 1 for n in lv))
-    for N in (12288, 16384, 32768):
-        xyz3 = torch.randn(3, N, 3, generator=g, device=dev) * 10
-        xyz2 = torch.randn(2, N, 3, generator=g, device=dev) * 10
+    out = []
+    for N in (32768, 16384, 12288):
+        tri = torch.randn(3, N, 3, generator=g, device=dev) * 10
+        pair = tri[:2].contiguous()
+        out.append((f"fps_cluster (3, {N}) -> {N // 4}", tri, N // 4, N // 4 - 1))
         lv = stress_levels(N)
-        order = sizes(N) + sizes(N)[::-1]
-        for c in order:
-            line(f"fps_cluster c{c} (3, {N}) -> {N // 4}",
-                 lambda: fps_over(xyz3, N // 4, c), N // 4 - 1)
-        for c in order:
-            line(f"fps_pyramid_cluster c{c} (2, {N}) -> {lv}",
-                 lambda: fps_pyramid_over(xyz2, lv, c), sum(n - 1 for n in lv))
+        out.append((f"fps_pyramid_cluster (2, {N}) -> {lv}", pair, lv, sum(n - 1 for n in lv)))
+    return out
+
+
+def check_bits(libs, dev) -> None:
+    """Each library's cluster routes against the plain versions at every
+    size, 3 launches each; raises on a mismatch."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    dup = torch.randn(2, 32768, 3, generator=g, device=dev) * 10
+    dup[:, dup.shape[1] // 2:] = dup[:, :dup.shape[1] // 2].clone()
+    cases = [(label, xyz, what) for label, xyz, what, _ in calls(dev) if xyz.shape[1] != 12288]
+    cases.append(("fps_cluster (2, 32768) -> 8192, duplicated halves", dup, 8192))
+    bad = []
+    for label, xyz, what in cases:
+        want = (torch.cat([i.reshape(-1) for i in fps_mod.fps_pyramid_plain(xyz, what)])
+                if isinstance(what, tuple) else fps_mod.fps_plain(xyz, what))
+        for tag, lib in libs.items():
+            for c in sizes(xyz.shape[1]):
+                same = [torch.equal(cs.launch_fps(lib, xyz, what, c).reshape(want.shape), want)
+                        for _ in range(3)]
+                print(f"bits {tag} c{c} {label}: equal to the plain version over 3 launches "
+                      f"{same}", flush=True)
+                if not all(same):
+                    bad.append((tag, c, label))
+    if bad:
+        raise SystemExit(f"cluster FPS differs from the plain version: {bad}")
+
+
+def compare_other(here_path, other, other_path, dev, reps) -> None:
+    """That tree's one-block kernels against this tree's: SASS, then time at
+    8192 points in turns."""
+    here_sass, there_sass = one_block_sass(here_path), one_block_sass(other_path)
+    for k in ("fps_kernel", "fps_pyramid_kernel"):
+        a, b = there_sass.get(k, []), here_sass.get(k, [])
+        diff = [(x, y) for x, y in zip(a, b) if x != y]
+        print(f"sass {k}: {len(a)} lines there, {len(b)} here, {len(diff)} differ", flush=True)
+        for x, y in diff[:10]:
+            print(f"  there: {x}\n  here:  {y}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    xyz6 = torch.randn(6, 8192, 3, generator=g, device=dev) * 10
+    xyz2 = xyz6[:2].contiguous()
+    lv = (2048, 512, 256, 64)
+    here_lv = torch.cat([t.reshape(-1) for t in fps_mod.fps_pyramid(xyz2, lv)])
+    same = (torch.equal(cs.launch_fps(other, xyz6, 2048), fps_mod.fps(xyz6, 2048))
+            and torch.equal(cs.launch_fps(other, xyz2, lv), here_lv))
+    print(f"other tree's one-block FPS bit-equal to this tree's: {same}", flush=True)
+    for what, there_fn, here_fn, steps in (
+            ("fps (6, 8192) -> 2048", lambda: cs.launch_fps(other, xyz6, 2048),
+             lambda: fps_mod.fps(xyz6, 2048), 2047),
+            (f"fps_pyramid (2, 8192) -> {lv}", lambda: cs.launch_fps(other, xyz2, lv),
+             lambda: fps_mod.fps_pyramid(xyz2, lv), sum(n - 1 for n in lv))):
+        ms = [cs.median_ms(f, reps) for f in (there_fn, here_fn, here_fn, there_fn)]
+        print(f"time {what}: ms there {ms[0]:.4f} / {ms[3]:.4f}, here {ms[1]:.4f} / {ms[2]:.4f}, "
+              f"in turns; us a step there {1e3 * ms[0] / steps:.4f} / {1e3 * ms[3] / steps:.4f}, "
+              f"here {1e3 * ms[1] / steps:.4f} / {1e3 * ms[2] / steps:.4f}", flush=True)
+
+
+def time_all(libs, dev, reps) -> None:
+    g = torch.Generator(device=dev).manual_seed(4)
+    xyz3 = torch.randn(3, 8192, 3, generator=g, device=dev) * 10
+    ms = cs.median_ms(lambda: fps_mod.fps(xyz3, 2048), reps)
+    print(f"time fps one block (3, 8192) -> 2048: {ms:.4f} ms ({1e3 * ms / 2047:.4f} us a step)",
+          flush=True)
+    tags = list(libs)
+    order = tags + tags[::-1]
+    for label, xyz, what, steps in calls(dev):
+        for c in sizes(xyz.shape[1]):
+            got = {t: [] for t in tags}
+            for t in order:
+                got[t].append(cs.median_ms(lambda: cs.launch_fps(libs[t], xyz, what, c), reps))
+            print(f"time c{c} {label}: " + "; ".join(
+                f"{t} {' / '.join(f'{m:.4f}' for m in got[t])} ms "
+                f"({' / '.join(f'{1e3 * m / steps:.4f}' for m in got[t])} us a step)"
+                for t in tags), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", metavar="TREE", help="another checkout whose one-block FPS "
-                    "kernels are compared (SASS) and timed beside this tree's")
+    ap.add_argument("--other", metavar="TREE", help="another checkout whose FPS kernels are "
+                    "held, compared (one-block SASS) and timed beside this tree's")
+    ap.add_argument("--reps", type=int, default=cs.REPS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fps_cluster_timing: no CUDA device", file=sys.stderr)
         return 2
     print(cs.card_line(), flush=True)
-    _lib._lib = build()[0]
-    dev = torch.device("cuda")
+    builds = {"here": start_build(ROOT, "here")}
     if args.other:
-        compare_other(args.other, dev)
-    time_all(dev)
+        builds = {"there": start_build(args.other, "there"), **builds}
+    built = {tag: finish() for tag, finish in builds.items()}
+    _lib._lib = built["here"][0]
+    dev = torch.device("cuda")
+    libs = {tag: lib for tag, (lib, _) in built.items()}
+    if args.other:
+        compare_other(built["here"][1], libs["there"], built["there"][1], dev, args.reps)
+    check_bits(libs, dev)
+    time_all(libs, dev, args.reps)
     print(cs.card_line(), flush=True)
     return 0
 

@@ -101,42 +101,52 @@ def _cluster_sizes(N):
     return [c for c in (2, 4, 8) if -(-N // c) <= fps_mod.BLOCK_MAX_N]
 
 
-@pytest.mark.parametrize("B,N,npoint,dup", [(2, 8193, 2048, False), (2, 12288, 12288, False),
-                                            (3, 16384, 4096, False), (2, 20000, 5000, True),
-                                            (3, 32768, 8192, False), (2, 32768, 4096, True),
-                                            (1, 65536, 2048, False)])
-def test_fps_cluster_kernel_equals_twin(card, B, N, npoint, dup):
-    """Above 8192 points, level 0 over a cluster: one ``fps_cluster`` launch
-    at the chosen size, then the entry at every size that held the cloud
-    when the size was chosen, each bit-equal
-    to the plain version; every point sampled at 12288, the cap (65536: 8
-    blocks of 8192 points), and clouds whose upper half repeats the lower
+def _dup_cloud(g, B, N, dup):
+    """(B, N, 3) on the CPU; with ``dup`` the upper half repeats the lower
     half, so every tie spans two blocks' spans and must go to the lower
     index."""
-    g = torch.Generator().manual_seed(22)
     xyz = _x(g, B, N, 3, scale=10.0)
     if dup:
         xyz[:, N // 2:] = xyz[:, :N - N // 2].clone()
-    xyz = xyz.to(card)
+    return xyz
+
+
+@pytest.mark.parametrize("B,N,npoint,dup", [(2, 8193, 2048, False), (2, 12288, 12288, False),
+                                            (3, 16384, 4096, False), (2, 20000, 5000, True),
+                                            (3, 32768, 8192, False), (2, 32768, 4096, True),
+                                            (2, 32768, 8192, True), (2, 32767, 8191, False),
+                                            (1, 65536, 2048, False)])
+def test_fps_cluster_kernel_equals_twin(card, B, N, npoint, dup):
+    """Above 8192 points, level 0 over a cluster: one ``fps_cluster`` launch
+    at the chosen size, then the entry at every size that holds the cloud
+    (2, 4, 8), each launched 3 times and each launch bit-equal to the plain
+    version (a slot read before its mbarrier completes shows only as a rare
+    mismatch); every point sampled at 12288, the cap (65536: 8 blocks of
+    8192 points), N not a multiple of the size (20000, 32767), and clouds
+    whose upper half repeats the lower half."""
+    g = torch.Generator().manual_seed(22)
+    xyz = _dup_cloud(g, B, N, dup).to(card)
     want = kernels.fps_plain(xyz, npoint)
     kernels.reset_launches()
     got = kernels.fps(xyz, npoint)
     assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"fps_cluster": 1}
     assert torch.equal(got, want)
     for c in _cluster_sizes(N):
-        assert torch.equal(_fps_over(xyz, npoint, c), want), c
+        for rep in range(3):
+            assert torch.equal(_fps_over(xyz, npoint, c), want), (c, rep)
     if dup:
         assert (got < N // 2).all()
 
 
-@pytest.mark.parametrize("N", [16384, 32768])
-def test_fps_pyramid_cluster_kernel_equals_twin(card, N):
+@pytest.mark.parametrize("N,dup", [(16384, False), (32768, False), (32768, True),
+                                   (20000, True), (32767, False)])
+def test_fps_pyramid_cluster_kernel_equals_twin(card, N, dup):
     """The encoder's pyramid at the stress ratios (n/4, n/16, n/32, n/128) in
     one launch, level 0 over a cluster and the later levels on its first
     block, at the chosen cluster size and through the entry at every size
-    that holds the cloud."""
+    that holds the cloud, 3 launches each."""
     g = torch.Generator().manual_seed(23)
-    xyz = _x(g, 2, N, 3, scale=10.0).to(card)
+    xyz = _dup_cloud(g, 2, N, dup).to(card)
     levels = (N // 4, N // 16, N // 32, N // 128)
     want = kernels.fps_pyramid_plain(xyz, levels)
     kernels.reset_launches()
@@ -144,8 +154,9 @@ def test_fps_pyramid_cluster_kernel_equals_twin(card, N):
     assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"fps_pyramid_cluster": 1}
     assert all(torch.equal(a, w) for a, w in zip(got, want))
     for c in _cluster_sizes(N):
-        assert all(torch.equal(a, w) for a, w in zip(_fps_pyramid_over(xyz, levels, c),
-                                                     want)), c
+        for rep in range(3):
+            assert all(torch.equal(a, w) for a, w in zip(_fps_pyramid_over(xyz, levels, c),
+                                                         want)), (c, rep)
 
 
 def test_knn_kernels_at_the_stress_shapes(card):

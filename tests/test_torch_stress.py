@@ -123,15 +123,64 @@ def test_fps_cluster_refuses_what_a_block_cannot_hold(launches, levels):
     assert not launches
 
 
+def _constants(src):
+    """The ``constexpr`` ints of a CUDA source, evaluated in order."""
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        env[name] = int(eval(expr.replace("/", "//"), {}, env))
+    return env
+
+
 def test_fps_cluster_constants_match_the_kernel_source():
-    src = FPS_SOURCE.read_text()
-
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-
-    assert fps.BLOCK_MAX_N == const("kMaxThreads") * 32
-    assert fps.CLUSTER == const("kMaxCluster") == 8
+    """The wrapper's sizes against the kernel's, and the exchange's layout:
+    an entry of 20 bytes (distance bits, global index, x, y, z) in a room a
+    whole number of 16-byte stores wide, a slot for each warp of the cluster
+    in each parity, the two mbarriers on 8 bytes after the slots, the bytes
+    a step within an mbarrier's tx-count, and the largest cluster launch (8
+    blocks of 8192 points, a pyramid whose level 1 takes 8192) within a
+    block's 227 KB."""
+    c = _constants(FPS_SOURCE.read_text())
+    assert fps.BLOCK_MAX_N == c["kMaxThreads"] * 32 == c["kMaxBlockN"]
+    assert fps.CLUSTER == c["kMaxCluster"] == 8
     assert fps.MAX_N == fps.CLUSTER * fps.BLOCK_MAX_N
+    assert c["kEntryBytes"] == 5 * 4 <= c["kEntryFloats"] * 4
+    assert c["kEntryFloats"] * 4 % 16 == 0
+    assert c["kSlotsPerParity"] == c["kMaxCluster"] * c["kMaxThreads"] // 32
+    slots = 2 * c["kSlotsPerParity"] * c["kEntryFloats"]
+    assert c["kExchangeFloats"] == slots + 4 and slots * 4 % 8 == 0
+    assert c["kSlotsPerParity"] * c["kEntryBytes"] < 2 ** 20
+    smem = 4 * (c["kExchangeFloats"] + c["kSlotFloats"] + 3 * 2 * fps.BLOCK_MAX_N)
+    assert smem <= 232448
+
+
+def _c_signature(name):
+    """ctypes argument types of ``mocopci_<name>`` as ``fps.cu`` declares it,
+    with each parameter's name."""
+    m = re.search(rf"MOCOPCI_API int mocopci_{name}\(([^)]*)\)", FPS_SOURCE.read_text())
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    return ([_lib._P if "*" in p else _lib._I for p in params],
+            [p.replace("*", " ").split()[-1] for p in params])
+
+
+@pytest.mark.parametrize("name,call", [
+    ("fps_cluster", lambda: fps.fps(torch.zeros(3, 32767, 3), 8191)),
+    ("fps_pyramid_cluster", lambda: fps.fps_pyramid(torch.zeros(2, 32767, 3),
+                                                    (8191, 2047, 1023, 255)))])
+def test_fps_cluster_launch_matches_the_c_signature(launches, name, call):
+    """The wrapper's arguments against ``fps.cu``'s C entry: the types and
+    order of the parameters as the source declares them, and the launch's
+    cluster size, cloud count and size, each block's span ceil(N / cluster)
+    within a block."""
+    call()
+    types, names = _c_signature(name)
+    assert _lib.SIGNATURES[name] == types
+    [(got, args, _)] = launches
+    assert got == name and len(args) == len(names)
+    arg = dict(zip(names, args))
+    assert names[-1] == "stream" and arg["stream"] == 0    # the fixture's stream
+    assert arg["cluster"] == fps.CLUSTER and arg["N"] == 32767
+    assert arg["B"] == (3 if name == "fps_cluster" else 2)
+    assert -(-arg["N"] // arg["cluster"]) <= fps.BLOCK_MAX_N
 
 
 def _calm(path, leaf):
