@@ -85,8 +85,13 @@ route ``cross_tail_wide`` at cross3 of the 32768-point forward, (1, 1024)
 queries of K = 32 over C = C2 = 256, within 1e-4 (1 + max |out|) of its
 plain version, and its wide backward ``cross_tail_bwd_wide`` there against
 ``cross_tail_bwd_plain`` (after the scatter, within 1e-4 over max(1,
-|value|)), its bits repeated, and forced at C = C2 = 64 against the tiled
-backward (d_rows and d_base bit-equal, dW and db within 1e-5 (1 + max)); the
+|value|)), its bits repeated, its grid, shared memory and partials logged
+(with ``--parent``, d_rows and d_base bit-equal to that tree's wide
+backward, the two timed in turns), its general form at (K, C, C2) = (32,
+128, 512) against the plain version, and forced at C = C2 = 64 against the
+tiled backward (d_rows and d_base bit-equal, dW and db within 1e-5 (1 +
+max)) at (1, 1024, 32) and at the 8192-point step's (6, 2048, 32), timed
+there beside the tiled route in turns; the
 train attention (forward and backward, rate 0.05 and 0) and the eval
 attention at the 32768-point calls over 8192 keys, (8 and 40, 8192, 8192,
 8), their bits repeated and their first 2 groups against the plain
@@ -759,6 +764,37 @@ def _bwd_blocks(tree, module):
         return int(re.search(r"^BWD_BLOCKS = (\d+)", f.read(), re.M).group(1))
 
 
+def bwd_wide_sizes(ct, B, N, K, C, C2):
+    """(partials, scratch floats) of a tree's wide backward as that tree's
+    wrapper (its module ``ct``) sizes them: its ``bwd_wide_scratch`` where it
+    has one, else blocks walking groups of ``BWD_WIDE_QUERIES`` with W
+    transposed ahead of their partials."""
+    if hasattr(ct, "bwd_wide_scratch"):
+        return ct.bwd_wide_scratch(B, N, C, C2, K)
+    last = min(ct.BWD_WIDE_BLOCKS, -(-B * N // ct.BWD_WIDE_QUERIES))
+    return last, C * C2 + last * (C * C2 + C2)
+
+
+def bwd_wide_call(entry, ct, tab, idx, base, w, out, amax, dout):
+    """(d_rows, d_base, dw, db) from a tree's wide backward C entry, its
+    outputs and scratch allocated as that tree's wrapper allocates them
+    (:func:`bwd_wide_sizes`)."""
+    B, M, C = tab.shape
+    N, K, C2 = idx.shape[1], idx.shape[2], w.shape[1]
+    dev = tab.device
+    last, work = bwd_wide_sizes(ct, B, N, K, C, C2)
+    d_rows = torch.empty((B, N, K, C), device=dev)
+    d_base = torch.empty((B, N, C), device=dev)
+    dwb = torch.empty(C * C2 + C2, device=dev)
+    scratch = torch.empty(work, device=dev)
+    if entry(tab.data_ptr(), idx.data_ptr(), base.data_ptr(), w.data_ptr(), out.data_ptr(),
+             amax.data_ptr(), dout.data_ptr(), d_rows.data_ptr(), d_base.data_ptr(),
+             dwb.data_ptr(), scratch.data_ptr(), B, M, N, K, C, C2, last,
+             torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("cross_tail_bwd_wide failed to launch")
+    return d_rows, d_base, dwb[:C * C2].view(C, C2), dwb[C * C2:]
+
+
 class Parent:
     """Another checkout's cost-volume tail (forward and backward), FPS, train
     attention forward, eval attention, transformer tail and Chamfer key kernels,
@@ -767,7 +803,8 @@ class Parent:
     pyramid by one launch a level and a gather between levels, and its
     cross_tail backward recomputes the max from the forward's output (no
     argmax), on that tree's grid (``BWD_BLOCKS``); its cross_tail forward
-    takes that tree's grid (``fwd_grid``) where its signature has one.  The
+    takes that tree's grid (``fwd_grid``) where its signature has one, and
+    its wide backward that tree's grid and scratch.  The
     attention forward is that tree's ``attention_train_fwd`` entry, or
     ``attention_train_fwd_wide`` for the wide route; the eval attention its
     ``attention`` entry, or ``attention_wide`` above 64 head dims where it
@@ -788,14 +825,11 @@ class Parent:
         spec.loader.exec_module(plib)
         self.sig = plib.SIGNATURES
         self.argmax = len(self.sig["cross_tail"]) >= 14
-        self.fwd_grid = None
-        if len(self.sig["cross_tail"]) == 15:
-            spec = importlib.util.spec_from_file_location(
-                "parent_cross_tail",
-                os.path.join(tree, "mocopci_torch", "kernels", "cross_tail.py"))
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            self.fwd_grid = mod.fwd_grid
+        spec = importlib.util.spec_from_file_location(
+            "parent_cross_tail", os.path.join(tree, "mocopci_torch", "kernels", "cross_tail.py"))
+        self.ct = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(self.ct)
+        self.fwd_grid = self.ct.fwd_grid if len(self.sig["cross_tail"]) == 15 else None
         self.bwd_blocks, self.tail_bwd_blocks = (_bwd_blocks(tree, name)
                                                  for name in ("cross_tail", "transformer_tail"))
         with open(os.path.join(tree, "mocopci_torch", "kernels", "fps.py")) as f:
@@ -807,7 +841,7 @@ class Parent:
             "attention_train_fwd_wide", "transformer_tail", "transformer_tail_general",
             "transformer_tail_bwd", "knn_approx", "attention", "attention_wide", "chamfer_pair",
             "knn", "fusion_pair", "fusion_pair_planes", "fusion_head_train_fwd",
-            "cross_tail_wide", "fps_cluster", "fps_pyramid_cluster"))
+            "cross_tail_wide", "fps_cluster", "fps_pyramid_cluster", "cross_tail_bwd_wide"))
 
     def _call(self, name, *args):
         if getattr(self.lib, f"mocopci_{name}")(*args, torch.cuda.current_stream().cuda_stream):
@@ -861,6 +895,12 @@ class Parent:
         self._call("cross_tail_wide", tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
                    w.data_ptr(), b.data_ptr(), out.data_ptr(), 0, B, M, N, K, C, C2, nblk)
         return out
+
+    def cross_tail_bwd_wide(self, tab, idx, base, w, out, amax, dout):
+        """(d_rows, d_base, dw, db) from that tree's wide backward
+        (:func:`bwd_wide_call`)."""
+        return bwd_wide_call(self.lib.mocopci_cross_tail_bwd_wide, self.ct, tab, idx, base, w,
+                             out, amax, dout)
 
     def attention(self, q, k, v, scale):
         G, N, D = q.shape
@@ -1929,18 +1969,30 @@ def check_stress_kernels(kernels, dev, rows, parent=None):
             (tab.numel() + base.numel() + w.numel() + b.numel() + out.numel()) * F32
             + idx.numel() * I32, B * N * K * (2 * C * C + 2 * C + 3 * C),
             float((got - out).abs().max()), 1e-4 * (1 + float(out.abs().max())))
-    check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax)
+    check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax, parent)
     check_long_attention(kernels, gen, rows, cfg)
 
 
-def check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax):
+def _lib_entry(name):
+    """This tree's C entry ``mocopci_<name>`` (the loaded kernel library)."""
+    from mocopci_torch.kernels import _lib
+
+    return getattr(_lib.load(), f"mocopci_{name}")
+
+
+def check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax, parent=None):
     """The cost-volume tail's wide backward ``cross_tail_bwd_wide`` at cross3
     of the 32768-point step, (1, 1024, 32) at C = C2 = 256, from the wide
-    forward's argmax: its bits repeated, its gradients against
-    ``cross_tail_bwd_plain`` (the rows' gradient after its scatter into the
-    table, as the twin splits a tie evenly) within 1e-4 over max(1, |value|).
-    Then both backward routes at C = C2 = 64, the wide one forced: d_rows and
-    d_base bit-equal, dW and db within 1e-5 (1 + max |value|)."""
+    forward's argmax: its grid, shared memory and partials logged, its bits
+    repeated, its gradients against ``cross_tail_bwd_plain`` (the rows'
+    gradient after its scatter into the table, as the twin splits a tie
+    evenly) within 1e-4 over max(1, |value|); with ``parent``, where that
+    tree has a wide backward, its d_rows and d_base held bit-equal to that
+    tree's and the two timed in turns.  Its general form at (K, C, C2) =
+    (32, 128, 512) against the plain version the same way, its bits
+    repeated.  Then both backward routes at C = C2 = 64, the wide one forced: d_rows and d_base bit-equal, dW and db within
+    1e-5 (1 + max |value|), at (1, 1024, 32) and at the 8192-point step's
+    (6, 2048, 32), where the two routes are timed in turns."""
     scatter_add = importlib.import_module("mocopci_torch.kernels.scatter_add")
     dev = tab.device
 
@@ -1952,6 +2004,13 @@ def check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax):
     N, K, C2 = idx.shape[1], idx.shape[2], w.shape[1]
     if ct.bwd_route(K, C, C2) != "cross_tail_bwd_wide":
         raise SystemExit("cross_tail: cross3 of the 32768-point step left the wide backward")
+    spans, scratch = ct.bwd_wide_scratch(B, N, C, C2, K)
+    slices = -(-C // ct.BWD_WIDE_SLICE)
+    log(f"stress cross_tail_bwd_wide: grid {slices} channel slices x {spans} query spans = "
+        f"{slices * spans} blocks of {32 * ct.BWD_WIDE_QUERIES} threads, shared memory "
+        f"{ct._bwd_wide_smem(K, C2)} B a block, {spans} partials "
+        f"({spans * (C * C2 + C2) * F32 / 2 ** 20:.2f} MiB; scratch with the queries' orders "
+        f"{scratch * F32 / 2 ** 20:.2f} MiB)")
     out = ct.cross_tail_fwd(tab, idx, base, w, b, amax)
     dout = torch.randn(B, N, C2, generator=gen, device=dev)
     got = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
@@ -1962,39 +2021,101 @@ def check_stress_tail_bwd(kernels, ct, gen, rows, tab, idx, base, w, b, amax):
         f"{same}; d_tab/d_base/dw/db error over max(1, |value|) {err:.3e} (tol 1e-4)")
     if not same:
         raise SystemExit("cross_tail_bwd_wide: a run did not repeat its bits")
+    if parent is not None and "cross_tail_bwd_wide" in parent.sig:
+        # both trees' C entries, each with its wrapper's allocations and no
+        # Python checks, so that the turns time the kernels and not the
+        # wrappers' host work
+        entry = _lib_entry("cross_tail_bwd_wide")
+        theirs = parent.cross_tail_bwd_wide(tab, idx, base, w, out, amax, dout)
+        same = bits_equal(theirs[:2], got[:2])
+        gap = max(float((a - t).abs().max()) / (1 + float(t.abs().max()))
+                  for a, t in zip(got[2:], theirs[2:]))
+        log(f"stress cross_tail_bwd_wide: d_rows and d_base bit-equal to the parent's {same}, "
+            f"dW and db within {gap:.3e} (1 + max); the C entries "
+            + beside(lambda: parent.cross_tail_bwd_wide(tab, idx, base, w, out, amax, dout),
+                     lambda: bwd_wide_call(entry, ct, tab, idx, base, w, out, amax, dout)))
+        if not same:
+            raise SystemExit("cross_tail_bwd_wide: d_rows or d_base differ from the parent's")
     add_row(rows, "cross_tail_bwd_wide", ct.SOURCE, ct.REPLACES_BWD,
             lambda: ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout),
             lambda: ct.cross_tail_bwd_plain(tab, idx, base, w, b, dout), None,
             *cross_bwd_work(B, M, N, K, C, C2), err, 1e-4)
 
+    # the general form, where the bucketed one does not fit: C2 = 512 at C = 128
+    Cg, C2g = 128, 512
+    if (ct.bwd_route(K, Cg, C2g), ct.bwd_wide_form(K, Cg, C2g)) != ("cross_tail_bwd_wide",
+                                                                     "general"):
+        raise SystemExit("cross_tail: (K, C, C2) = (32, 128, 512) left the wide general form")
+    tab_g = torch.randn(B, M, Cg, generator=gen, device=dev)
+    base_g = torch.randn(B, N, Cg, generator=gen, device=dev)
+    w_g = torch.randn(Cg, C2g, generator=gen, device=dev) * Cg ** -0.5
+    b_g = torch.randn(C2g, generator=gen, device=dev) * 0.1
+    amax_g = torch.empty((B, N, C2g), dtype=ct.argmax_dtype(K), device=dev)
+    out_g = ct.cross_tail_fwd(tab_g, idx, base_g, w_g, b_g, amax_g)
+    dout_g = torch.randn(B, N, C2g, generator=gen, device=dev)
+
+    def general():
+        return ct.cross_tail_bwd(tab_g, idx, base_g, w_g, out_g, amax_g, dout_g)
+
+    kernels.reset_launches()
+    got_g = general()
+    launched = kernels.LAUNCHES["cross_tail_bwd_wide"]
+    same = bits_equal(got_g, general())
+    want_g = ct.cross_tail_bwd_plain(tab_g, idx, base_g, w_g, b_g, dout_g)
+    err_g = rel_err([d_tab(got_g[0], idx, M), *got_g[1:]], [d_tab(want_g[0], idx, M), *want_g[1:]])
+    log(f"stress cross_tail_bwd_wide, its general form at (B, N, K, C, C2) {(B, N, K, Cg, C2g)} "
+        f"({ct.bwd_wide_scratch(B, N, Cg, C2g, K)[0]} blocks): repeat bit-equal {same}; "
+        f"d_tab/d_base/dw/db error over max(1, |value|) {err_g:.3e} (tol 1e-4); "
+        f"{median_ms(general):.4f} ms, device us {device_us(general)}")
+    if not same or err_g > 1e-4 or launched != 1:
+        raise SystemExit("cross_tail_bwd_wide: its general form failed its check")
+
+    def forced(fn):
+        def run():
+            saved = ct.bwd_route
+            ct.bwd_route = lambda *a: "cross_tail_bwd_wide"
+            try:
+                return fn()
+            finally:
+                ct.bwd_route = saved
+        return run
+
     # both routes where both fit: C = C2 = 64, the wide one forced
-    C = C2 = 64
-    tab64 = torch.randn(B, M, C, generator=gen, device=dev)
-    base64 = torch.randn(B, N, C, generator=gen, device=dev)
-    w64 = torch.randn(C, C, generator=gen, device=dev) * C ** -0.5
-    b64 = torch.randn(C, generator=gen, device=dev) * 0.1
-    idx64 = idx.clone()
-    idx64[:, :, 1] = idx64[:, :, 0]           # a duplicate neighbour: every max ties
-    amax64 = torch.empty((B, N, C2), dtype=ct.argmax_dtype(K), device=dev)
-    out64 = ct.cross_tail_fwd(tab64, idx64, base64, w64, b64, amax64)
-    dout64 = torch.randn(B, N, C2, generator=gen, device=dev)
-    tiled = ct.cross_tail_bwd(tab64, idx64, base64, w64, out64, amax64, dout64)
-    saved = ct.bwd_route
-    ct.bwd_route = lambda *a: "cross_tail_bwd_wide"
-    try:
+    for B, M, N in ((B, M, N), (6, 2048, 2048)):
+        C = C2 = 64
+        tab64 = torch.randn(B, M, C, generator=gen, device=dev)
+        base64 = torch.randn(B, N, C, generator=gen, device=dev)
+        w64 = torch.randn(C, C, generator=gen, device=dev) * C ** -0.5
+        b64 = torch.randn(C, generator=gen, device=dev) * 0.1
+        idx64 = torch.randint(0, M, (B, N, K), generator=gen, device=dev, dtype=torch.int32)
+        idx64[:, :, 1] = idx64[:, :, 0]       # a duplicate neighbour: every max ties
+        amax64 = torch.empty((B, N, C2), dtype=ct.argmax_dtype(K), device=dev)
+        out64 = ct.cross_tail_fwd(tab64, idx64, base64, w64, b64, amax64)
+        dout64 = torch.randn(B, N, C2, generator=gen, device=dev)
+
+        def tiled_fn():
+            return ct.cross_tail_bwd(tab64, idx64, base64, w64, out64, amax64, dout64)
+
+        wide_fn = forced(tiled_fn)
+        tiled = tiled_fn()
         kernels.reset_launches()
-        wide = ct.cross_tail_bwd(tab64, idx64, base64, w64, out64, amax64, dout64)
+        wide = wide_fn()
         launched = kernels.LAUNCHES["cross_tail_bwd_wide"]
-    finally:
-        ct.bwd_route = saved
-    same = bits_equal(wide[:2], tiled[:2])
-    gap = max(float((a - t).abs().max()) / (1 + float(t.abs().max()))
-              for a, t in zip(wide[2:], tiled[2:]))
-    log(f"stress cross_tail_bwd_wide forced at (B, N, K, C, C2) {(B, N, K, C, C2)}: d_rows and "
-        f"d_base bit-equal to the tiled backward's {same}; dW, db within {gap:.3e} (1 + max) "
-        f"(tol 1e-5)")
-    if not same or gap > 1e-5 or launched != 1:
-        raise SystemExit("cross_tail_bwd_wide: differs from the tiled backward")
+        same = bits_equal(wide[:2], tiled[:2])
+        gap = max(float((a - t).abs().max()) / (1 + float(t.abs().max()))
+                  for a, t in zip(wide[2:], tiled[2:]))
+        log(f"stress cross_tail_bwd_wide forced at (B, N, K, C, C2) {(B, N, K, C, C2)} "
+            f"({-(-C // ct.BWD_WIDE_SLICE)} x {ct.bwd_wide_spans(B, N, C)} blocks): d_rows and "
+            f"d_base bit-equal to the tiled backward's {same}; dW, db within {gap:.3e} (1 + max) "
+            f"(tol 1e-5)")
+        if not same or gap > 1e-5 or launched != 1:
+            raise SystemExit("cross_tail_bwd_wide: differs from the tiled backward")
+        if B == 6:
+            t = [median_ms(f) for f in (tiled_fn, wide_fn, wide_fn, tiled_fn)]
+            log(f"stress cross_tail_bwd_wide forced at {(B, N, K, C, C2)}: the tiled route "
+                f"{t[0]:.4f} / {t[3]:.4f} ms against the wide {t[1]:.4f} / {t[2]:.4f} ms in "
+                f"turns; device us {device_us(tiled_fn)} against {device_us(wide_fn)}; bound "
+                f"{bound(*cross_bwd_work(B, M, N, K, C, C2))[0]:.5f} ms")
 
 
 # the 32768-point step's attentions over 8192 keys: the EI injector and
@@ -2897,7 +3018,7 @@ KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                                                    "(both routes)",
                   "attention_train_bwd_wide_kernel": "attention_train_bwd_wide",
                   "cross_tail_bwd_kernel": "cross_tail_bwd",
-                  "cross_tail_bwd_wide_": "cross_tail_bwd_wide",   # its transpose and sum too
+                  "cross_tail_bwd_wide_": "cross_tail_bwd_wide",   # every launch of the route
                   "transformer_tail_bwd_kernel": "transformer_tail_bwd",
                   "transformer_tail_bwd_general_kernel": "transformer_tail_bwd_general",
                   "fusion_pair_planes_kernel": "fusion_pair_planes",

@@ -60,24 +60,30 @@
 //
 // The backward's wide route (cross_tail_bwd_wide) takes the tails whose
 // tiled footprint (W and dW transposed, a query's rows and their gradient)
-// passes a block's shared memory: C = C2 = 256 at cross3 of a 32768-point
-// cloud, about 594 KB.  A fixed grid of blocks walks groups of kBQ queries
-// (group u = blockIdx.x + i*gridDim.x), a thread a channel c:
-//   gv = dout * leaky'(pre1 at j*) and j* of the group's outputs go to
-//     shared memory;
-//   c2 ascending, dx[q][j*(q, c2)][c] = fmaf(gv[q][c2], W[c, c2], dx) for
-//     the group's queries, W read once a group from a transposed copy in
-//     global memory (L2-resident, coalesced over c): the tiled kernel's
-//     chain, so its d_rows and d_base bit for bit;
-//   row j ascending, p = row + base (the row read from the table), d = dx *
-//     leaky'(p) into d_rows and d_base, and x0 = leaky(p) in dx's place;
-//   dW[c, c2] += x0[q][j*(q, c2)][c] gv[q][c2] over the group's queries in
-//     order, db[c2] += gv[q][c2], into the block's partial (dW transposed),
-//     which stays in global memory across its groups, each entry read and
-//     written by one thread.
-// The partials are summed in block order (deterministic), dW transposed
-// back on the way.  Shared memory: the group's x, kBQ * K * C floats (128 KB
-// at K = 32, C = 256), and its gv and j*.
+// does not pass a block's shared memory: C = C2 = 256 at cross3 of a
+// 32768-point cloud, about 594 KB.  Bytes bound it too (the rows' gradient);
+// the chains' FMA order is fixed by the tiled kernel's bits, so it runs on
+// FMAs at the rate shared memory feeds them.  Its bucketed form (C2 <= 256,
+// K <= 129 at C2 = 256, any C) is three launches:
+//   the order: a warp a query reads gv = dout * leaky'(pre1 at j*) and j*
+//     and sorts its output channels by (j*, c2), stable (__match_any_sync
+//     ranks over chunks of 32 c2, an exclusive scan of the bucket counts),
+//     each bucket padded to 4 entries, once for every channel slice;
+//   the main kernel: a block takes a slice of 32 channels c (a warp's
+//     lanes; W's slice staged transposed once, 33 KB at C2 = 256) by a span
+//     of groups of 8 queries (a warp each): 8 slices by 33 spans at (1,
+//     1024, 32, 256, 256), two blocks an SM.  Lane c runs each row's chain
+//     in a register over its bucket, acc = fmaf(gv, W[c, c2], acc) from 0,
+//     c2 ascending: the tiled kernel's chains, so its d_rows and d_base bit
+//     for bit; then x0 = leaky(row + base), and thread c2 adds dW[c, c2] +=
+//     x0[j*(q, c2)][c] gv[q][c2] for its 32 channels over the group's
+//     queries in order, in registers for the whole span, db in slice 0, one
+//     partial a span;
+//   the partials summed in span order (deterministic).
+// Where that footprint does not fit (C2 > 256, or a larger K at a small C),
+// its general form: groups of 4 queries a block, each chain into its row j*
+// in shared memory, W from a transposed copy in L2, per-block partials (see
+// cross_tail_bwd_wide_general_kernel): the same chains, so the same bits.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -517,10 +523,310 @@ __global__ void __launch_bounds__(kThreads) cross_tail_bwd_kernel(
   for (int e = tid; e < C2; e += kThreads) pb[C * C2 + e] = db[e];
 }
 
-constexpr int kBQ = 4;                  // the wide backward's queries a group
-constexpr int kBWThreads = 256;
+// The wide backward's blocks: a slice of kWS output channels c (a warp's
+// lanes) by a span of query groups, kWQ queries a group (a warp each).
+constexpr int kWS = 32;
+constexpr int kWSP = kWS + 1;            // W's staged row stride: conflict-free transposed stores
+constexpr int kWXS = kWS + 1;            // x0's row stride: conflict-free reads of rows j*(c2)
+constexpr int kWQ = 8;
+constexpr int kWThreadsB = kWQ * 32;
+constexpr int kWMaxC2 = 256;             // C2 <= 256: a warp's C2 / 32 chunks, a thread a c2 in dW
 
-__host__ __device__ inline size_t bwd_wide_smem_floats(int K, int C, int C2) {
+// (gv, offset) pairs a query: C2 rounded up to 4, so that a row is 16-byte aligned
+__host__ __device__ inline int bwd_wide_c2p(int C2) { return (C2 + 3) & ~3; }
+// bucket starts a query (K + 1, rounded up to 4)
+__host__ __device__ inline int bwd_wide_ke(int K) { return (K + 4) & ~3; }
+// a query's order: each bucket padded to a multiple of 4 entries, at most
+// 3 more a bucket, rounded up to 4
+__host__ __device__ inline int bwd_wide_sq(int K, int C2) { return (C2 + 3 * K + 3) & ~3; }
+// a query's rows (stride kWS as staged, kWXS as x0), rounded up to 4
+__host__ __device__ inline int bwd_wide_xq(int K) { return (K * kWXS + 3) & ~3; }
+
+// the main kernel's shared memory: a group's orders ((gv, offset) pairs in
+// padded bucket and in c2 order), its bucket starts, its rows by the slice
+// (then x0) and W's slice transposed with a row of zeros
+__host__ __device__ inline size_t bwd_wide_smem_floats(int K, int C2) {
+  return 2 * static_cast<size_t>(kWQ) * (bwd_wide_sq(K, C2) + bwd_wide_c2p(C2)) +
+         static_cast<size_t>(kWQ) * (bwd_wide_ke(K) + bwd_wide_xq(K)) +
+         static_cast<size_t>(C2 + 1) * kWSP;
+}
+
+// the bucketed form takes (K, C2): C2 <= 256 and its footprint fits
+__host__ __device__ inline bool bwd_wide_bucketed(int K, int C2) {
+  return C2 <= kWMaxC2 && bwd_wide_smem_floats(K, C2) * sizeof(float) <= kMaxSmem;
+}
+
+// The order of each query n (a warp a query), once for every slice:
+//   nat[n][c2] = (gv, j* * kWXS), gv = dout * leaky'(pre1 at j*), zeros
+//     past C2 up to C2P (dW then adds exact zeros there);
+//   srt[n][i] = (gv, W's byte offset c2 * kWSP * 4) with (j*, c2)
+//     ascending, each bucket padded to a multiple of 4 entries by (0, W's
+//     row of zeros), and ends[n][j] the start of row j's bucket: a stable
+//     bucket sort, a count of each j* over the chunks of 32 c2 in order
+//     (__match_any_sync: a lane's rank among the lanes of its j*, the count
+//     added by the lowest lane), an exclusive scan of the padded counts,
+//     each c2 written at its j*'s start plus its rank.  A padding entry adds
+//     fmaf(-0, 0, acc) = -0 + acc = acc to a chain, for every acc, +0 and -0
+//     included.
+__global__ void __launch_bounds__(kWThreadsB) cross_tail_bwd_wide_order_kernel(
+    const float* __restrict__ out, const uint8_t* __restrict__ amax,
+    const float* __restrict__ dout, float2* __restrict__ srt, float2* __restrict__ nat,
+    int* __restrict__ ends, int BN, int K, int C2) {
+  extern __shared__ int bk[];                      // [kWQ][K + 1] bucket starts
+  const int lane = threadIdx.x & 31, wq = threadIdx.x >> 5;
+  const int n = blockIdx.x * kWQ + wq;
+  if (n >= BN) return;
+  const int C2P = bwd_wide_c2p(C2);
+  const unsigned lt = (1u << lane) - 1;
+  int* bq = bk + wq * (K + 1);
+  float2* nq = nat + static_cast<size_t>(n) * C2P;
+  float2* sq = srt + static_cast<size_t>(n) * bwd_wide_sq(K, C2);
+  for (int j = lane; j <= K; j += 32) bq[j] = 0;
+  int jr[kWMaxC2 / 32], rk[kWMaxC2 / 32];
+  float gr[kWMaxC2 / 32];
+#pragma unroll
+  for (int ch = 0; ch < kWMaxC2 / 32; ++ch) {      // every chunk's loads in flight at once
+    const int c2 = ch * 32 + lane;
+    jr[ch] = -1;
+    gr[ch] = 0.f;
+    if (c2 < C2) {
+      const size_t o = static_cast<size_t>(n) * C2 + c2;
+      jr[ch] = amax[o];
+      gr[ch] = out[o] >= 0.f ? dout[o] : 0.1f * dout[o];
+    }
+    if (c2 < C2P) nq[c2] = make_float2(gr[ch], __int_as_float(max(jr[ch], 0) * kWXS));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int ch = 0; ch < kWMaxC2 / 32; ++ch) {
+    rk[ch] = 0;
+    if (ch * 32 >= C2) continue;
+    const int j = jr[ch];
+    const unsigned same = __match_any_sync(0xffffffffu, j);
+    const int before = j >= 0 ? bq[j] : 0;
+    __syncwarp();
+    if (j >= 0 && (same & lt) == 0) bq[j] = before + __popc(same);
+    __syncwarp();
+    rk[ch] = before + __popc(same & lt);
+  }
+  int carry = 0;                     // exclusive scan of the padded counts
+  int* eq = ends + static_cast<size_t>(n) * bwd_wide_ke(K);
+  const float2 pad = make_float2(-0.f, __int_as_float(C2 * kWSP * 4));
+  for (int j0 = 0; j0 <= K; j0 += 32) {
+    const int j = j0 + lane;
+    const int cnt = j < K ? bq[j] : 0;
+    const int v = (cnt + 3) & ~3;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += t;
+    }
+    const int start = carry + incl - v;
+    if (j <= K) bq[j] = eq[j] = start;
+    for (int e = cnt; e < v; ++e) sq[start + e] = pad;
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int ch = 0; ch < kWMaxC2 / 32; ++ch)
+    if (jr[ch] >= 0)
+      sq[bq[jr[ch]] + rk[ch]] =
+          make_float2(gr[ch], __int_as_float((ch * 32 + lane) * kWSP * 4));
+}
+
+// Block (slice, span): channels c0 = blockIdx.x * kWS on, query groups
+// [g0, g1) of the span blockIdx.y (ceil(B * N / kWQ) groups split evenly
+// in order).  For each group:
+//   warp q stages its query's orders and bucket starts (16 bytes a copy)
+//     and its rows' slices at stride kWXS by cp.async;
+//   lane c runs each row j's chain in a register, acc = fmaf(gv, W[c, c2],
+//     acc) from 0 over its bucket, c2 ascending, 4 entries a step, then d =
+//     acc * leaky'(row + base) into d_rows and d_base (s += d, j
+//     ascending): the tiled kernel's chains, so its bits; and x0 =
+//     leaky(row + base) in the row's place;
+//   thread c2 adds dW[c, c2] += x0[j*(q, c2)][c] gv[q][c2] for its 32 c
+//     over the group's queries in order, in registers for the whole span,
+//     and db[c2] += gv[q][c2].
+// Then the span's partial, [dW (C, C2) | db (C2)] (db from slice 0), is written.
+__global__ void __launch_bounds__(kWThreadsB, 2) cross_tail_bwd_wide_kernel(
+    const float* __restrict__ tab, const int* __restrict__ idx,
+    const float* __restrict__ base, const float* __restrict__ w,
+    const float2* __restrict__ srt_g, const float2* __restrict__ nat_g,
+    const int* __restrict__ ends_g, float* __restrict__ d_rows, float* __restrict__ d_base,
+    float* __restrict__ partial, int BN, int M, int N, int K, int C, int C2) {
+  extern __shared__ __align__(16) float sm[];
+  const int C2P = bwd_wide_c2p(C2), SQ = bwd_wide_sq(K, C2), KE = bwd_wide_ke(K);
+  const int XQ = bwd_wide_xq(K);
+  float2* srt = reinterpret_cast<float2*>(sm);     // [kWQ][SQ] the order
+  float2* nat = srt + kWQ * SQ;                    // [kWQ][C2P] (gv, j* * kWXS), c2 order
+  int* ends = reinterpret_cast<int*>(nat + kWQ * C2P);     // [kWQ][KE] bucket starts
+  float* xs = reinterpret_cast<float*>(ends + kWQ * KE);   // [kWQ][XQ] rows, then x0
+  float* ws = xs + kWQ * XQ;                       // [C2 + 1][kWSP] W[c0 + c][c2] at [c2][c]
+  const int tid = threadIdx.x, lane = tid & 31, wq = tid >> 5;
+  const int c0 = blockIdx.x * kWS, c = c0 + lane;
+  const bool cok = c < C;
+  const int ngroups = mocopci::ceil_div(BN, kWQ);
+  const int g0 = static_cast<int>(static_cast<long long>(blockIdx.y) * ngroups / gridDim.y);
+  const int g1 = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * ngroups / gridDim.y);
+  for (int e = tid; e < kWS * C2; e += kWThreadsB) {
+    const int cl = e / C2, c2 = e - cl * C2;
+    ws[c2 * kWSP + cl] = c0 + cl < C ? w[static_cast<size_t>(c0 + cl) * C2 + c2] : 0.f;
+  }
+  if (tid < kWSP) ws[C2 * kWSP + tid] = 0.f;      // the padding entries' row
+  float dw[kWS];
+#pragma unroll
+  for (int i = 0; i < kWS; ++i) dw[i] = 0.f;
+  float dbv = 0.f;
+
+  for (int g = g0; g < g1; ++g) {
+    const int q0 = g * kWQ, nq = min(kWQ, BN - q0);
+    const int n = q0 + wq;
+    __syncthreads();                 // the last group's readers of xs and nat are done
+    if (wq < nq) {                   // this warp's query
+      const float bb = cok ? base[static_cast<size_t>(n) * C + c] : 0.f;
+      float2* sq = srt + wq * SQ;
+      int* eq = ends + wq * KE;
+      float* xq = xs + wq * XQ;
+      {                              // its orders and bucket starts, 16 bytes a copy
+        const float* so = reinterpret_cast<const float*>(srt_g + static_cast<size_t>(n) * SQ);
+        const float* no = reinterpret_cast<const float*>(nat_g + static_cast<size_t>(n) * C2P);
+        const float* ei = reinterpret_cast<const float*>(ends_g + static_cast<size_t>(n) * KE);
+        for (int e = lane; e < SQ / 2; e += 32)
+          mocopci::cp_async16(reinterpret_cast<float*>(sq) + 4 * e, so + 4 * e);
+        for (int e = lane; e < C2P / 2; e += 32)
+          mocopci::cp_async16(reinterpret_cast<float*>(nat + wq * C2P) + 4 * e, no + 4 * e);
+        for (int e = lane; e < KE / 4; e += 32)
+          mocopci::cp_async16(reinterpret_cast<float*>(eq) + 4 * e, ei + 4 * e);
+      }
+      // its rows' slices at stride kWXS, lane c a channel; lane l reads the
+      // index of rows j0 + l
+      const int* iq = idx + static_cast<size_t>(n) * K;
+      const float* tq = tab + static_cast<size_t>(n / N) * M * C + (cok ? c : 0);
+      for (int j0 = 0; j0 < K; j0 += 32) {
+        const int rj = j0 + lane < K ? iq[j0 + lane] : 0;
+        const int nr = min(32, K - j0);
+#pragma unroll 4
+        for (int j = 0; j < nr; ++j) {
+          const int r = __shfl_sync(0xffffffffu, rj, j);
+          mocopci::cp_async4z(xq + (j0 + j) * kWXS + lane, tq + static_cast<size_t>(r) * C, cok);
+        }
+      }
+      mocopci::cp_async_commit();
+      mocopci::cp_async_wait0();
+      __syncwarp();                  // the query's orders and rows are in place
+      // row j's chain over its bucket, c2 ascending, 4 entries a step; then
+      // its gradient and x0
+      float* dr = d_rows + static_cast<size_t>(n) * K * C + (cok ? c : 0);
+      const char* wb = reinterpret_cast<const char*>(ws + lane);
+      float* xr = xq + lane;
+      float s = 0.f;
+      for (int j = 0, i = 0; j < K; ++j, dr += C, xr += kWXS) {
+        const int e = eq[j + 1];
+        float acc = 0.f;
+        for (; i < e; i += 4) {
+          const float4 ta = *reinterpret_cast<const float4*>(sq + i);
+          const float4 tb = *reinterpret_cast<const float4*>(sq + i + 2);
+          acc = fmaf(ta.x, *reinterpret_cast<const float*>(wb + __float_as_int(ta.y)), acc);
+          acc = fmaf(ta.z, *reinterpret_cast<const float*>(wb + __float_as_int(ta.w)), acc);
+          acc = fmaf(tb.x, *reinterpret_cast<const float*>(wb + __float_as_int(tb.y)), acc);
+          acc = fmaf(tb.z, *reinterpret_cast<const float*>(wb + __float_as_int(tb.w)), acc);
+        }
+        const float p = *xr + bb;
+        const float d = acc * mocopci::dleaky(p);
+        *xr = mocopci::leaky(p);
+        if (cok) *dr = d;
+        s += d;
+      }
+      if (cok) d_base[static_cast<size_t>(n) * C + c] = s;
+    }
+    __syncthreads();                 // x0 of the group is complete
+    // dW: thread c2, its 32 channels, x0[q][j*(q, c2)] read across the lanes'
+    // rows without bank conflicts (stride kWXS) for K <= 32
+    if (tid < C2) {
+      for (int q = 0; q < nq; ++q) {
+        const float2 t = nat[q * C2P + tid];
+        const float* xr = xs + q * XQ + __float_as_int(t.y);
+#pragma unroll
+        for (int cl = 0; cl < kWS; ++cl) dw[cl] = fmaf(xr[cl], t.x, dw[cl]);
+        dbv += t.x;
+      }
+    }
+  }
+  float* pb = partial + static_cast<size_t>(blockIdx.y) * (static_cast<size_t>(C) * C2 + C2);
+  if (tid < C2) {
+#pragma unroll
+    for (int cl = 0; cl < kWS; ++cl)
+      if (c0 + cl < C) pb[static_cast<size_t>(c0 + cl) * C2 + tid] = dw[cl];
+    if (blockIdx.x == 0) pb[static_cast<size_t>(C) * C2 + tid] = dbv;
+  }
+}
+
+// dwb = [dW (C, C2) | db (C2)] = the sum of the parts partials in order
+// (deterministic), each partial [dW (C, C2) | db (C2)], or with dW
+// transposed ((C2, C), the general form's) where ``transposed``
+__global__ void __launch_bounds__(256) cross_tail_bwd_wide_sum_kernel(
+    const float* __restrict__ partial, float* __restrict__ dwb, int parts, int C, int C2,
+    bool transposed) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t E = static_cast<size_t>(C) * C2 + C2;
+  if (e >= static_cast<int>(E)) return;
+  float acc = 0.f;
+  for (int b = 0; b < parts; ++b) acc += partial[static_cast<size_t>(b) * E + e];
+  if (transposed && e < C * C2) {
+    const int c2 = e / C, c = e - c2 * C;
+    dwb[static_cast<size_t>(c) * C2 + c2] = acc;
+  } else {
+    dwb[e] = acc;
+  }
+}
+
+// work: the orders srt (B * N * SQ float2) and nat (B * N * C2P float2),
+// the bucket starts (B * N * KE ints), then the spans' partials
+cudaError_t run_bwd_wide(const float* tab, const int* idx, const float* base, const float* w,
+                         const float* out, const uint8_t* amax, const float* dout,
+                         float* d_rows, float* d_base, float* dwb, float* work, int B, int M,
+                         int N, int K, int C, int C2, int spans, cudaStream_t st) {
+  const int BN = B * N;
+  float2* srt = reinterpret_cast<float2*>(work);
+  float2* nat = srt + static_cast<size_t>(BN) * bwd_wide_sq(K, C2);
+  int* ends = reinterpret_cast<int*>(nat + static_cast<size_t>(BN) * bwd_wide_c2p(C2));
+  float* partial = reinterpret_cast<float*>(ends + static_cast<size_t>(BN) * bwd_wide_ke(K));
+  cross_tail_bwd_wide_order_kernel<<<mocopci::ceil_div(BN, kWQ), kWThreadsB,
+                                     kWQ * (K + 1) * sizeof(int), st>>>(
+      out, amax, dout, srt, nat, ends, BN, K, C2);
+  MOCOPCI_CHECK_LAUNCH();
+  const size_t smem = bwd_wide_smem_floats(K, C2) * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(cross_tail_bwd_wide_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(mocopci::ceil_div(C, kWS), spans);
+  cross_tail_bwd_wide_kernel<<<grid, kWThreadsB, smem, st>>>(
+      tab, idx, base, w, srt, nat, ends, d_rows, d_base, partial, BN, M, N, K, C, C2);
+  MOCOPCI_CHECK_LAUNCH();
+  cross_tail_bwd_wide_sum_kernel<<<mocopci::ceil_div(C * C2 + C2, 256), 256, 0, st>>>(
+      partial, dwb, spans, C, C2, false);
+  return cudaGetLastError();
+}
+
+// The general form, for the shapes whose footprint the bucketed form does
+// not fit (C2 > 256, or K past its limit at a small C): a fixed grid of
+// blocks walks groups of kBQ queries (group u = blockIdx.x + i*gridDim.x), a
+// thread a channel c:
+//   gv = dout * leaky'(pre1 at j*) and j* of the group's outputs go to
+//     shared memory;
+//   c2 ascending, dx[q][j*(q, c2)][c] = fmaf(gv[q][c2], W[c, c2], dx) for
+//     the group's queries, W read from a transposed copy in global memory
+//     (L2-resident, coalesced over c): the tiled kernel's chains, so its
+//     d_rows and d_base bit for bit;
+//   row j ascending, p = row + base, d = dx * leaky'(p) into d_rows and
+//     d_base, and x0 = leaky(p) in dx's place;
+//   dW[c, c2] += x0[q][j*(q, c2)][c] gv[q][c2] over the group's queries in
+//     order, db[c2] += gv[q][c2], into the block's partial (dW transposed),
+//     which stays in global memory across its groups.
+// Shared memory: the group's x, kBQ * K * C floats, and its gv and j*.
+constexpr int kBQ = 4;
+
+__host__ __device__ inline size_t bwd_wide_general_smem_floats(int K, int C, int C2) {
   return static_cast<size_t>(kBQ) * (static_cast<size_t>(K) * C + 2 * C2);
 }
 
@@ -534,7 +840,7 @@ __global__ void __launch_bounds__(256) cross_tail_bwd_wide_transpose_kernel(
 }
 
 template <typename IdxT>
-__global__ void __launch_bounds__(kBWThreads) cross_tail_bwd_wide_kernel(
+__global__ void __launch_bounds__(kThreads) cross_tail_bwd_wide_general_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx,
     const float* __restrict__ base, const float* __restrict__ wt,
     const float* __restrict__ out, const IdxT* __restrict__ amax,
@@ -551,15 +857,15 @@ __global__ void __launch_bounds__(kBWThreads) cross_tail_bwd_wide_kernel(
     const int q0 = u * kBQ, nq = min(kBQ, BN - q0);
     const bool first = u == static_cast<int>(blockIdx.x);
     __syncthreads();                  // the last group's readers are done
-    for (int e = tid; e < nq * C2; e += kBWThreads) {
+    for (int e = tid; e < nq * C2; e += kThreads) {
       const size_t o = static_cast<size_t>(q0) * C2 + e;
       gv[e] = out[o] >= 0.f ? dout[o] : 0.1f * dout[o];
       js[e] = static_cast<int>(amax[o]);
     }
-    for (int e = tid; e < nq * K * C; e += kBWThreads) xs[e] = 0.f;
+    for (int e = tid; e < nq * K * C; e += kThreads) xs[e] = 0.f;
     __syncthreads();
     // dx: each output channel's gradient lands on its one row j*, c2 ascending
-    for (int c = tid; c < C; c += kBWThreads) {
+    for (int c = tid; c < C; c += kThreads) {
       int c2 = 0;
       for (; c2 + 8 <= C2; c2 += 8) {     // 8 of W's entries in flight, then their chains
         float wv[8];
@@ -599,7 +905,7 @@ __global__ void __launch_bounds__(kBWThreads) cross_tail_bwd_wide_kernel(
     }
     __syncthreads();                  // x0 of the group is complete
     // dW[c, c2] (transposed: pb[c2 * C + c]) over the group's queries in order
-    for (int c = tid; c < C; c += kBWThreads) {
+    for (int c = tid; c < C; c += kThreads) {
       for (int c2 = 0; c2 < C2; ++c2) {
         float acc = first ? 0.f : pb[static_cast<size_t>(c2) * C + c];
         for (int q = 0; q < nq; ++q)
@@ -607,7 +913,7 @@ __global__ void __launch_bounds__(kBWThreads) cross_tail_bwd_wide_kernel(
         pb[static_cast<size_t>(c2) * C + c] = acc;
       }
     }
-    for (int c2 = tid; c2 < C2; c2 += kBWThreads) {
+    for (int c2 = tid; c2 < C2; c2 += kThreads) {
       float acc = first ? 0.f : pb[static_cast<size_t>(C) * C2 + c2];
       for (int q = 0; q < nq; ++q) acc += gv[q * C2 + c2];
       pb[static_cast<size_t>(C) * C2 + c2] = acc;
@@ -615,43 +921,27 @@ __global__ void __launch_bounds__(kBWThreads) cross_tail_bwd_wide_kernel(
   }
 }
 
-// dwb = [dW (C, C2) | db (C2)] = the sum of the nblk partials in block order,
-// each partial [dW transposed (C2, C) | db (C2)]
-__global__ void __launch_bounds__(256) cross_tail_bwd_wide_reduce_kernel(
-    const float* __restrict__ partial, float* __restrict__ dwb, int nblk, int C, int C2) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;   // e = c2 * C + c, then db
-  const size_t E = static_cast<size_t>(C) * C2 + C2;
-  if (e >= static_cast<int>(E)) return;
-  float acc = 0.f;
-  for (int b = 0; b < nblk; ++b) acc += partial[static_cast<size_t>(b) * E + e];
-  if (e < C * C2) {
-    const int c2 = e / C, c = e - c2 * C;
-    dwb[static_cast<size_t>(c) * C2 + c2] = acc;
-  } else {
-    dwb[e] = acc;
-  }
-}
-
+// work: W transposed (C * C2 floats), then the blocks' partials
 template <typename IdxT>
-cudaError_t run_bwd_wide(const float* tab, const int* idx, const float* base, const float* w,
-                         const float* out, const void* amax, const float* dout, float* d_rows,
-                         float* d_base, float* dwb, float* work, int B, int M, int N, int K,
-                         int C, int C2, int nblk, cudaStream_t st) {
-  const size_t smem = bwd_wide_smem_floats(K, C, C2) * sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = mocopci::allow_smem(cross_tail_bwd_wide_kernel<IdxT>, smem);
+cudaError_t run_bwd_wide_general(const float* tab, const int* idx, const float* base,
+                                 const float* w, const float* out, const void* amax,
+                                 const float* dout, float* d_rows, float* d_base, float* dwb,
+                                 float* work, int B, int M, int N, int K, int C, int C2,
+                                 int nblk, cudaStream_t st) {
+  const size_t smem = bwd_wide_general_smem_floats(K, C, C2) * sizeof(float);
+  cudaError_t err = mocopci::allow_smem(cross_tail_bwd_wide_general_kernel<IdxT>, smem);
   if (err != cudaSuccess) return err;
   float* wt = work;
   float* partial = work + static_cast<size_t>(C) * C2;
   cross_tail_bwd_wide_transpose_kernel<<<mocopci::ceil_div(C * C2, 256), 256, 0, st>>>(w, wt, C,
                                                                                         C2);
   MOCOPCI_CHECK_LAUNCH();
-  cross_tail_bwd_wide_kernel<IdxT><<<nblk, kBWThreads, smem, st>>>(
+  cross_tail_bwd_wide_general_kernel<IdxT><<<nblk, kThreads, smem, st>>>(
       tab, idx, base, wt, out, static_cast<const IdxT*>(amax), dout, d_rows, d_base, partial,
       B * N, M, N, K, C, C2);
   MOCOPCI_CHECK_LAUNCH();
-  cross_tail_bwd_wide_reduce_kernel<<<mocopci::ceil_div(C * C2 + C2, 256), 256, 0, st>>>(
-      partial, dwb, nblk, C, C2);
+  cross_tail_bwd_wide_sum_kernel<<<mocopci::ceil_div(C * C2 + C2, 256), 256, 0, st>>>(
+      partial, dwb, nblk, C, C2, true);
   return cudaGetLastError();
 }
 
@@ -749,19 +1039,34 @@ MOCOPCI_API int mocopci_cross_tail_bwd(const float* tab, const int* idx, const f
 
 // The backward's wide route (C = C2 = 256 at cross3 of a 32768-point cloud):
 // the same outputs as mocopci_cross_tail_bwd, d_rows and d_base bit for bit.
-// work: C * C2 + nblk * (C * C2 + C2) floats of scratch (W transposed, then
-// the block partials); nblk blocks walk groups of 4 queries (at most
-// ceil(B * N / 4) blocks, so that each writes its partial), reduced in
-// block order.
+// The bucketed form where its footprint fits (bwd_wide_bucketed: C2 <= 256,
+// K <= 129 at C2 = 256, any C): work is B * N * (2 * SQ + 2 * C2P + KE) +
+// parts * (C * C2 + C2) floats of scratch (bwd_wide_sq, bwd_wide_c2p,
+// bwd_wide_ke: the queries' orders and bucket starts, then the span
+// partials), a grid of ceil(C / 32) channel slices by parts query spans (1
+// <= parts <= ceil(B * N / 8), so that each span has a group of 8 queries).
+// Else the general form where its footprint fits
+// (bwd_wide_general_smem_floats): work is C * C2 + parts * (C * C2 + C2)
+// floats (W transposed, then the block partials), parts blocks walking
+// groups of 4 queries (1 <= parts <= ceil(B * N / 4)); amax int32 for K >
+// 255.  The partials are summed in order.
 MOCOPCI_API int mocopci_cross_tail_bwd_wide(const float* tab, const int* idx, const float* base,
                                             const float* w, const float* out, const void* amax,
                                             const float* dout, float* d_rows, float* d_base,
                                             float* dwb, float* work, int B, int M, int N, int K,
-                                            int C, int C2, int nblk, void* stream) {
-  if (nblk < 1 || nblk > mocopci::ceil_div(B * N, kBQ)) return cudaErrorInvalidValue;
+                                            int C, int C2, int parts, void* stream) {
+  if (K < 1 || C < 1 || C2 < 1 || parts < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return K <= 255 ? run_bwd_wide<uint8_t>(tab, idx, base, w, out, amax, dout, d_rows, d_base,
-                                          dwb, work, B, M, N, K, C, C2, nblk, st)
-                  : run_bwd_wide<int>(tab, idx, base, w, out, amax, dout, d_rows, d_base, dwb,
-                                      work, B, M, N, K, C, C2, nblk, st);
+  if (bwd_wide_bucketed(K, C2)) {
+    if (parts > mocopci::ceil_div(B * N, kWQ)) return cudaErrorInvalidValue;
+    return run_bwd_wide(tab, idx, base, w, out, static_cast<const uint8_t*>(amax), dout, d_rows,
+                        d_base, dwb, work, B, M, N, K, C, C2, parts, st);
+  }
+  if (parts > mocopci::ceil_div(B * N, kBQ) ||
+      bwd_wide_general_smem_floats(K, C, C2) * sizeof(float) > kMaxSmem)
+    return cudaErrorInvalidValue;
+  return K <= 255 ? run_bwd_wide_general<uint8_t>(tab, idx, base, w, out, amax, dout, d_rows,
+                                                  d_base, dwb, work, B, M, N, K, C, C2, parts, st)
+                  : run_bwd_wide_general<int>(tab, idx, base, w, out, amax, dout, d_rows, d_base,
+                                              dwb, work, B, M, N, K, C, C2, parts, st);
 }

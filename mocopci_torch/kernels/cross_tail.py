@@ -20,10 +20,16 @@ takes the declared route ``cross_tail_wide`` (:func:`fwd_route`): a block a
 query, the same chains, so the same bits and argmax.  The backward likewise
 (:func:`bwd_route`): where its tiled footprint (W and dW transposed, a
 query's rows and their gradient) does not fit, ``cross_tail_bwd_wide``
-takes groups of 4 queries a block, W read from a transposed copy in L2 and
-dW summed into per-block partials in global memory; its d_rows and d_base
-are the tiled kernel's bits, its dW and db the same sums in another
-grouping.
+takes it.  Its bucketed form (:func:`bwd_wide_form`; C2 <= 256) orders each
+query's output channels by (j*, c2) once (a stable bucket sort), then takes
+a slice of 32 channels by a span of query groups a block
+(:func:`bwd_wide_spans`), W's slice staged once, and walks each order in
+one pass, each row's chain in a register with c2 ascending: its d_rows and
+d_base are the tiled kernel's bits, its dW and db (accumulated in
+registers over a span, one partial a span, summed in span order) the same
+sums in another grouping.  Where that form's footprint does not fit, its
+general form walks groups of 4 queries a block, each chain into its row in
+shared memory: the same bits.
 """
 from __future__ import annotations
 
@@ -49,10 +55,17 @@ _FWD_ROWS = 128       # pair rows a chunk (csrc kFRows), in whole row groups of 
 _FWD_COLS = 64        # output channels a pass (csrc kFCols)
 # the wide route's fixed grid, eight blocks of 128 threads per SM
 WIDE_BLOCKS = 1056
-# the wide backward's fixed grid, one block per SM, each walking groups of
-# BWD_WIDE_QUERIES queries (csrc kBQ) and summing its dW / db partial
-BWD_WIDE_BLOCKS = 132
-BWD_WIDE_QUERIES = 4
+# the wide backward's grid: ceil(C / BWD_WIDE_SLICE) channel slices (csrc
+# kWS) by query spans, about two blocks per SM; a span walks groups of
+# BWD_WIDE_QUERIES queries (csrc kWQ, a warp each) and writes one dW / db
+# partial; C2 at most BWD_WIDE_MAX_C2 (csrc kWMaxC2).  Its general form:
+# at most BWD_WIDE_BLOCKS blocks walking groups of BWD_WIDE_GENERAL_QUERIES
+# queries (csrc kBQ), a partial a block
+BWD_WIDE_BLOCKS = 264
+BWD_WIDE_SLICE = 32
+BWD_WIDE_QUERIES = 8
+BWD_WIDE_MAX_C2 = 256
+BWD_WIDE_GENERAL_QUERIES = 4
 
 
 def _tail_pre(rows, base, w, b):
@@ -119,10 +132,67 @@ def _bwd_smem(K, C, C2):
     return (2 * K * C + 2 * C * C2 + C2 + C + 2 * C2) * 4
 
 
-def _bwd_wide_smem(K, C, C2):
+def _bwd_wide_smem(K, C2):
     """The wide backward's shared memory (csrc ``bwd_wide_smem_floats``): a
-    group's rows by C, then its gradients and argmax by C2."""
-    return BWD_WIDE_QUERIES * (K * C + 2 * C2) * 4
+    group's orders ((gv, offset) pairs by padded bucket, :func:`_bwd_wide_sq`,
+    and by c2, C2 rounded up to 4), its bucket starts (K + 1 rounded up to
+    4), its rows by the slice at stride 33 (rounded up to 4), and W's slice
+    (rows of 33) with a row of zeros."""
+    q, s = BWD_WIDE_QUERIES, BWD_WIDE_SLICE
+    return (2 * q * (_bwd_wide_sq(K, C2) + _up4(C2)) + q * (_up4(K + 1) + _up4(K * (s + 1)))
+            + (C2 + 1) * (s + 1)) * 4
+
+
+def _bwd_wide_general_smem(K, C, C2):
+    """The wide backward's general form's shared memory (csrc
+    ``bwd_wide_general_smem_floats``): a group's rows by C, then its
+    gradients and argmax by C2."""
+    return BWD_WIDE_GENERAL_QUERIES * (K * C + 2 * C2) * 4
+
+
+def bwd_wide_form(K: int, C: int, C2: int):
+    """The wide backward's form for (K, C, C2): "bucketed" for C2 <= 256
+    where its footprint fits (K <= 129 at C2 = 256, any C), else "general"
+    where that form's fits (csrc ``bwd_wide_bucketed``), else None."""
+    if C2 <= BWD_WIDE_MAX_C2 and _bwd_wide_smem(K, C2) <= _MAX_SMEM:
+        return "bucketed"
+    if _bwd_wide_general_smem(K, C, C2) <= _MAX_SMEM:
+        return "general"
+    return None
+
+
+def _up4(x):
+    return -(-x // 4) * 4
+
+
+def _bwd_wide_sq(K, C2):
+    """A query's order: each bucket padded to a multiple of 4 entries
+    (csrc ``bwd_wide_sq``)."""
+    return _up4(C2 + 3 * K)
+
+
+def bwd_wide_spans(B: int, N: int, C: int) -> int:
+    """The wide backward's query spans: about ``BWD_WIDE_BLOCKS`` blocks over
+    the channel slices, at most one a group of ``BWD_WIDE_QUERIES``."""
+    slices = -(-C // BWD_WIDE_SLICE)
+    return max(1, min(-(-B * N // BWD_WIDE_QUERIES), BWD_WIDE_BLOCKS // slices))
+
+
+def bwd_wide_scratch(B: int, N: int, C: int, C2: int, K: int):
+    """(partials, scratch floats) of the wide backward.  Bucketed: each
+    query's orders (:func:`_bwd_wide_sq` and C2 rounded up to 4 (gv, offset)
+    pairs) and its K + 1 bucket starts (rounded up to 4), then one dW / db
+    partial a span.  General: W transposed, then a partial a block, each
+    block a group of queries at least."""
+    form = bwd_wide_form(K, C, C2)
+    if form == "bucketed":
+        spans = bwd_wide_spans(B, N, C)
+        per_query = 2 * (_bwd_wide_sq(K, C2) + _up4(C2)) + _up4(K + 1)
+        return spans, B * N * per_query + spans * (C * C2 + C2)
+    if form == "general":
+        nblk = min(BWD_WIDE_BLOCKS, -(-B * N // BWD_WIDE_GENERAL_QUERIES))
+        return nblk, C * C2 + nblk * (C * C2 + C2)
+    raise ValueError(f"cross_tail backward: C={C}, C2={C2}, K={K} exceed shared memory")
 
 
 def _wide_smem(K, C):
@@ -144,11 +214,14 @@ def fwd_route(K: int, C: int, C2: int) -> str:
 
 def bwd_route(K: int, C: int, C2: int) -> str:
     """The backward's entry point for (K, C, C2): the tiled ``cross_tail_bwd``
-    where its shared memory fits, else ``cross_tail_bwd_wide``; raises,
-    before any launch, where neither fits."""
+    where its shared memory fits, else ``cross_tail_bwd_wide`` where one of
+    its forms fits (:func:`bwd_wide_form`: the bucketed one for C2 <= 256
+    and K <= 129 at C2 = 256, any C; else the general one, 4 queries' rows
+    and their gradients and argmax); raises, before any launch, where none
+    fits."""
     if _bwd_smem(K, C, C2) <= _MAX_SMEM:
         return "cross_tail_bwd"
-    if _bwd_wide_smem(K, C, C2) <= _MAX_SMEM:
+    if bwd_wide_form(K, C, C2):
         return "cross_tail_bwd_wide"
     raise ValueError(f"cross_tail backward: C={C}, C2={C2}, K={K} exceed shared memory")
 
@@ -205,18 +278,16 @@ def cross_tail_bwd(tab, idx, base, w, out, argmax, dout):
     d_rows = torch.empty((B, N, K, C), dtype=torch.float32, device=dev)
     d_base = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     dwb = torch.empty(C * C2 + C2, dtype=torch.float32, device=dev)
-    if route == "cross_tail_bwd":
-        nblk = min(BWD_BLOCKS, B * N)     # a block with no tile writes zero partials
-        work = torch.empty(nblk * (C * C2 + C2), dtype=torch.float32, device=dev)
-    else:
-        # every block takes a group, so every partial is written; W
-        # transposed before the partials
-        nblk = min(BWD_WIDE_BLOCKS, -(-B * N // BWD_WIDE_QUERIES))
-        work = torch.empty(C * C2 + nblk * (C * C2 + C2), dtype=torch.float32, device=dev)
+    if route == "cross_tail_bwd":     # a block with no tile writes zero partials
+        parts = min(BWD_BLOCKS, B * N)
+        floats = parts * (C * C2 + C2)
+    else:                              # a partial a span or block (bwd_wide_scratch)
+        parts, floats = bwd_wide_scratch(B, N, C, C2, K)
+    work = torch.empty(floats, dtype=torch.float32, device=dev)
     _lib.launch(route, tab.data_ptr(), idx.data_ptr(), base.data_ptr(),
                 w.data_ptr(), out.data_ptr(), argmax.data_ptr(), dout.data_ptr(),
                 d_rows.data_ptr(), d_base.data_ptr(), dwb.data_ptr(), work.data_ptr(),
-                B, M, N, K, C, C2, nblk, _lib.stream(tab))
+                B, M, N, K, C, C2, parts, _lib.stream(tab))
     return d_rows, d_base, dwb[:C * C2].view(C, C2), dwb[C * C2:]
 
 

@@ -461,49 +461,6 @@ def test_eval_kernels_at_the_stress_shapes(card, kernel):
     assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {kernel: 1}
 
 
-@pytest.mark.parametrize("N,K,C,C2,force", [(301, 32, 256, 256, False), (300, 4, 256, 256, False),
-                                            (301, 32, 64, 64, True), (50, 300, 8, 16, True)])
-def test_cross_tail_bwd_wide_matches_twin_and_the_tiled_bits(card, monkeypatch, N, K, C, C2,
-                                                             force):
-    """The wide backward at cross3's C = C2 = 256 (its route by size), at a
-    ragged N = 301 (groups of 4 queries) and K = 4; forced where the tiled
-    backward also fits, at C = C2 = 64 and K = 300 (an int32 argmax), where
-    its d_rows and d_base equal the tiled kernel's bits and its dW, db the
-    tiled sums within 1e-5 (1 + max); against the plain version after the
-    scatter, its bits repeated."""
-    ct = importlib.import_module("mocopci_torch.kernels.cross_tail")
-    from mocopci_torch.kernels.scatter_add import gather_backward
-
-    g = torch.Generator().manual_seed(14)
-    tab, base = _x(g, 2, 700, C).to(card), _x(g, 2, N, C).to(card)
-    w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
-    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32)
-    idx[:, :, 1 % K] = idx[:, :, 0]
-    idx = idx.to(card)
-    dout = _x(g, 2, N, C2).to(card)
-    amax = torch.empty((2, N, C2), dtype=ct.argmax_dtype(K), device=card)
-    out = ct.cross_tail_fwd(tab, idx, base, w, b, amax)
-    tiled = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout) if force else None
-    if force:
-        monkeypatch.setattr(ct, "bwd_route", lambda *a: "cross_tail_bwd_wide")
-    assert ct.bwd_route(K, C, C2) == "cross_tail_bwd_wide"
-    kernels.reset_launches()
-    got = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
-    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"cross_tail_bwd_wide": 1}
-    want = ct.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
-    d_tab = [gather_backward(r.reshape(2, N * K, C), idx.reshape(2, -1), 700)
-             for r in (got[0], want[0])]
-    torch.testing.assert_close(d_tab[0], d_tab[1], atol=1e-4, rtol=1e-4)
-    for a, c in zip(got[1:], want[1:]):
-        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
-    again = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
-    assert all(_bits_equal(a, c) for a, c in zip(got, again))
-    if force:
-        assert _bits_equal(got[0], tiled[0]) and _bits_equal(got[1], tiled[1])
-        for a, c in zip(got[2:], tiled[2:]):
-            assert float((a - c).abs().max()) <= 1e-5 * (1 + float(c.abs().max()))
-
-
 @pytest.mark.parametrize("N,K,D", [(300, 16, 64), (301, 4, 64), (2048, 16, 64), (300, 8, 64),
                                    (300, 16, 32)])
 def test_transformer_tail_kernel_matches_twin(card, N, K, D):
@@ -788,47 +745,84 @@ def test_cross_tail_bwd_kernel_matches_twin_with_ties(card, N, K, C, C2):
     assert all(_bits_equal(a, c) for a, c in zip(got, again))
 
 
-@pytest.mark.parametrize("N,K,C,C2,force", [(301, 32, 256, 256, False), (300, 4, 256, 256, False),
-                                            (301, 32, 64, 64, True), (50, 300, 8, 16, True)])
-def test_cross_tail_bwd_wide_matches_twin_and_the_tiled_bits(card, monkeypatch, N, K, C, C2,
-                                                             force):
-    """The wide backward at cross3's C = C2 = 256 (its route by size), at a
-    ragged N = 301 (groups of 4 queries) and K = 4; forced where the tiled
-    backward also fits, at C = C2 = 64 and K = 300 (an int32 argmax), where
-    its d_rows and d_base equal the tiled kernel's bits and its dW, db the
-    tiled sums within 1e-5 (1 + max); against the plain version after the
-    scatter, its bits repeated."""
-    ct = importlib.import_module("mocopci_torch.kernels.cross_tail")
-    from mocopci_torch.kernels.scatter_add import gather_backward
-
+def _wide_bwd_case(ct, card, B, N, K, C, C2, dup, force, monkeypatch):
+    """(the wide backward's outputs, the tiled backward's where ``force``,
+    inputs) at (B, N, K, C, C2): neighbour 1 a duplicate of neighbour 0
+    (``dup`` "one"), or every neighbour (``dup`` "all": every channel's max
+    ties at j = 0, one bucket); forced onto the wide route with
+    ``monkeypatch`` where ``force``."""
     g = torch.Generator().manual_seed(14)
-    tab, base = _x(g, 2, 700, C).to(card), _x(g, 2, N, C).to(card)
+    M = 700
+    tab, base = _x(g, B, M, C).to(card), _x(g, B, N, C).to(card)
     w, b = _x(g, C, C2, scale=C ** -0.5).to(card), _x(g, C2, scale=0.1).to(card)
-    idx = torch.randint(0, 700, (2, N, K), generator=g, dtype=torch.int32)
-    idx[:, :, 1 % K] = idx[:, :, 0]
+    idx = torch.randint(0, M, (B, N, K), generator=g, dtype=torch.int32)
+    if dup == "all":
+        idx[:] = idx[:, :, :1]
+    else:
+        idx[:, :, 1 % K] = idx[:, :, 0]
     idx = idx.to(card)
-    dout = _x(g, 2, N, C2).to(card)
-    amax = torch.empty((2, N, C2), dtype=ct.argmax_dtype(K), device=card)
+    dout = _x(g, B, N, C2).to(card)
+    amax = torch.empty((B, N, C2), dtype=ct.argmax_dtype(K), device=card)
     out = ct.cross_tail_fwd(tab, idx, base, w, b, amax)
     tiled = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout) if force else None
-    if force:
-        monkeypatch.setattr(ct, "bwd_route", lambda *a: "cross_tail_bwd_wide")
-    assert ct.bwd_route(K, C, C2) == "cross_tail_bwd_wide"
-    kernels.reset_launches()
-    got = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
-    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"cross_tail_bwd_wide": 1}
+    with monkeypatch.context() as m:
+        if force:
+            m.setattr(ct, "bwd_route", lambda *a: "cross_tail_bwd_wide")
+        assert ct.bwd_route(K, C, C2) == "cross_tail_bwd_wide"
+        kernels.reset_launches()
+        got = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
+        assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"cross_tail_bwd_wide": 1}
+        again = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
+    assert all(_bits_equal(a, c) for a, c in zip(got, again))
+    return got, tiled, (tab, idx, base, w, b, dout, M)
+
+
+_CT = importlib.import_module("mocopci_torch.kernels.cross_tail")
+# the largest K the wide backward's bucketed form admits at C2 = 256 (129)
+_WIDE_K = max(k for k in range(1, 256) if _CT._bwd_wide_smem(k, 256) <= _CT._MAX_SMEM)
+
+
+@pytest.mark.parametrize("B,N,K,C,C2,dup", [
+    (2, 301, 32, 256, 256, "one"),        # cross3's channels, a ragged last group
+    (2, 300, 4, 256, 256, "one"),
+    (2, 300, 32, 256, 256, "all"),        # every channel in one bucket
+    (2, 300, 1, 256, 256, "one"),         # K = 1
+    (2, 1021, 32, 256, 256, "one"),       # spans of 7 and 8 groups, the last group 2 queries
+    (2, 40, _WIDE_K, 300, 256, "one"),    # K at its limit; C past 256, a ragged last slice
+    (2, 50, 100, 8, 16, "one"),           # a slice of 8 channels, C2 = 16
+    (2, 41, 8, 30, 20, "one"),            # C % 4 != 0: 4-byte copies; C2 % 4 != 0
+    (2, 100, 32, 128, 512, "one"),        # C2 > 256: the general form by size
+    (2, 50, 300, 8, 16, "one"),           # K = 300: the general form, an int32 argmax
+])
+def test_cross_tail_bwd_wide_matches_twin_and_the_tiled_bits(card, monkeypatch, B, N, K, C, C2,
+                                                             dup):
+    """The wide backward against the plain version after the scatter (the
+    table's gradient within 1e-4, base, W and b within 1e-3 + 1e-4 rel), its
+    bits repeated, at each case's shape (forced where the tiled backward
+    also fits; the bucketed form, or the general one past its footprint);
+    then at the same (B, N, K) and neighbours with C = C2 = 64, forced (at
+    the case's own shape where no wide form fits C = C2 = 64, K = 300), its
+    d_rows and d_base bit-equal to the tiled kernel's and its dW, db within
+    1e-5 (1 + max) of the tiled sums."""
+    ct = _CT
+    from mocopci_torch.kernels.scatter_add import gather_backward
+
+    force = ct._bwd_smem(K, C, C2) <= ct._MAX_SMEM
+    got, tiled, (tab, idx, base, w, b, dout, M) = _wide_bwd_case(
+        ct, card, B, N, K, C, C2, dup, force, monkeypatch)
     want = ct.cross_tail_bwd_plain(tab, idx, base, w, b, dout)
-    d_tab = [gather_backward(r.reshape(2, N * K, C), idx.reshape(2, -1), 700)
+    d_tab = [gather_backward(r.reshape(B, N * K, C), idx.reshape(B, -1), M)
              for r in (got[0], want[0])]
     torch.testing.assert_close(d_tab[0], d_tab[1], atol=1e-4, rtol=1e-4)
     for a, c in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
-    again = ct.cross_tail_bwd(tab, idx, base, w, out, amax, dout)
-    assert all(_bits_equal(a, c) for a, c in zip(got, again))
-    if force:
-        assert _bits_equal(got[0], tiled[0]) and _bits_equal(got[1], tiled[1])
-        for a, c in zip(got[2:], tiled[2:]):
-            assert float((a - c).abs().max()) <= 1e-5 * (1 + float(c.abs().max()))
+    if ct.bwd_wide_form(K, 64, 64) is None:     # K = 300: the tiled bits at the case's shape
+        assert force
+    else:
+        got, tiled, _ = _wide_bwd_case(ct, card, B, N, K, 64, 64, dup, True, monkeypatch)
+    assert _bits_equal(got[0], tiled[0]) and _bits_equal(got[1], tiled[1])
+    for a, c in zip(got[2:], tiled[2:]):
+        assert float((a - c).abs().max()) <= 1e-5 * (1 + float(c.abs().max()))
 
 
 @pytest.mark.parametrize("N,K,D", [(300, 16, 64), (301, 4, 64), (2048, 16, 64), (300, 8, 64),

@@ -205,9 +205,10 @@ def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, route):
     padded to 4; cross3 of a 32768-point cloud is (32, 256, 256)); past that too the
     forward and the autograd forward are refused before any launch.  The
     autograd forward that needs a gradient is refused before any launch
-    where no backward route fits (the wide backward's footprint is 4
-    queries' rows and their gradients and argmax: it fits at (32, 256, 256)
-    and not at (64, 256, 256)); at (4, 192, 64) the tiled backward fits."""
+    where no backward route fits (the wide backward's bucketed footprint is
+    8 queries' rows of a 32-channel slice, W's slice and the channel orders,
+    for C2 <= 256, its general one 4 queries' rows by C: one fits at (32,
+    256, 256) and (64, 256, 256)); at (4, 192, 64) the tiled backward fits."""
     assert (cross_tail._fwd_smem(K, C, C2) <= cross_tail._MAX_SMEM) == (route == "cross_tail")
     tab, idx, base, w, b = _tail_inputs(K=K, C=C, C2=C2)
     if route is None:
@@ -223,7 +224,7 @@ def test_cross_tail_fwd_refuses_past_shared_memory(launches, K, C, C2, route):
               else min(cross_tail.WIDE_BLOCKS, 2 * 40))
     assert launches[0][1][6:14] == (0, 2, 50, 40, K, C, C2, blocks)
     if (cross_tail._bwd_smem(K, C, C2) <= cross_tail._MAX_SMEM
-            or cross_tail._bwd_wide_smem(K, C, C2) <= cross_tail._MAX_SMEM):
+            or cross_tail.bwd_wide_form(K, C, C2) is not None):
         cross_tail.cross_tail(tab, idx, base, w.requires_grad_(), b)
         assert [name for name, _ in launches] == [route, route]
         assert launches[1][1][6] != 0             # the argmax the backward reads

@@ -206,6 +206,9 @@ def _tail_leaves(K, C, C2, N=1024):
 @pytest.mark.parametrize("K,C,C2,routes", [
     (32, 256, 256, ["cross_tail_wide", "cross_tail_bwd_wide"]),   # cross3 at 32768 points
     (32, 64, 64, ["cross_tail", "cross_tail_bwd"]),                # L1 at every size
+    (64, 256, 256, ["cross_tail_wide", "cross_tail_bwd_wide"]),   # K = 64 at C = 256
+    (129, 256, 256, ["cross_tail_wide", "cross_tail_bwd_wide"]),  # the bucketed form's K limit
+    (32, 128, 512, ["cross_tail_wide", "cross_tail_bwd_wide"]),   # C2 > 256: the general form
 ])
 def test_cross_tail_takes_its_routes_both_ways(launches, K, C, C2, routes):
     tab, idx, base, w, b = _tail_leaves(K, C, C2)
@@ -216,20 +219,126 @@ def test_cross_tail_takes_its_routes_both_ways(launches, K, C, C2, routes):
     assert [name for name, _ in tails] == routes
     args = tails[1][1]
     assert args[11:18] == (1, 1024, 1024, K, C, C2, args[17])
-    if routes[1] == "cross_tail_bwd_wide":       # every block takes a group of 4 queries
+    form = cross_tail_mod.bwd_wide_form(K, C, C2)
+    if routes[1] == "cross_tail_bwd_wide" and form == "bucketed":   # 8 slices by 33 spans
+        assert args[17] == cross_tail_mod.bwd_wide_spans(1, 1024, C) == 33
+    elif routes[1] == "cross_tail_bwd_wide":     # the general form: a block a group of 4 queries
         assert args[17] == min(cross_tail_mod.BWD_WIDE_BLOCKS, 1024 // 4)
     assert tab.grad.shape == tab.shape and w.grad.shape == (C, C2)
 
 
-@pytest.mark.parametrize("K,C,C2,grad", [(64, 256, 256, True), (32, 2048, 2048, False)])
+@pytest.mark.parametrize("K,C,C2,grad", [(130, 256, 256, True), (64, 256, 512, True),
+                                         (32, 2048, 2048, False)])
 def test_cross_tail_refuses_a_shape_no_route_takes_before_any_launch(launches, K, C, C2, grad):
-    """K = 64 at C = C2 = 256: the wide forward fits, no backward does, so a
-    call that needs a gradient raises before the forward; C = 2048: no
-    forward fits."""
+    """K = 130 at C = C2 = 256 and K = 64 at (C, C2) = (256, 512): the wide
+    forward fits, no backward does (the wide backward's bucketed form stops
+    at K = 129 for C2 = 256 and takes C2 <= 256; its general form needs 4
+    queries' K * C rows, past shared memory at both), so a call that needs a
+    gradient raises before the forward; C = 2048: no forward fits."""
     tab, idx, base, w, b = _tail_leaves(K, C, C2, N=16)
     with torch.set_grad_enabled(grad), pytest.raises(ValueError, match="shared memory"):
         cross_tail_mod.cross_tail(tab, idx, base, w, b)
     assert not launches
+
+
+def _cross_tail_source():
+    return (CSRC / "cross_tail.cu").read_text()
+
+
+def _c_constants():
+    """The ``constexpr`` integers of ``cross_tail.cu`` declared one a line,
+    each evaluated in order (C's integer division)."""
+    consts = {}
+    for name, expr in re.findall(r"constexpr (?:int|size_t) (k\w+) = ([^;,]+);",
+                                 _cross_tail_source()):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    return consts
+
+
+def _c_function(name):
+    """A ``cross_tail.cu`` function of one ``return`` as a Python function of
+    its int parameters (casts dropped, C's integer division)."""
+    m = re.search(rf"inline \w+ {name}\(([^)]*)\) \{{\s*return ([^;]+);", _cross_tail_source())
+    params = [p.split()[-1] for p in m.group(1).split(",")]
+    body = re.sub(r"static_cast<\w+>", "", " ".join(m.group(2).split())).replace("/", "//")
+    calls = {f: _c_function(f) for f in re.findall(r"(\w+)\(", body) if f != name}
+    return lambda *a: eval(body, calls, {**_c_constants(), **dict(zip(params, a))})
+
+
+def test_cross_tail_bwd_wide_launch_matches_the_c_signature(launches):
+    """The wrapper's arguments against ``cross_tail.cu``'s C entry: the types
+    and order of the parameters as the source declares them, and the
+    launch's shape and spans at cross3 of the 32768-point step."""
+    from mocopci_torch.kernels import _lib
+
+    tab, idx, base, w, b = _tail_leaves(32, 256, 256)
+    cross_tail_mod.cross_tail(tab, idx, base, w, b).sum().backward()
+    m = re.search(r"MOCOPCI_API int mocopci_cross_tail_bwd_wide\(([^)]*)\)", _cross_tail_source())
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    assert _lib.SIGNATURES["cross_tail_bwd_wide"] == [_lib._P if "*" in p else _lib._I
+                                                      for p in params]
+    names = [p.replace("*", " ").split()[-1] for p in params]
+    [args] = [a for name, a, _ in launches if name == "cross_tail_bwd_wide"]
+    arg = dict(zip(names, args))
+    assert len(args) == len(names) and names[-1] == "stream" and arg["stream"] == 0
+    assert [arg[k] for k in ("B", "M", "N", "K", "C", "C2", "parts")] == [1, 1024, 1024, 32, 256,
+                                                                          256, 33]
+
+
+@pytest.mark.parametrize("B,N,K,C,C2", [(1, 1024, 32, 256, 256), (6, 2048, 32, 64, 64),
+                                        (2, 3, 129, 300, 256), (1, 9, 1, 8, 1),
+                                        (1, 1024, 32, 128, 512), (1, 50, 300, 8, 16)])
+def test_cross_tail_bwd_wide_grid_matches_the_c_constants(launches, monkeypatch, B, N, K, C, C2):
+    """The wrapper's slice, groups, C2 limit and both forms' shared memory
+    against the constants, ``bwd_wide_smem_floats`` and
+    ``bwd_wide_general_smem_floats`` of ``cross_tail.cu``.  Bucketed: its
+    spans within the C entry's bound (a group each) and about
+    BWD_WIDE_BLOCKS blocks; its scratch each query's two orders (C2 rounded
+    up to 4 pairs each) and bucket starts, and one partial (C * C2 + C2
+    floats) a span.  General (C2 > 256, K = 300): at most BWD_WIDE_BLOCKS
+    blocks, a group of 4 queries each; its scratch W transposed and a
+    partial a block."""
+    consts = _c_constants()
+    assert tuple(consts[k] for k in ("kWS", "kWQ", "kWMaxC2", "kMaxSmem", "kBQ")) == (
+        cross_tail_mod.BWD_WIDE_SLICE, cross_tail_mod.BWD_WIDE_QUERIES,
+        cross_tail_mod.BWD_WIDE_MAX_C2, cross_tail_mod._MAX_SMEM,
+        cross_tail_mod.BWD_WIDE_GENERAL_QUERIES)
+    smem = _c_function("bwd_wide_smem_floats")
+    for k, c2 in ((K, C2), (129, 256), (130, 256), (219, 1), (32, 255)):
+        assert cross_tail_mod._bwd_wide_smem(k, c2) == 4 * smem(k, c2)
+    assert 4 * smem(129, 256) <= cross_tail_mod._MAX_SMEM < 4 * smem(130, 256)
+    general = _c_function("bwd_wide_general_smem_floats")
+    for k, c, c2 in ((K, C, C2), (219, 64, 256), (220, 64, 256), (32, 128, 512)):
+        assert cross_tail_mod._bwd_wide_general_smem(k, c, c2) == 4 * general(k, c, c2)
+    form = cross_tail_mod.bwd_wide_form(K, C, C2)
+    assert form == ("bucketed" if C2 <= 256 and K < 300 else "general")
+    if form == "bucketed":
+        spans = cross_tail_mod.bwd_wide_spans(B, N, C)
+        slices = -(-C // consts["kWS"])
+        assert 1 <= spans <= -(-B * N // consts["kWQ"])
+        assert spans * slices <= cross_tail_mod.BWD_WIDE_BLOCKS or spans == 1
+    empty, sizes = torch.empty, []
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: sizes.append(a[0]) or empty(*a, **k))
+    tab, idx, base, w, _ = _tail_leaves(K, C, C2, N=N)
+    out = torch.zeros(1, N, C2)
+    amax = torch.zeros(1, N, C2, dtype=cross_tail_mod.argmax_dtype(K))
+    with monkeypatch.context() as m:
+        m.setattr(cross_tail_mod, "bwd_route", lambda *a: "cross_tail_bwd_wide")
+        cross_tail_mod.cross_tail_bwd(tab.detach(), idx, base.detach(), w.detach(), out, amax,
+                                      out)
+    [(name, args, _)] = launches
+    assert name == "cross_tail_bwd_wide"
+    if form == "general":
+        assert args[17] == min(cross_tail_mod.BWD_WIDE_BLOCKS, -(-N // consts["kBQ"]))
+        assert sizes[-1] == C * C2 + args[17] * (C * C2 + C2)
+        return
+    assert args[17] == cross_tail_mod.bwd_wide_spans(1, N, C)
+    # a query's orders, (gv, offset) pairs by bucket (each padded to 4
+    # entries) and by c2, and K + 1 bucket starts, rounded up to 4 entries;
+    # then a partial a span
+    up4 = lambda x: -(-x // 4) * 4
+    per_query = 2 * (up4(C2 + 3 * K) + up4(C2)) + up4(K + 1)
+    assert sizes[-1] == N * per_query + args[17] * (C * C2 + C2)
 
 
 def test_eval_attention_takes_the_kernel_past_4096_keys(launches):
