@@ -56,7 +56,21 @@ Phases, each fatal on failure:
      routes, the attention launches over more than 4096 keys, at 32768 the
      cost-volume tail's wide routes both ways, the median of the last 3
      steps, peak memory, one profiled step with its busy share and top
-     device ops);
+     device ops); remat (path ``train_remat``: ``loss_and_grads`` at
+     ``ModelConfig()``, B=2, dropout on, with and without remat from the same
+     weights and generator seed: the loss bit-equal, the gradients within
+     relative L2 1e-6 and each leaf within 1e-4, the running statistics and
+     the generator's state equal, every forward kernel of the four stages
+     launched again by the recompute; then 5 ``train_step``s each, their
+     median and peak memory; path ``stress_train_32768_remat``: the 32768
+     stress step with remat, 3 steps, median and peak memory); data
+     parallelism over NCCL at world size 1 in ``torchrun``'s environment
+     (path ``train_dp1``: ``dp_train_step`` bit-equal to ``train_step``
+     with dropout off, both under PyTorch's deterministic algorithms, a
+     second ``train_step`` repeating the first's bits; one DP step with
+     dropout on, finite; path ``train_cli_dp``: the train CLI with
+     ``--dp_impl shard_map --remat --grad_accum 2 --multihost`` for one
+     epoch, then ``--resume``); each new path's seconds logged;
   8. the op paths that reach the last four kernels (path "ops"): approx
      selection (``_topk_min_indices``) on the fusion query's distances at B=2,
      exact ``ops.knn`` over a 131072-point sweep (the blocked route), the
@@ -2462,24 +2476,27 @@ class counting_long_attention:
         importlib.import_module("mocopci_torch.kernels._lib").launch = self.saved
 
 
-def run_stress_train(kernels, n, dev):
-    """``create_train_state`` at ``stress_model_config(n)``, ``TrainConfig(
-    batch_size=1)``, seed 0, then STRESS_TRAIN_STEPS train steps at B=1 on
-    synthetic pairs of n points, approx kNN, dropout on (path
-    ``stress_train_<n>``): finite losses, every train kernel launched (FPS on
-    its cluster routes), the attention launches over more than 4096 keys,
-    the median step time of the last 3 (host clock, synchronized), peak
-    memory; then one profiled step (busy share, each FPS launch, the top
-    device ops)."""
+def run_stress_train(kernels, n, dev, remat=False, n_steps=STRESS_TRAIN_STEPS):
+    """``create_train_state`` at ``stress_model_config(n)`` (with ``remat``),
+    ``TrainConfig(batch_size=1)``, seed 0, then ``n_steps`` train steps at B=1
+    on synthetic pairs of n points, approx kNN, dropout on (path
+    ``stress_train_<n>``, ``_remat`` with remat): finite losses, every train
+    kernel launched (FPS on its cluster routes), the attention launches over
+    more than 4096 keys, the median step time of all but the first (host
+    clock, synchronized), peak memory; then, without remat, one profiled step
+    (busy share, each FPS launch, the top device ops)."""
+    import dataclasses
+
     from mocopci_torch import ops, stress_model_config
     from mocopci_torch.config import TrainConfig
     from mocopci_torch.data import SyntheticInterpolationDataset, batches
     from mocopci_torch.training import create_train_state, train_step
 
-    what = f"stress train {n}"
+    what = f"stress train {n}" + (" remat" if remat else "")
     ops.set_knn_mode("approx")
-    cfg, tcfg = stress_model_config(n), TrainConfig(batch_size=1)
-    data = SyntheticInterpolationDataset(length=STRESS_TRAIN_STEPS, num_points=n, seed=2)
+    cfg = dataclasses.replace(stress_model_config(n), remat=remat)
+    tcfg = TrainConfig(batch_size=1)
+    data = SyntheticInterpolationDataset(length=n_steps, num_points=n, seed=2)
     steps = list(batches(data, 1, shuffle=False))
     model, state = create_train_state(cfg, tcfg, steps_per_epoch=len(steps), device=dev)
     rng = torch.Generator(device=dev).manual_seed(0)
@@ -2517,7 +2534,8 @@ def run_stress_train(kernels, n, dev):
     log(f"{what}: stress_model_config({n}) B=1 step median {step_ms:.3f} ms over the last "
         f"{len(times) - 1} (first {times[0]:.1f} ms, all {', '.join(f'{t:.3f}' for t in times)}"
         f"), peak memory {peak:.1f} MiB; {card_line()}")
-    busy = profile_fps_calls(lambda: train_step(state, steps[0], rng), f"{what} step")
+    busy = {} if remat else profile_fps_calls(lambda: train_step(state, steps[0], rng),
+                                              f"{what} step")
     if "profile_device_ms" in busy:
         busy["busy_ms"] = (busy["profile_device_ms"] - busy["fps_traced_ms"]
                            + busy["fps_device_ms"])
@@ -2993,6 +3011,234 @@ def run_train_cli(kernels):
     return {"first": first["epochs"], "second": second["epochs"]}
 
 
+# the forward kernels of the four remat stages, which their recompute launches again
+REMAT_FWD_KERNELS = ("knn_approx", "cross_tail", "attention_train_fwd", "transformer_tail",
+                     "fusion_pair_planes", "fusion_head_train_fwd")
+REMAT_STEPS = 6
+# leaves whose gradient is exactly 0 in exact arithmetic: the biases before a
+# train-mode BatchNorm, and the refine head's last logit bias, which adds one
+# constant over the neighbours of a softmax
+ROUNDING_LEAVES = ZERO_GRAD_LEAVES | {"estimator.shape1.fc_gamma2.bias"}
+
+
+def grad_gaps(got, want):
+    """The whole gradient's relative L2 gap of ``got`` to ``want`` (name ->
+    tensor) and each leaf's; ``ROUNDING_LEAVES`` are measured against their
+    weight's gradient."""
+    d2 = g2 = 0.0
+    leaves = {}
+    for name, q in want.items():
+        gap = float(torch.linalg.vector_norm((got[name] - q).double()))
+        if name in ROUNDING_LEAVES:
+            leaves[name] = gap / float(torch.linalg.vector_norm(want[name[:-4] + "weight"]))
+            continue
+        norm = float(torch.linalg.vector_norm(q.double()))
+        leaves[name] = gap / max(norm, 1e-30)
+        d2, g2 = d2 + gap ** 2, g2 + norm ** 2
+    return (d2 / g2) ** 0.5, leaves
+
+
+def run_train_remat(kernels, dev):
+    """Path ``train_remat``: at ``ModelConfig()``, B=2, approx kNN, dropout on,
+    from the same weights (seed 0) and generator seed, ``loss_and_grads``
+    without and with remat: the loss bit-equal, the gradients within relative
+    L2 1e-6 and each leaf within 1e-4, the running statistics and the
+    generator's state after the step equal, more launches of every forward
+    kernel of the four stages with remat (the recompute); then REMAT_STEPS - 1
+    ``train_step``s each, their median and the peak memory of each."""
+    import dataclasses
+
+    from mocopci_torch import ModelConfig, ops
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.data import SyntheticInterpolationDataset, batches
+    from mocopci_torch.training import create_train_state, train_step
+    from mocopci_torch.training.loop import loss_and_grads
+
+    ops.set_knn_mode("approx")
+    tcfg = TrainConfig()
+    data = SyntheticInterpolationDataset(length=REMAT_STEPS * tcfg.batch_size,
+                                         num_points=ModelConfig().npoints, seed=2)
+    steps = list(batches(data, tcfg.batch_size, shuffle=False))
+    runs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(ModelConfig(), remat=remat)
+        model, state = create_train_state(cfg, tcfg, steps_per_epoch=len(steps), device=dev)
+        rng = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        aux = loss_and_grads(model, steps[0], rng, cfg, tcfg)
+        torch.cuda.synchronize()
+        run = {"launches": dict(kernels.LAUNCHES), "loss": {k: float(v) for k, v in aux.items()},
+               "loss_bits": {k: v.detach().clone() for k, v in aux.items()},
+               "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+               "stats": {n: b.clone() for n, b in model.named_buffers()},
+               "rng": rng.get_state(), "times": []}
+        for batch in steps[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, batch, rng)
+            torch.cuda.synchronize()
+            run["times"].append((time.perf_counter() - t0) * 1e3)
+        run["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        runs[remat] = run
+        del model, state
+    plain, remat = runs[False], runs[True]
+    whole, leaves = grad_gaps(remat["grads"], plain["grads"])
+    worst = sorted(leaves.items(), key=lambda kv: -kv[1])[:4]
+    loss_equal = all(torch.equal(remat["loss_bits"][k], v) for k, v in plain["loss_bits"].items())
+    stats_equal = all(torch.equal(remat["stats"][n], b) for n, b in plain["stats"].items())
+    rng_equal = torch.equal(remat["rng"], plain["rng"])
+    fewer = [k for k in REMAT_FWD_KERNELS if remat["launches"][k] <= plain["launches"][k]]
+    for name, run in (("without remat", plain), ("with remat", remat)):
+        log(f"train remat: {name}: loss {run['loss']['loss']!r}, launches of one step "
+            f"{ {k: run['launches'][k] for k in REMAT_FWD_KERNELS} }, train_step median "
+            f"{np.median(run['times']):.3f} ms of {len(run['times'])} "
+            f"({', '.join(f'{t:.3f}' for t in run['times'])}), peak memory "
+            f"{run['peak_mib']:.1f} MiB; {card_line()}")
+    log(f"train remat: loss bit-equal {loss_equal}, gradient rel L2 gap {whole:.3e} (limit "
+        f"1e-6), largest leaf gaps {worst} (limit 1e-4), running statistics equal "
+        f"{stats_equal}, generator state equal {rng_equal}")
+    if (not (loss_equal and stats_equal and rng_equal) or whole > 1e-6
+            or worst[0][1] > 1e-4 or fewer):
+        raise SystemExit(f"train remat: the remat step differs from the step without it, or "
+                         f"no recompute of {fewer}")
+    return remat["launches"], {
+        "step_ms": float(np.median(remat["times"])), "step_ms_plain": float(
+            np.median(plain["times"])), "peak_mib": remat["peak_mib"],
+        "peak_mib_plain": plain["peak_mib"], "grad_gap_whole": whole}
+
+
+class torchrun_env:
+    """Within: the environment ``torchrun`` gives rank 0 of one process on
+    this card (``env://`` on a free local port)."""
+
+    KEYS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+    def __enter__(self):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                          WORLD_SIZE="1", LOCAL_RANK="0")
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_train_dp1(kernels, dev):
+    """Path ``train_dp1``: the data-parallel step over NCCL at world size 1
+    (``parallel.init_distributed``, as ``torchrun`` starts it) at
+    ``ModelConfig()``, B=2, approx kNN.  Dropout off: ``dp_train_step``'s loss
+    components, gradients, parameters and running statistics bit-equal to
+    ``train_step``'s from the same weights.  The step's ``index_add_``s sum
+    by atomics, so these three steps run under PyTorch's deterministic
+    algorithms, and a second ``train_step`` must repeat the first's bits;
+    then one DP step with dropout on: finite values."""
+    import dataclasses
+
+    from mocopci_torch import ModelConfig, ops, parallel
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.data import SyntheticInterpolationDataset, batches
+    from mocopci_torch.training import create_train_state, train_step
+    from mocopci_torch.training.loop import dp_train_step
+
+    ops.set_knn_mode("approx")
+    tcfg = TrainConfig()
+    data = SyntheticInterpolationDataset(length=tcfg.batch_size,
+                                         num_points=ModelConfig().npoints, seed=6)
+    batch = next(iter(batches(data, tcfg.batch_size, shuffle=False)))
+    no_dropout = dataclasses.replace(ModelConfig(), attn_drop=0.0, proj_drop=0.0,
+                                     drop_path=0.0)
+
+    def one(step, cfg=no_dropout, rng=None):
+        model, state = create_train_state(cfg, tcfg, steps_per_epoch=1, device=dev)
+        _, aux = step(state, batch, rng)
+        torch.cuda.synchronize()
+        out = {"aux": {k: v.detach().clone() for k, v in aux.items()},
+               "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+               "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+               "stats": {n: b.clone() for n, b in model.named_buffers()}}
+        del model, state
+        return out
+
+    def same(a, b):
+        return [f"{part}.{k}" for part in a for k, v in a[part].items()
+                if not torch.equal(v, b[part][k])]
+
+    with torchrun_env():
+        if not parallel.init_distributed(dev):
+            raise SystemExit("train dp1: no process group started")
+        try:
+            backend = torch.distributed.get_backend()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                dp = one(lambda st, b, r: dp_train_step(st, b, r))
+                dp_s = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+                plain, control = one(train_step), one(train_step)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            rng = parallel.rank_generator(tcfg.seed, 0, dev)
+            dropout = one(lambda st, b, r: dp_train_step(st, b, r), ModelConfig(), rng)
+        finally:
+            parallel.shutdown_distributed()
+    differ, control_differ = same(dp, plain), same(control, plain)
+    finite = all(bool(torch.isfinite(v)) for v in dropout["aux"].values())
+    log(f"train dp1: backend {backend}, world 1; DP step {dp_s:.2f} s; loss "
+        f"{float(dp['aux']['loss'])!r}, train_step's {float(plain['aux']['loss'])!r}; "
+        f"tensors that differ from train_step's: DP step {len(differ)} {differ[:6]}, a second "
+        f"train_step {len(control_differ)} {control_differ[:6]}; dropout on: "
+        + json.dumps({k: round(float(v), 6) for k, v in dropout["aux"].items()}))
+    if backend != "nccl" or differ or control_differ or not finite:
+        raise SystemExit("train dp1: the DP step at world size 1 differs from train_step, "
+                         "or train_step from itself")
+    return launches, {"dp_step_s": dp_s, "control_differs": len(control_differ)}
+
+
+def run_train_cli_dp(kernels):
+    """Path ``train_cli_dp``: the train CLI in-process at ModelConfig() on 4
+    synthetic samples under NCCL at world size 1 (``torchrun``'s environment),
+    ``--dp_impl shard_map --remat --grad_accum 2 --multihost``: one epoch, then
+    ``--resume`` to the second."""
+    import shutil
+    import tempfile
+
+    from mocopci_torch.cli import train as cli_train
+
+    save_dir = tempfile.mkdtemp(prefix="mocopci_train_cli_dp_")
+    try:
+        common = ["--synthetic", "4", "--batch_size", "2", "--save_dir", save_dir,
+                  "--log_every", "1", "--dp_impl", "shard_map", "--remat", "--grad_accum", "2",
+                  "--multihost"]
+        kernels.reset_launches()
+        with torchrun_env():
+            first = cli_train.main(common + ["--epochs", "1"])
+        with torchrun_env():
+            second = cli_train.main(common + ["--epochs", "2", "--resume"])
+        launches = dict(kernels.LAUNCHES)
+        group_left = torch.distributed.is_initialized()
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    log(f"train cli dp: launches {launches}")
+    ok = (first["step"] == 2 and second["start_epoch"] == 1 and second["step"] == 4
+          and all(np.isfinite(v) for e in first["epochs"] + second["epochs"] for v in e.values()))
+    if not ok or group_left or launches["fusion_head_train_bwd"] == 0:
+        raise SystemExit(f"train cli dp: unexpected result {first} / {second}")
+    return launches, {"first": first["epochs"], "second": second["epochs"]}
+
+
 # device-kernel name fragment -> port kernel, for the profile breakdown
 KERNEL_SYMBOLS = {"fps_kernel": "fps", "fps_pyramid_kernel": "fps_pyramid",
                   "fps_cluster_kernel": "fps_cluster",
@@ -3134,6 +3380,16 @@ def main() -> int:
     stats["train_parity"] = run_train_parity(kernels, dev)
     paths["train_refine_k8"], stats["train_refine_k8"] = run_train_refine_k(kernels, dev)
     stats["train_cli"] = run_train_cli(kernels)
+    for name, path in (("train_remat", lambda: run_train_remat(kernels, dev)),
+                       ("stress_train_32768_remat", lambda: run_stress_train(
+                           kernels, 32768, dev, remat=True, n_steps=3)),
+                       ("train_dp1", lambda: run_train_dp1(kernels, dev)),
+                       ("train_cli_dp", lambda: run_train_cli_dp(kernels))):
+        t0 = time.perf_counter()
+        paths[name], stats[name] = path()
+        stats[name]["seconds"] = time.perf_counter() - t0
+        log(f"{name}: {stats[name]['seconds']:.1f} s")
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     paths["ops"], stats["ops"] = run_ops(kernels, cfg, dev)
     # each kernel's launches on the path it belongs to: the default forward,

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of MoCoPCI for one NVIDIA H100 (eval, and the train step
-on one device: ``mocopci_torch.training``).
+"""PyTorch/CUDA port of MoCoPCI for NVIDIA H100s (eval, and the train step:
+``mocopci_torch.training``, with remat and data parallelism over
+``torch.distributed``: ``mocopci_torch.parallel``).
 
 The JAX package ``mocopci_tpu`` is the reference; this package imports nothing
 of it.  Every Pallas kernel on those paths has a hand-written CUDA kernel in

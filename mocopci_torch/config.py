@@ -67,7 +67,10 @@ class ModelConfig:
     drop_path: float = 0.04
     # refine head downsample size
     refine_npoint: int = 2048
-    # decoder rematerialisation under autodiff: not ported yet, must stay False
+    # flag-gated decoder rematerialisation: under autograd in train mode the
+    # decoder stages multi_frame_up_2/1, the refine head and the fusion head
+    # keep no activations and run again in the backward
+    # (torch.utils.checkpoint): less peak memory for more step time
     remat: bool = False
 
     @property

@@ -74,11 +74,17 @@ def batches(
     drop_last: bool = True,
     seed: int = 0,
     prefetch: int = 2,
+    host_slice: Optional[slice] = None,
 ) -> Iterator[dict]:
     """Yield numpy batches {'pc1': (B,N,3), 'pc2': (B,N,3), 'gt': (B,F,N,3)}.
 
     The model consumes only the middle two of the four loaded frames
     (``train.py:131`` of the reference passes ``input[1], input[2]``).
+
+    ``host_slice`` (data parallelism, ``--multihost``): yield only this
+    rank's rows of each global batch (``parallel.host_batch_slice``); the
+    seeded order is the same on every rank, so each loads only its samples.
+    A rank that holds no rows gets batches of 0 rows.
     """
     order = np.arange(len(dataset))
     if shuffle:
@@ -90,6 +96,10 @@ def batches(
         return
 
     def make(idxs: Sequence[int]) -> dict:
+        if not len(idxs):
+            return {"pc1": np.zeros((0, 0, 3), np.float32),
+                    "pc2": np.zeros((0, 0, 3), np.float32),
+                    "gt": np.zeros((0, 0, 0, 3), np.float32)}
         pcs1, pcs2, gts = [], [], []
         for i in idxs:
             inputs, gt = dataset[int(i)]
@@ -102,7 +112,7 @@ def batches(
 
     def producer():
         for idxs in idx_batches:
-            q.put(make(idxs))
+            q.put(make(idxs if host_slice is None else idxs[host_slice]))
         q.put(None)
 
     threading.Thread(target=producer, daemon=True).start()

@@ -10,25 +10,36 @@
     statistics per frame group) in train.
   - ``MoCoPCI`` and the entry point :func:`interpolate`; ``MoCoPCI(...)(xyz1,
     xyz2, train=True, rng=generator)`` also returns the multi-scale frames the
-    training loss reads.
+    training loss reads.  With ``ModelConfig.remat`` the train forward under
+    autograd recomputes four decoder stages in the backward (JAX's
+    ``nn.remat`` sites: ``multi_frame_up_2``, ``multi_frame_up_1``,
+    ``_refine`` and ``_fusion``; :func:`remat_stage`).
 
 Channels-last (B, N, C) at every function, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mocopci_torch import ops
 from mocopci_torch.config import ModelConfig
 from mocopci_torch.device import resolve_device
 from mocopci_torch.kernels import fold_bn_dense, fusion_head_train, fusion_pair, fusion_pair_planes
 from mocopci_torch.nn.attention import CrossFrameBlock, EICrossformer, MultiFrameBlock
-from mocopci_torch.nn.basic import ConvLReLU, Dense, FrameBatchNorm, init_weights
+from mocopci_torch.nn.basic import (
+    ConvLReLU,
+    Dense,
+    FrameBatchNorm,
+    frozen_running_stats,
+    init_weights,
+)
 from mocopci_torch.nn.cross import (
     BidirectionalLayerFeatCosine,
     CrossLayerFeatCosine,
@@ -61,6 +72,35 @@ def area_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 def _rev_frames(x):
     return torch.flip(x, dims=(1,))
+
+
+def remat_stage(owner: nn.Module, fn, *args, rng: Optional[torch.Generator] = None):
+    """``fn(*args)``, with ``rng=rng`` where a generator is given, under
+    non-reentrant ``torch.utils.checkpoint``: the stage keeps no activations
+    and runs again in the backward.  Checkpoint's RNG stash covers only the
+    default generators, so the stage draws from a copy of ``rng`` made at its
+    start; the recompute draws from another copy of that state, so it replays
+    the forward's dropout masks, and ``rng`` ends where the stage without
+    remat leaves it.  During the recompute every ``FrameBatchNorm`` of
+    ``owner`` is frozen: the step's EMA moves the running statistics once."""
+    if rng is None:
+        def run(*a):
+            return fn(*a)
+    else:
+        start, end = rng.get_state(), []
+
+        def run(*a):
+            gen = torch.Generator(device=rng.device)
+            gen.set_state(start)
+            out = fn(*a, rng=gen)
+            if not end:
+                end.append(gen.get_state())
+            return out
+    out = checkpoint(run, *args, use_reentrant=False,
+                     context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats(owner)))
+    if rng is not None:
+        rng.set_state(end[0])
+    return out
 
 
 def _upsample_feats_and_frames(dense_xyz, sparse_xyz, feats, frames):
@@ -262,6 +302,15 @@ class MultiFrameEstimator(nn.Module):
         F = cfg.n_frames
         t_f, t_b = cfg.t_forward, cfg.t_backward
 
+        remat = cfg.remat and train and torch.is_grad_enabled()
+
+        def stage(fn, *args, rng=None):
+            """A decoder stage: under remat kept as no activations and run
+            again in the backward (:func:`remat_stage`)."""
+            if remat:
+                return remat_stage(self, fn, *args, rng=rng)
+            return fn(*args) if rng is None else fn(*args, rng=rng)
+
         fus1 = self.ei1(feat1s[1], feat2s[1], train)
         fus2 = self.ei2(feat1s[2], feat2s[2], train)
         fus3 = self.ei3(feat1s[3], feat2s[3], train)
@@ -285,12 +334,12 @@ class MultiFrameEstimator(nn.Module):
         feat2_l3_2 = self.deconv3_2(feat2_l3_2)
 
         # L2
-        frame2_f, f1n_l2_f, f2n_l2_f, _ = self.multi_frame_up_2(
-            pc1s[2], pc2s[2], feat1_l3_2, feat2_l3_2,
-            feat1s[2], fus2, feat2s[2], fus2, up_frame2_f, t_f, train, rng)
-        frame2_b, f2n_l2_b, f1n_l2_b, _ = self.multi_frame_up_2(
-            pc2s[2], pc1s[2], feat2_l3_2, feat1_l3_2,
-            feat2s[2], fus2, feat1s[2], fus2, up_frame2_b, t_b, train, rng)
+        frame2_f, f1n_l2_f, f2n_l2_f, _ = stage(
+            self.multi_frame_up_2, pc1s[2], pc2s[2], feat1_l3_2, feat2_l3_2,
+            feat1s[2], fus2, feat2s[2], fus2, up_frame2_f, t_f, train, rng=rng)
+        frame2_b, f2n_l2_b, f1n_l2_b, _ = stage(
+            self.multi_frame_up_2, pc2s[2], pc1s[2], feat2_l3_2, feat1_l3_2,
+            feat2s[2], fus2, feat1s[2], fus2, up_frame2_b, t_b, train, rng=rng)
 
         # L2 -> L1
         (feat1_l2_1_f, feat1_l2_1_b), up_frame1_f = _upsample_feats_and_frames(
@@ -303,12 +352,12 @@ class MultiFrameEstimator(nn.Module):
         feat2_l2_1_b = self.deconv2_1(feat2_l2_1_b)
 
         # L1
-        frame1_f, _, _, _ = self.multi_frame_up_1(
-            pc1s[1], pc2s[1], feat1_l2_1_f, feat2_l2_1_f,
-            feat1s[1], fus1, feat2s[1], fus1, up_frame1_f, t_f, train, rng)
-        frame1_b, _, _, _ = self.multi_frame_up_1(
-            pc2s[1], pc1s[1], feat2_l2_1_b, feat1_l2_1_b,
-            feat2s[1], fus1, feat1s[1], fus1, up_frame1_b, t_b, train, rng)
+        frame1_f, _, _, _ = stage(
+            self.multi_frame_up_1, pc1s[1], pc2s[1], feat1_l2_1_f, feat2_l2_1_f,
+            feat1s[1], fus1, feat2s[1], fus1, up_frame1_f, t_f, train, rng=rng)
+        frame1_b, _, _, _ = stage(
+            self.multi_frame_up_1, pc2s[1], pc1s[1], feat2_l2_1_b, feat1_l2_1_b,
+            feat2s[1], fus1, feat1s[1], fus1, up_frame1_b, t_b, train, rng=rng)
 
         # L1 -> L0; the backward branch uses time-reversed frame order
         _, up_frame0_f = _upsample_feat_and_frames(pc1s[0], pc1s[1], None, frame1_f)
@@ -322,8 +371,8 @@ class MultiFrameEstimator(nn.Module):
         base = torch.cat([warped_f[:, 0], warped_f[:, 1], warped_b[:, 2]], dim=0)
         feat0 = torch.cat([feat1s[0], feat1s[0], feat2s[0]], dim=0)
         flows = torch.cat([up_frame0_f[:, 0], up_frame0_f[:, 1], up_frame0_b[:, 2]], dim=0)
-        refine_out = self._refine(feat0, base, flows)
-        fused = self._fusion(base, refine_out, train)             # (3B, N, 3)
+        refine_out = stage(self._refine, feat0, base, flows)
+        fused = stage(self._fusion, base, refine_out, train)      # (3B, N, 3)
         out = torch.stack([fused[i * B:(i + 1) * B] for i in range(F)], dim=1)
         result = {"out": out}                                     # (B, 3, N, 3)
         if train:

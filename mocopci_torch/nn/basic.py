@@ -8,9 +8,13 @@ Train mode follows the JAX modules' arguments: ``train`` switches BatchNorm to
 batch statistics (and their running EMA), and a ``torch.Generator`` passed as
 ``rng`` turns dropout and stochastic depth on (``rng=None`` is JAX's
 ``deterministic=True``).  The port's random stream is its own, not flax's.
+Under remat (``ModelConfig.remat``) a checkpointed stage runs twice; its
+recompute replays the forward's draws and leaves the running statistics
+alone (``frozen_running_stats``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -158,12 +162,14 @@ class FrameBatchNorm(nn.Module):
     the last axis; with ``grouped_cf`` over axis 2 of (G, B, C, P) planes, per
     group.  ``train``: batch statistics, and the running statistics move by
     an EMA (momentum 0.1) of the items' mean and *unbiased* variance; else
-    the running statistics."""
+    the running statistics.  While ``frozen`` (a remat recompute) the running
+    statistics stay as they are."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.frozen = False
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -173,6 +179,8 @@ class FrameBatchNorm(nn.Module):
     def ema_update(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
         """Running statistics from per-item batch statistics (items, C) with
         ``n`` elements each (JAX's ``ema_stats=(mean, var, n)``)."""
+        if self.frozen:
+            return
         unbiased = var * (n / max(n - 1, 1))
         m = self.momentum
         self.running_mean.mul_(1 - m).add_(m * mean.mean(dim=0))
@@ -196,3 +204,17 @@ class FrameBatchNorm(nn.Module):
             n *= x.shape[a]
         self.ema_update(mean.reshape(x.shape[0], -1), var.reshape(x.shape[0], -1), n)
         return (x - mean) * torch.rsqrt(var + self.eps) * w + b
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within: no ``FrameBatchNorm`` of ``module`` moves its running statistics
+    (a remat recompute, which must not apply the step's EMA a second time)."""
+    norms = [m for m in module.modules() if isinstance(m, FrameBatchNorm)]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen = False

@@ -3,7 +3,10 @@
 optimizer's, the step, the epoch, the epoch's metrics and the steps per epoch
 the learning-rate schedule was built on.  Written to a temporary name and
 renamed, so a file that exists is whole; the newest ``max_to_keep`` stay.
-(Restoring the JAX package's Orbax checkpoints is not ported.)
+Under data parallelism rank 0 writes and every rank waits at a barrier
+until the file is there; every rank restores (the directory must be one
+that every rank sees).  (Restoring the JAX package's Orbax checkpoints is
+not ported.)
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from mocopci_torch.parallel import barrier, world
 from mocopci_torch.training.loop import TrainState
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -37,6 +41,13 @@ class CheckpointManager:
 
     def save(self, epoch: int, state: TrainState, metrics: Optional[Dict] = None,
              steps_per_epoch: int = 0) -> None:
+        """Rank 0 writes; every rank calls, and returns once the file is whole."""
+        if world()[0] == 0:
+            self._write(epoch, state, metrics, steps_per_epoch)
+        barrier()
+
+    def _write(self, epoch: int, state: TrainState, metrics: Optional[Dict],
+               steps_per_epoch: int) -> None:
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),

@@ -6,6 +6,8 @@ gradient, a global-norm clip at 2.0 with optax's rule (scale by clip / norm
 only when norm >= clip; no epsilon in the norm, unlike
 ``torch.nn.utils.clip_grad_norm_``), then AdamW (b1 0.9, b2 0.999, eps 1e-8,
 decoupled weight decay 1e-4) at the clipped StepLR rate of the step.
+``dp_train_step`` is the data-parallel step over ``torch.distributed``, the
+port of JAX's shard_map step (``make_sharded_train_step``).
 """
 from __future__ import annotations
 
@@ -13,11 +15,12 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from mocopci_torch import ops
 from mocopci_torch.config import ModelConfig, TrainConfig
 from mocopci_torch.models import MoCoPCI
-from mocopci_torch.training.loss import mocopci_loss
+from mocopci_torch.training.loss import LOSS_KEYS, mocopci_loss
 from mocopci_torch.training.schedule import lr_at
 
 
@@ -41,8 +44,6 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, steps_per
                        device=None) -> Tuple[MoCoPCI, TrainState]:
     """A model with weights drawn from ``train_cfg.seed`` (on the card unless
     ``device`` says otherwise) and its optimizer."""
-    if model_cfg.remat:
-        raise NotImplementedError("remat is not ported yet: see ROADMAP.md, section 1")
     model = MoCoPCI(model_cfg, device=device, seed=train_cfg.seed)
     return model, TrainState(model, make_optimizer(model, train_cfg), model_cfg, train_cfg,
                              steps_per_epoch)
@@ -106,6 +107,48 @@ def train_step(state: TrainState, batch: Dict,
     Returns the state (updated in place) and the loss components with
     ``grad_norm``, as 0-d tensors on the device."""
     aux = loss_and_grads(state.model, batch, rng, state.model_cfg, state.train_cfg)
+    aux["grad_norm"] = apply_update(state)
+    return state, aux
+
+
+def dp_train_step(state: TrainState, batch: Dict, rng: Optional[torch.Generator] = None,
+                  n_data: Optional[int] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The data-parallel train step (JAX's shard_map step): ``batch`` holds
+    this rank's rows of the global batch (``parallel.host_batch_slice``),
+    which the unchanged one-device :func:`loss_and_grads` takes in
+    ``grad_accum`` micro-batches; then one all-reduce over the default process
+    group of one flat buffer that holds every ``.grad`` (the zeros included),
+    the loss components and the BatchNorm running statistics after this
+    rank's EMA, divided by ``n_data``, the ranks that hold rows (default: the
+    world size).  A rank given no rows adds zeros.  Batch statistics stay per
+    rank, as ``torch.nn.DataParallel``'s and JAX's shard_map's do.  The clip
+    and AdamW then run alike on every rank (``grad_norm`` from the mean
+    gradients), so the parameters stay bit-equal across ranks.  ``rng``: this
+    rank's own generator (``parallel.rank_generator``).  Without a process
+    group it is :func:`train_step`."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return train_step(state, batch, rng)
+    model = state.model
+    n_data = dist.get_world_size() if n_data is None else n_data
+    has_rows = len(batch["pc1"]) > 0
+    if has_rows:
+        aux = loss_and_grads(model, batch, rng, state.model_cfg, state.train_cfg)
+    else:
+        for p in model.parameters():
+            p.grad = torch.zeros_like(p)
+        aux = {k: torch.zeros((), device=model.device) for k in LOSS_KEYS}
+    grads = [p.grad for p in model.parameters()]
+    values = [aux[k] for k in LOSS_KEYS]
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+    parts = grads + values + stats
+    flat = torch.cat([t.reshape(-1) for t in parts])
+    if not has_rows:
+        flat.zero_()
+    dist.all_reduce(flat)
+    flat /= n_data
+    for t, m in zip(parts, flat.split([t.numel() for t in parts])):
+        t.copy_(m.view_as(t))
+    aux = dict(zip(LOSS_KEYS, values))
     aux["grad_norm"] = apply_update(state)
     return state, aux
 

@@ -19,6 +19,10 @@ from mocopci_torch import ops
 from mocopci_torch.config import ModelConfig, TrainConfig
 
 
+# the loss components mocopci_loss returns, in this order
+LOSS_KEYS = ("loss", "loss_f", "loss_s_f", "loss_s_b", "loss_m_f", "loss_m_b")
+
+
 def gt_pyramid(gt: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, ...]:
     """gt (B, F, N, 3) -> ((B, F, n_l, 3) for n_l in [N, n1, n2, n3])."""
     B, F, N, _ = gt.shape

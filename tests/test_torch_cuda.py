@@ -1020,6 +1020,107 @@ def test_tiny_train_step_on_card_matches_cpu(card):
     assert (d2 / g2) ** 0.5 <= 1e-3
 
 
+def _train_batch(npoints, seed):
+    rng = np.random.default_rng(seed)
+    x1 = (rng.normal(size=(2, npoints, 3)) * 5).astype(np.float32)
+    flow = (0.3 * rng.normal(size=(2, 1, 3))).astype(np.float32)
+    return {"pc1": x1, "pc2": x1 + flow,
+            "gt": np.stack([x1 + flow * s for s in (0.25, 0.5, 0.75)], 1).astype(np.float32)}
+
+
+# leaves whose gradient is exactly 0 in exact arithmetic: the biases before a
+# train-mode BatchNorm, and the refine head's last logit bias, one constant
+# over the neighbours of a softmax
+ROUNDING_LEAVES = {f"estimator.fusion_conv{i}.bias" for i in range(3)} | {
+    "estimator.shape1.fc_gamma2.bias"}
+
+
+def test_remat_step_on_card_equals_the_step_without_remat(card):
+    """tiny_model_config(4096), B=2, approx kNN, dropout on, one generator
+    seed: ``loss_and_grads`` with remat against without, on the card.  The
+    loss bit-equal, the whole gradient within rel L2 1e-6 and each leaf
+    within 1e-4 (the backward's sums may run in another order; the
+    ``ROUNDING_LEAVES`` within 1e-4 of their weight's gradient), the running
+    statistics and the generator's state equal, and every forward kernel of
+    the four stages launched more often (the recompute)."""
+    import dataclasses
+
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.training.loop import loss_and_grads
+
+    batch = _train_batch(4096, 5)
+    runs = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(tiny_model_config(4096), remat=remat)
+        model = MoCoPCI(cfg, device="cuda", seed=1)
+        rng = torch.Generator(device="cuda").manual_seed(3)
+        kernels.reset_launches()
+        aux = loss_and_grads(model, batch, rng, cfg, TrainConfig())
+        runs.append((aux, {n: p.grad.clone() for n, p in model.named_parameters()},
+                     {n: b.clone() for n, b in model.named_buffers()}, rng.get_state(),
+                     dict(kernels.LAUNCHES)))
+    (a0, g0, s0, r0, l0), (a1, g1, s1, r1, l1) = runs
+    assert all(torch.equal(a1[k], v) for k, v in a0.items())
+    assert all(torch.equal(s1[n], b) for n, b in s0.items())
+    assert torch.equal(r1, r0)
+    d2 = n2 = 0.0
+    for name, g in g0.items():
+        err, norm = torch.linalg.vector_norm(g1[name] - g), torch.linalg.vector_norm(g)
+        if name in ROUNDING_LEAVES:
+            # exactly zero but for rounding: against their weight's gradient
+            assert err <= 1e-4 * torch.linalg.vector_norm(g0[name[:-4] + "weight"]), name
+            continue
+        assert err <= 1e-4 * norm + 1e-12, name
+        d2, n2 = d2 + err ** 2, n2 + norm ** 2
+    assert (d2 / n2) ** 0.5 <= 1e-6
+    for name in ("knn_approx", "cross_tail", "attention_train_fwd", "transformer_tail",
+                 "fusion_pair_planes", "fusion_head_train_fwd"):
+        assert l1[name] > l0[name], (name, l0, l1)
+
+
+def test_dp_step_at_world_one_is_train_step_bit_for_bit(card, monkeypatch):
+    """The data-parallel step over NCCL at world size 1 (the environment
+    torchrun sets), tiny_model_config(1024), B=2, dropout off: its loss
+    components, gradients, parameters and running statistics bit-equal to
+    ``train_step``'s from the same weights, both under PyTorch's
+    deterministic algorithms (the step's ``index_add_``s sum by atomics)."""
+    import dataclasses
+    import socket
+
+    from mocopci_torch import parallel
+    from mocopci_torch.config import TrainConfig
+    from mocopci_torch.training import create_train_state, train_step
+    from mocopci_torch.training.loop import dp_train_step
+
+    cfg = dataclasses.replace(tiny_model_config(1024), attn_drop=0.0, proj_drop=0.0,
+                              drop_path=0.0)
+    batch = _train_batch(1024, 6)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                           WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(key, value)
+    outs = []
+    assert parallel.init_distributed(card)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        for step in (train_step, lambda st, b, r: dp_train_step(st, b, r)):
+            model, state = create_train_state(cfg, TrainConfig(), steps_per_epoch=1,
+                                              device="cuda")
+            _, aux = step(state, batch, None)
+            outs.append((aux, {n: p.grad for n, p in model.named_parameters()},
+                         dict(model.named_parameters()), dict(model.named_buffers())))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        parallel.shutdown_distributed()
+    for want, got in zip(*outs):
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+
+
 # ---- op kernels (slice 4) ----
 
 @pytest.mark.parametrize("R,L,k,with_idx", [

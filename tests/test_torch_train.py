@@ -9,7 +9,6 @@ running statistics after the step.  Then the optimizer against optax,
 gradient accumulation, and the train CLI with a resume.
 """
 import dataclasses
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -27,28 +26,15 @@ from mocopci_torch import MoCoPCI, tiny_model_config
 from mocopci_torch.bridge import params_from_jax
 from mocopci_torch.config import TrainConfig
 from mocopci_torch.training.loop import TrainState, apply_update, loss_and_grads
-from tests.torch_parity import exact_knn, init_jax, np_tree  # noqa: F401  (fixture)
+from tests.torch_parity import (  # noqa: F401  (fixtures)
+    dynamo_importable,
+    exact_knn,
+    init_jax,
+    np_tree,
+)
 
 NPOINTS, B = 64, 2
 NO_DROPOUT = dict(attn_drop=0.0, proj_drop=0.0, drop_path=0.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def dynamo_importable():
-    """A ``torch.optim`` optimizer imports ``torch._dynamo`` on first use, which
-    reads the import spec of every module it knows, ``sklearn`` among them;
-    ``tests/ref_torch.py`` (imported at collection by the reference parity
-    tests, so in every test process) registers a spec-less stub under that
-    name.  Import it once with the stubs set aside."""
-    stubs = {name: mod for name, mod in sys.modules.items()
-             if name.split(".")[0] == "sklearn" and getattr(mod, "__spec__", True) is None}
-    for name in stubs:
-        del sys.modules[name]
-    try:
-        import torch._dynamo  # noqa: F401
-    finally:
-        sys.modules.update(stubs)
-    yield
 
 
 def _batch():
@@ -158,7 +144,7 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path):
     assert [e["epoch"] for e in second["epochs"]] == [1]
     assert all(np.isfinite(v) for v in second["epochs"][0].values())
     with pytest.raises(SystemExit, match="ROADMAP"):
-        cli_train.main(common + ["--remat"])
+        cli_train.main(common + ["--compute_dtype", "bfloat16"])
 
 
 def test_grad_accum_matches_full_batch_on_duplicated_sample():

@@ -6,6 +6,7 @@ Inputs and weights are made with numpy, run through the JAX module on the CPU
 """
 import contextlib
 import functools
+import sys
 
 import jax
 import numpy as np
@@ -50,6 +51,24 @@ def approx_knn():
     (on the CPU the JAX package then still selects exactly)."""
     with knn_mode("approx"):
         yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def dynamo_importable():
+    """A ``torch.optim`` optimizer imports ``torch._dynamo`` on first use, which
+    reads the import spec of every module it knows, ``sklearn`` among them;
+    ``tests/ref_torch.py`` (imported at collection by the reference parity
+    tests, so in every test process) registers a spec-less stub under that
+    name.  Import it once with the stubs set aside."""
+    stubs = {name: mod for name, mod in sys.modules.items()
+             if name.split(".")[0] == "sklearn" and getattr(mod, "__spec__", True) is None}
+    for name in stubs:
+        del sys.modules[name]
+    try:
+        import torch._dynamo  # noqa: F401
+    finally:
+        sys.modules.update(stubs)
+    yield
 
 
 def np_tree(variables):
